@@ -1,0 +1,371 @@
+"""Batched mapping pipeline with chaining on the GPU.
+
+Port of the chain-only part of mm2_gb_tpu/models/pipeline.py (the
+reference's split pipeline, map.c worker_for under __AMD_SPLIT_KERNELS__):
+reads are seeded on the host, their anchors accumulated into a
+macro-batch, chain-scored on the device in one launch, then backtracked
+and post-processed on the host and written in input order.
+
+`seed_read` and `finish_read` are copies of the JAX package's: their
+module imports the TPU chain kernel, and with it JAX.  Device alignment
+(--tpu-align prefill) is not part of this port yet.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from mm2_gb_tpu.models import hit as hitmod
+from mm2_gb_tpu.models.index import MinimizerIndex
+from mm2_gb_tpu.models.mapper import (_chain_gaps, _dbg_chain_dump,
+                                       _dbg_seed_dump, post_process)
+from mm2_gb_tpu.ops import chain as chain_ops
+from mm2_gb_tpu.ops import chain_rmq as rmq_ops
+from mm2_gb_tpu.ops import seed as seed_ops
+from mm2_gb_tpu.ops.sketch import sketch
+from mm2_gb_tpu.utils import ksort, native
+from mm2_gb_tpu.utils.fastx import SeqRecord, read_batches
+from mm2_gb_tpu.utils.hashkit import read_order_hash
+from mm2_gb_tpu.utils.opts import (MapOptions, MM_F_HEAP_SORT,
+                                   MM_F_NO_HASH_NAME, MM_F_NO_LJOIN,
+                                   MM_F_QSTRAND, MM_F_RMQ, MM_F_SPLICE,
+                                   MM_F_SR, MM_I_HPC)
+from mm2_gb_tpu_torch.ops import chain_gpu
+from mm2_gb_tpu_torch.utils.gpucfg import current_config
+
+INT32_MAX = 2**31 - 1
+
+
+@dataclass
+class SeededRead:
+    rec: SeqRecord
+    ax: np.ndarray
+    ay: np.ndarray
+    rep_len: int
+    mini_pos: np.ndarray
+    mv: np.ndarray | None = None  # retained for the max_occ re-chain
+
+
+def seed_read(index: MinimizerIndex, opt: MapOptions, rec: SeqRecord
+              ) -> SeededRead:
+    """Host seeding stage (mm_map_seed analog, map.c:355-391)."""
+    mm = sketch(rec.seq, index.w, index.k, 0, bool(index.flag & MM_I_HPC))
+    if opt.q_occ_frac > 0.0:
+        mm = seed_ops.seed_mz_flt(mm, opt.mid_occ, opt.q_occ_frac)
+    collect = (seed_ops.collect_seed_hits_heap
+               if opt.flag & MM_F_HEAP_SORT else
+               seed_ops.collect_seed_hits)
+    ax, ay, rep_len, mini_pos = collect(
+        index, opt, opt.mid_occ, mm, rec.length, rec.name)
+    return SeededRead(rec, ax, ay, rep_len, mini_pos, mm)
+
+
+def _chain_penalties(index: MinimizerIndex, opt: MapOptions
+                     ) -> tuple[np.float32, np.float32]:
+    """(chn_pen_gap, chn_pen_skip) in float32, as mm_mapopt_update
+    derives them from the scales and k."""
+    return (np.float32(float(np.float32(opt.chain_gap_scale)) * 0.01
+                       * index.k),
+            np.float32(float(np.float32(opt.chain_skip_scale)) * 0.01
+                       * index.k))
+
+
+def finish_read(index: MinimizerIndex, opt: MapOptions, sr: SeededRead,
+                f: np.ndarray, p: np.ndarray) -> list[hitmod.Region]:
+    """Backtrack device scores and run the standard post-chain path."""
+    qlen = sr.rec.length
+    max_drop = opt.bw if opt.bw < INT32_MAX else INT32_MAX
+    u, v = chain_ops.chain_backtrack(f, p, opt.min_cnt, opt.min_chain_score,
+                                     max_drop)
+    if u.shape[0] == 0:
+        u = np.empty(0, np.uint64)
+        cx = cy = np.empty(0, np.uint64)
+    else:
+        u, cx, cy = chain_ops.compact_chains(u, v, sr.ax, sr.ay)
+
+    chn_pen_gap, chn_pen_skip = _chain_penalties(index, opt)
+    # long-join rescue on the host (post_chaining_helper analog,
+    # map.c:428-484 — the reference also re-chains on the CPU after GPU).
+    # The OUTER condition makes the max_occ re-chain an else-if
+    # (map.c:698-709): when it holds, that branch is skipped even if the
+    # rescue emptied the chain set.
+    ljoin = (opt.bw_long > opt.bw
+             and (opt.flag & (MM_F_SPLICE | MM_F_SR | MM_F_NO_LJOIN)) == 0
+             and u.shape[0] > 1)
+    if ljoin:
+        cnt0 = int(u[0] & np.uint64(0xFFFFFFFF))
+        st = int(cy[0] & np.uint64(0xFFFFFFFF))
+        en = int(cy[cnt0 - 1] & np.uint64(0xFFFFFFFF))
+        if (qlen - (en - st) > opt.rmq_rescue_size
+                or en - st > qlen * opt.rmq_rescue_ratio):
+            perm = (native.radix_perm64(cx) if native.available()
+                    else ksort.radix_perm64(cx))
+            cx, cy = cx[perm], cy[perm]
+            u, cx, cy = rmq_ops.chain_rmq(
+                cx, cy, opt.max_gap, opt.rmq_inner_dist, opt.bw_long,
+                opt.max_chain_skip, opt.rmq_size_cap, opt.min_cnt,
+                opt.min_chain_score, chn_pen_gap, chn_pen_skip)
+
+    # max_occ re-chain (map.c:708-731): for a single-segment read the
+    # best-chain segment-count test degenerates, so this fires only when
+    # no chain survived at mid_occ.  We replicate the CPU reference (the
+    # byte-match target): re-collect from the retained minimizer vector
+    # with opt.max_occ and re-chain on the host.
+    if (not ljoin and opt.max_occ > opt.mid_occ and sr.rep_len > 0
+            and not (opt.flag & MM_F_RMQ)
+            and u.shape[0] == 0 and sr.mv is not None):
+        collect = (seed_ops.collect_seed_hits_heap
+                   if opt.flag & MM_F_HEAP_SORT else
+                   seed_ops.collect_seed_hits)
+        ax2, ay2, rep_len2, mini_pos2 = collect(
+            index, opt, opt.max_occ, sr.mv, qlen, sr.rec.name)
+        max_gap_qry, max_gap_ref = _chain_gaps(opt, qlen)
+        u, cx, cy = chain_ops.chain_dp(
+            ax2, ay2, max_gap_ref, max_gap_qry, opt.bw, opt.max_chain_skip,
+            opt.max_chain_iter, opt.min_cnt, opt.min_chain_score,
+            chn_pen_gap, chn_pen_skip, bool(opt.flag & MM_F_SPLICE), 1)
+        sr.rep_len, sr.mini_pos = rep_len2, mini_pos2
+
+    hash_ = read_order_hash(sr.rec.name, qlen, opt.seed,
+                            bool(opt.flag & MM_F_NO_HASH_NAME))
+    regs = hitmod.gen_regs(hash_, qlen, u, cx, cy,
+                           bool(opt.flag & MM_F_QSTRAND))
+    if index.n_alt:
+        hitmod.mark_alt(index, regs)
+        regs = hitmod.hit_sort(regs, opt.alt_drop)
+    if opt.dbg_print_seed:
+        _dbg_seed_dump(index, sr.ax, sr.ay, sr.rep_len)
+    if opt.dbg_print_seed or opt.dbg_print_chain:
+        _dbg_chain_dump(index, regs, cx, cy)
+    return post_process(index, opt, qlen, 1, [qlen], regs, cx, cy,
+                        sr.mini_pos, sr.rep_len, [sr.rec.seq])
+
+
+@dataclass
+class GpuMetrics:
+    """planalyze analog (gpu/planalyze.cu:59-86, plchain.cu:258-281):
+    per-stage wall time, device wait, kernel time and relaxation-pair
+    counts for the device chaining path, printed at -v >= 3."""
+    t_seed: float = 0.0      # host sketch+seed (mm_map_seed analog)
+    t_range: float = 0.0     # range selection + cutting (plrange analog)
+    t_pack: float = 0.0      # work list + pinned upload buffer
+    t_dispatch: float = 0.0  # upload + launch + readback enqueue
+    t_wait: float = 0.0      # blocked on device results
+    t_kernel: float = 0.0    # chain kernel time (CUDA events)
+    t_finish: float = 0.0    # backtrack + post + alignment (host)
+    n_reads: int = 0
+    n_anchors: int = 0
+    n_segs: int = 0
+    n_pairs: int = 0         # sum of ranges == anchor-pair relaxations
+    n_dispatch: int = 0      # kernel dispatches
+    n_batches: int = 0
+    n_spills: int = 0        # batches cut by anchor/read caps
+    n_host_hpc: int = 0      # batches chained on the host: non-uniform span
+
+    def __post_init__(self):
+        self.wall0 = time.perf_counter()
+
+    def report(self, verbose: int = 3) -> None:
+        if verbose < 3:
+            return
+        wall = time.perf_counter() - self.wall0
+        host = self.t_seed + self.t_range + self.t_pack + self.t_finish
+        rate = self.n_pairs / self.t_kernel / 1e9 if self.t_kernel else 0.0
+        w = sys.stderr.write
+        w(f"[M::gpu] {self.n_reads} reads, {self.n_anchors} anchors, "
+          f"{self.n_segs} segments in {self.n_batches} batches "
+          f"({self.n_spills} cap-split), {self.n_dispatch} kernel "
+          f"dispatches\n")
+        w(f"[M::gpu] host route: {self.n_host_hpc} HPC batches\n")
+        w(f"[M::gpu] pairs: {self.n_pairs}; kernel {self.t_kernel:.4f}s "
+          f"({rate:.3f} Gpairs/s)\n")
+        w(f"[M::gpu] time: seed {self.t_seed:.3f}s, "
+          f"range {self.t_range:.3f}s, "
+          f"pack {self.t_pack:.3f}s, dispatch {self.t_dispatch:.3f}s, "
+          f"device-wait {self.t_wait:.3f}s, finish {self.t_finish:.3f}s; "
+          f"host {host:.3f}s / wall {wall:.3f}s\n")
+
+
+def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
+                 metrics: GpuMetrics, pool=None):
+    """Seed reads and yield accumulation batches bounded by the device
+    capacity caps (mm_trbuf accumulate + overflow spill, map.c:886-922,
+    943-995).  Caps come from GpuConfig; mini-batch boundaries flush like
+    the reference's end-of-stream kt_for hook (kthread.c:52-55).
+
+    `pool` fans seeding out in 64-read chunks with ordered results (the
+    kt_for analog for the seed stage; the native sketch/lookup kernels
+    release the GIL)."""
+    cfg = current_config()
+    acc: list[SeededRead] = []
+    n_anch = 0
+    gidx = -1
+    for batch in read_batches(paths, opt.mini_batch_size):
+        for rec in batch:
+            gidx += 1
+            rec.rid = gidx
+            if opt.dbg_print_qname:  # QR dump (map.c:938-941)
+                sys.stderr.write(f"QR\t{rec.name}\t0\t{rec.length}\n")
+        for c0 in range(0, len(batch), 64):
+            chunk = batch[c0:c0 + 64]
+            t0 = time.perf_counter()
+            if pool is not None and len(chunk) > 1:
+                seeded = list(pool.map(
+                    lambda r: seed_read(index, opt, r), chunk))
+            else:
+                seeded = [seed_read(index, opt, r) for r in chunk]
+            metrics.t_seed += time.perf_counter() - t0
+            for sr in seeded:
+                metrics.n_reads += 1
+                metrics.n_anchors += int(sr.ax.shape[0])
+                if acc and (n_anch + sr.ax.shape[0] > cfg.max_anchors_batch
+                            or len(acc) >= cfg.max_reads_batch):
+                    metrics.n_spills += 1
+                    yield acc
+                    acc, n_anch = [], 0
+                acc.append(sr)
+                n_anch += int(sr.ax.shape[0])
+        if acc:
+            yield acc
+            acc, n_anch = [], 0
+
+
+def chain_args(index: MinimizerIndex, opt: MapOptions) -> dict:
+    """The device chaining parameters of a batch (qlen-independent), as
+    keyword arguments of chain_gpu.dispatch_scores."""
+    max_gap_qry, max_gap_ref = _chain_gaps(opt, 0)
+    chn_pen_gap, chn_pen_skip = _chain_penalties(index, opt)
+    return dict(max_dist_x=max_gap_ref, max_dist_y=max_gap_qry, bw=opt.bw,
+                max_iter=opt.max_chain_iter, cg=float(chn_pen_gap),
+                cs=float(chn_pen_skip),
+                is_cdna=bool(opt.flag & MM_F_SPLICE))
+
+
+def _dispatch_batch(index: MinimizerIndex, opt: MapOptions,
+                    acc: list[SeededRead], metrics: GpuMetrics,
+                    device: torch.device, stream=None):
+    """Concatenate a batch's anchors and launch device scoring (async)."""
+    metrics.n_batches += 1
+    bounds = np.zeros(len(acc) + 1, dtype=np.int64)
+    for i, sr in enumerate(acc):
+        bounds[i + 1] = bounds[i] + sr.ax.shape[0]
+    if bounds[-1] == 0:
+        return acc, bounds, chain_gpu.PendingScores(0)
+    ax = np.concatenate([sr.ax for sr in acc])
+    ay = np.concatenate([sr.ay for sr in acc])
+    pend = chain_gpu.dispatch_scores(ax, ay, bounds, metrics=metrics,
+                                     device=device, stream=stream,
+                                     **chain_args(index, opt))
+    return acc, bounds, pend
+
+
+def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
+                  pool=None) -> list[tuple[SeededRead, list]]:
+    """Run finish_read over a batch's (sr, f, p) slices with ordered
+    results — on `pool` when given (the kt_for analog, kthread.c:59-82:
+    per-read work fans out, output order is the input order).  Debug
+    dump modes stay sequential so their stderr interleaving matches the
+    reference's -t 1 requirement (main.c:209,213)."""
+    if (pool is not None and len(slices) > 1
+            and not (opt.dbg_print_seed or opt.dbg_print_chain
+                     or opt.dbg_print_qname)):
+        futs = [pool.submit(finish_read, index, opt, sr, fp, pp)
+                for sr, fp, pp in slices]
+        return [(sl[0], fu.result()) for sl, fu in zip(slices, futs)]
+    return [(sr, finish_read(index, opt, sr, fp, pp))
+            for sr, fp, pp in slices]
+
+
+def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
+                  metrics: GpuMetrics, pool=None
+                  ) -> list[tuple[SeededRead, list]]:
+    """Collect device scores, backtrack and post-process one batch."""
+    acc, bounds, pend = batch
+    t0 = time.perf_counter()
+    f, p = pend.collect()
+    metrics.t_wait += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slices = []
+    for i, sr in enumerate(acc):
+        s, e = int(bounds[i]), int(bounds[i + 1])
+        fp = f[s:e]
+        pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
+        slices.append((sr, fp, pp))
+    out = finish_slices(index, opt, slices, pool)
+    metrics.t_finish += time.perf_counter() - t0
+    return out
+
+
+def map_batch_gpu(index: MinimizerIndex, opt: MapOptions,
+                  records: list[SeqRecord],
+                  device: torch.device | str = "cuda"
+                  ) -> list[tuple[SeededRead, list]]:
+    """Seed + device-chain + finish one batch of reads (synchronous)."""
+    metrics = GpuMetrics()
+    acc = [seed_read(index, opt, rec) for rec in records]
+    return _finish_batch(index, opt, _dispatch_batch(
+        index, opt, acc, metrics, torch.device(device)), metrics)
+
+
+def map_file_gpu_records(index: MinimizerIndex, opt: MapOptions,
+                         paths: list[str],
+                         metrics: GpuMetrics | None = None,
+                         n_threads: int = 1,
+                         device: torch.device | str = "cuda"):
+    """Stream (SeededRead, regions) for query files, chaining on the GPU.
+
+    Software-pipelined double buffering (the trbuf/stream analog,
+    map.c:1017-1084 + plchain.cu:292-306): batch N is dispatched to the
+    device before batch N-1's host backtrack/output runs, and the host
+    seeds batch N+1 while batch N is in flight.  One dispatch worker
+    keeps range selection and the upload off the main thread; every
+    batch's upload, kernel and readback go on one side stream.
+    n_threads > 1 also fans the per-read host seed and finish out over
+    a thread pool (kt_for analog; ordered emit)."""
+    from concurrent.futures import ThreadPoolExecutor
+    metrics = metrics or GpuMetrics()
+    device = torch.device(device)
+    stream = (torch.cuda.Stream(device=device) if device.type == "cuda"
+              else None)
+    ex = ThreadPoolExecutor(max_workers=1)
+    pool = (ThreadPoolExecutor(max_workers=n_threads)
+            if n_threads > 1 else None)
+    try:
+        pending = None
+        for acc in _acc_batches(index, opt, paths, metrics, pool):
+            fut = ex.submit(_dispatch_batch, index, opt, acc, metrics,
+                            device, stream)
+            if pending is not None:
+                yield from _finish_batch(index, opt, pending.result(),
+                                         metrics, pool)
+            pending = fut
+        if pending is not None:
+            yield from _finish_batch(index, opt, pending.result(), metrics,
+                                     pool)
+    finally:
+        ex.shutdown(wait=True)
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+
+def map_file_gpu(index: MinimizerIndex, opt: MapOptions,
+                 paths: list[str], device: torch.device | str = "cuda"):
+    """Stream PAF lines for query files, chaining on the GPU."""
+    from mm2_gb_tpu.utils.opts import MM_F_NO_PRINT_2ND, MM_F_PAF_NO_HIT
+    from mm2_gb_tpu.utils.paf import write_paf
+    for sr, regs in map_file_gpu_records(index, opt, paths, device=device):
+        if regs:
+            for r in regs:
+                if (opt.flag & MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                    continue
+                yield write_paf(r, sr.rec.name, sr.rec.length, index,
+                                opt.flag, sr.rep_len, sr.rec.comment,
+                                sr.rec.seq)
+        elif opt.flag & MM_F_PAF_NO_HIT:
+            yield write_paf(None, sr.rec.name, sr.rec.length, index,
+                            opt.flag, sr.rep_len)

@@ -1,0 +1,82 @@
+"""The port's CUDA kernel on the card (`gpu` marker; skips without CUDA).
+
+Run on a machine with a GPU:
+    python -m pytest tests/test_torch_gpu.py -m gpu -q
+This file imports no JAX, so it runs where only PyTorch is installed.
+The kernel must equal its plain PyTorch twin and the host oracle element
+for element (tolerance 0: scores and predecessors are integers).
+"""
+
+import gzip
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import kernel_operands, workloads
+from mm2_gb_tpu.ops.chain import _chain_dp_scores
+from mm2_gb_tpu.utils.hashkit import mg_log2
+from mm2_gb_tpu_torch.ops import chain_gpu
+
+pytestmark = pytest.mark.gpu
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+WORKLOADS = list(workloads())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name,ax,ay,a", WORKLOADS,
+                         ids=[w[0] for w in WORKLOADS])
+def test_kernel_matches_twin_and_oracle(cuda, name, ax, ay, a):
+    bounds = np.array([0, ax.shape[0]], np.int64)
+    ops, kw, _ = kernel_operands(ax, ay, bounds, a, cuda)
+    before = chain_gpu.launches
+    f, p = chain_gpu.chain_segments(*ops, **kw)
+    ft, pt = chain_gpu.chain_segments_torch(*ops, **kw)
+    torch.cuda.synchronize()
+    assert chain_gpu.launches == before + 1
+    assert torch.equal(f, ft) and torch.equal(p, pt)
+    fo, po = _chain_dp_scores(ax, ay, kw["max_dist_x"], kw["max_dist_y"],
+                              a["bw"], 2**31 - 1, a["max_iter"],
+                              np.float32(a["cg"]), np.float32(a["cs"]),
+                              a["is_cdna"], 1)
+    assert np.array_equal(f.cpu().numpy(), fo)
+    prel = p.cpu().numpy().astype(np.int64)
+    assert np.array_equal(np.where(prel > 0, np.arange(prel.shape[0]) - prel,
+                                   -1), po)
+
+
+def test_mg_log2_kernel_bits(cuda):
+    dd = np.concatenate([np.arange(1, 4096),
+                         np.random.default_rng(0).integers(1, 2**24, 5000)])
+    x = (dd + 1).astype(np.float32)
+    got = chain_gpu.mg_log2_kernel(torch.from_numpy(x).to(cuda))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          mg_log2(x).view(np.uint32))
+
+
+@pytest.mark.parametrize("flags,ref,query,golden", [
+    ([], "simref.fa.gz", "simreads.fa.gz", "sim200.skipinf.paf.gz"),
+    (["--cs", "-c"], "simref.fa.gz", "simreads.fa.gz",
+     "sim200.skipinf.cs.paf.gz"),
+    (["-x", "splice", "-c"], "splice_genome.fa.gz", "splice_reads.fa.gz",
+     "splice40.skipinf.c.paf.gz"),
+], ids=["sim200", "sim200_cs_c", "splice40_is_cdna"])
+def test_gpu_chain_cli_matches_golden(cuda, flags, ref, query, golden,
+                                      capsys):
+    from mm2_gb_tpu_torch.cli import main
+    before = chain_gpu.launches
+    rc = main(["--gpu-chain", "--max-chain-skip=2147483647", *flags,
+               os.path.join(GOLDEN, ref), os.path.join(GOLDEN, query)])
+    assert rc == 0
+    assert chain_gpu.launches > before
+    with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
+        assert capsys.readouterr().out == f.read()
