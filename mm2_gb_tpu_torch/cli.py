@@ -10,8 +10,10 @@ package's (mm2_gb_tpu.cli; none of it imports JAX).  Without --gpu-chain
 the run is the JAX package's host path.  With it, this module's `_run`
 builds or loads the index and maps through models.pipeline, which
 chains on the CUDA device; a run with no CUDA device fails rather than
-falling back to the CPU.  Multi-part indexes and fragment mode keep the
-host chaining routes (with the JAX package's warnings).
+falling back to the CPU.  --gpu-align (the JAX package's --tpu-align)
+adds the gap fills of -c runs on the device.  Multi-part indexes and
+fragment mode keep the host chaining routes (with the JAX package's
+warnings).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from mm2_gb_tpu.cli import apply_overrides, build_parser, res_regs_out
 from mm2_gb_tpu.utils import opts as O
 
 # device features of the JAX package that this port does not have yet
+# (the --gpu-align routes it lacks are refused in _run, once the options
+# are final)
 _NOT_PORTED = (
-    (lambda a: a.tpu_align, "--tpu-align/--gpu-align"),
     (lambda a: a.tpu_devices != 1, "--tpu-devices != 1"),
     (lambda a: a.tpu_nproc > 1, "--tpu-nproc > 1"),
     (lambda a: a.tpu_profile is not None, "--tpu-profile"),
@@ -34,14 +37,20 @@ _MULTIPART_WARNING = ("[WARNING] --tpu-chain with a multi-part index "
                       "back to host chaining.\n")
 
 
+def parse_args(argv: list[str]):
+    """(argv, args) as the run sees them: --cs takes an OPTIONAL =fmt
+    (main.c:231-236), and --gpu-align is the parser's --tpu-align."""
+    argv = ["--cs=short" if a == "--cs" else
+            "--tpu-align" if a == "--gpu-align" else a for a in argv]
+    return argv, build_parser().parse_args(argv)
+
+
 def main(argv: list[str] | None = None) -> int:
     from mm2_gb_tpu import cli as host_cli
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if not argv:
         return host_cli.main(argv)   # the reference-style usage block
-    # --cs takes an OPTIONAL =fmt (main.c:231-236)
-    argv = ["--cs=short" if a == "--cs" else a for a in argv]
-    args = build_parser().parse_args(argv)
+    argv, args = parse_args(argv)
     for given, flag in _NOT_PORTED:
         if given(args):
             sys.stderr.write(f"[ERROR] {flag} is not yet ported to "
@@ -63,11 +72,6 @@ def main(argv: list[str] | None = None) -> int:
         if not args.tpu_chain:
             return host_cli._run(args, argv, io, mo)
         import torch
-        if not torch.cuda.is_available():
-            sys.stderr.write("[ERROR] --gpu-chain needs a CUDA device and "
-                             "PyTorch sees none; run without --gpu-chain "
-                             "for the host path.\n")
-            return 1
         return _run(args, argv, io, mo, torch.device("cuda"))
     except FileNotFoundError as e:  # main.c:414 open-failure message
         sys.stderr.write(f"[ERROR] failed to open file '{e.filename}': "
@@ -82,8 +86,12 @@ def _parse_batch_size(s: str) -> int:
 
 
 def _run(args, argv, io, mo, device) -> int:
-    """The --gpu-chain run (follows mm2_gb_tpu/cli.py:525-752)."""
+    """The --gpu-chain run (follows mm2_gb_tpu/cli.py:525-752) on
+    `device`; a CUDA device must be present."""
+    import torch
+
     from mm2_gb_tpu.models.index import MinimizerIndex, _is_mmi
+    from mm2_gb_tpu_torch.models.pipeline import unported_align_route
     apply_overrides(args, io, mo)
     if (mo.flag & O.MM_F_SPLICE) and (mo.flag & O.MM_F_FRAG_MODE):
         sys.stderr.write("[ERROR] --splice and --frag should not be "
@@ -93,6 +101,17 @@ def _run(args, argv, io, mo, device) -> int:
         O.check_opt(io, mo)
     except ValueError as e:
         sys.stderr.write(f"[ERROR] {e}\n")
+        return 1
+    route = (None if mo.flag & O.MM_F_FRAG_MODE   # chains on the host
+             else unported_align_route(mo))
+    if route is not None:
+        sys.stderr.write(f"[ERROR] {route} is not yet ported to "
+                         "mm2_gb_tpu_torch; use mm2_gb_tpu for it.\n")
+        return 1
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.stderr.write("[ERROR] --gpu-chain needs a CUDA device and "
+                         "PyTorch sees none; run without --gpu-chain "
+                         "for the host path.\n")
         return 1
     if args.output and args.output != "-":
         try:

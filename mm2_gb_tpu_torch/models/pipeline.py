@@ -7,8 +7,13 @@ macro-batch, chain-scored on the device in one launch, then backtracked
 and post-processed on the host and written in input order.
 
 `seed_read` and `finish_read` are copies of the JAX package's: their
-module imports the TPU chain kernel, and with it JAX.  Device alignment
-(--tpu-align prefill) is not part of this port yet.
+module imports the TPU chain kernel, and with it JAX.
+
+With --gpu-align (and -c), each batch's gap fills run on the device
+between the readback and the host finish (`_prefill_native`): a collect
+pass of the C++ aligner records every APPROX_MAX fill, the fill and
+backtrack kernels solve them (ops/ksw2_gpu.extd2_fill_batch), and the
+real pass reads the results from the aligner's table.
 """
 
 from __future__ import annotations
@@ -31,11 +36,11 @@ from mm2_gb_tpu.ops.sketch import sketch
 from mm2_gb_tpu.utils import ksort, native
 from mm2_gb_tpu.utils.fastx import SeqRecord, read_batches
 from mm2_gb_tpu.utils.hashkit import read_order_hash
-from mm2_gb_tpu.utils.opts import (MapOptions, MM_F_HEAP_SORT,
+from mm2_gb_tpu.utils.opts import (MapOptions, MM_F_CIGAR, MM_F_HEAP_SORT,
                                    MM_F_NO_HASH_NAME, MM_F_NO_LJOIN,
                                    MM_F_QSTRAND, MM_F_RMQ, MM_F_SPLICE,
-                                   MM_F_SR, MM_I_HPC)
-from mm2_gb_tpu_torch.ops import chain_gpu
+                                   MM_F_SR, MM_F_TPU_ALIGN, MM_I_HPC)
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
 from mm2_gb_tpu_torch.utils.gpucfg import current_config
 
 INT32_MAX = 2**31 - 1
@@ -76,8 +81,10 @@ def _chain_penalties(index: MinimizerIndex, opt: MapOptions
 
 
 def finish_read(index: MinimizerIndex, opt: MapOptions, sr: SeededRead,
-                f: np.ndarray, p: np.ndarray) -> list[hitmod.Region]:
-    """Backtrack device scores and run the standard post-chain path."""
+                f: np.ndarray, p: np.ndarray,
+                dump: bool = True) -> list[hitmod.Region]:
+    """Backtrack device scores and run the standard post-chain path.
+    `dump` False (the fill collect pass) writes no debug dump."""
     qlen = sr.rec.length
     max_drop = opt.bw if opt.bw < INT32_MAX else INT32_MAX
     u, v = chain_ops.chain_backtrack(f, p, opt.min_cnt, opt.min_chain_score,
@@ -138,9 +145,9 @@ def finish_read(index: MinimizerIndex, opt: MapOptions, sr: SeededRead,
     if index.n_alt:
         hitmod.mark_alt(index, regs)
         regs = hitmod.hit_sort(regs, opt.alt_drop)
-    if opt.dbg_print_seed:
+    if dump and opt.dbg_print_seed:
         _dbg_seed_dump(index, sr.ax, sr.ay, sr.rep_len)
-    if opt.dbg_print_seed or opt.dbg_print_chain:
+    if dump and (opt.dbg_print_seed or opt.dbg_print_chain):
         _dbg_chain_dump(index, regs, cx, cy)
     return post_process(index, opt, qlen, 1, [qlen], regs, cx, cy,
                         sr.mini_pos, sr.rep_len, [sr.rec.seq])
@@ -166,9 +173,15 @@ class GpuMetrics:
     n_batches: int = 0
     n_spills: int = 0        # batches cut by anchor/read caps
     n_host_hpc: int = 0      # batches chained on the host: non-uniform span
+    # --gpu-align gap fills (_prefill_native)
+    fills: ksw2_gpu.FillStats = None
+    t_collect: float = 0.0   # the C++ aligner's collect pass
+    t_table: float = 0.0     # loading the results into its table
 
     def __post_init__(self):
         self.wall0 = time.perf_counter()
+        if self.fills is None:
+            self.fills = ksw2_gpu.FillStats()
 
     def report(self, verbose: int = 3) -> None:
         if verbose < 3:
@@ -189,6 +202,16 @@ class GpuMetrics:
           f"pack {self.t_pack:.3f}s, dispatch {self.t_dispatch:.3f}s, "
           f"device-wait {self.t_wait:.3f}s, finish {self.t_finish:.3f}s; "
           f"host {host:.3f}s / wall {wall:.3f}s\n")
+        fs = self.fills
+        if fs.fills:
+            gcups = fs.cells / fs.fill_ms / 1e6 if fs.fill_ms else 0.0
+            w(f"[M::gpu] fills: {fs.fills} ({fs.device_fills} device, "
+              f"{fs.host_fills} host-routed) in {fs.chunks} chunks; "
+              f"{fs.cells} cells; fill kernel {fs.fill_ms:.3f} ms "
+              f"({gcups:.3f} GCUPS), backtrack kernel "
+              f"{fs.backtrack_ms:.3f} ms; collect {self.t_collect:.3f}s, "
+              f"device batch {fs.batch_s:.3f}s, table "
+              f"{self.t_table:.3f}s\n")
 
 
 def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
@@ -270,21 +293,93 @@ def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
     results — on `pool` when given (the kt_for analog, kthread.c:59-82:
     per-read work fans out, output order is the input order).  Debug
     dump modes stay sequential so their stderr interleaving matches the
-    reference's -t 1 requirement (main.c:209,213)."""
-    if (pool is not None and len(slices) > 1
-            and not (opt.dbg_print_seed or opt.dbg_print_chain
-                     or opt.dbg_print_qname)):
-        futs = [pool.submit(finish_read, index, opt, sr, fp, pp)
+    reference's -t 1 requirement (main.c:209,213).  Closes the native
+    fill session however the pass ends, so the C++ aligner never answers
+    a later batch from this batch's table."""
+    try:
+        if (pool is not None and len(slices) > 1
+                and not (opt.dbg_print_seed or opt.dbg_print_chain
+                         or opt.dbg_print_qname)):
+            futs = [pool.submit(finish_read, index, opt, sr, fp, pp)
+                    for sr, fp, pp in slices]
+            return [(sl[0], fu.result()) for sl, fu in zip(slices, futs)]
+        return [(sr, finish_read(index, opt, sr, fp, pp))
                 for sr, fp, pp in slices]
-        return [(sl[0], fu.result()) for sl, fu in zip(slices, futs)]
-    return [(sr, finish_read(index, opt, sr, fp, pp))
-            for sr, fp, pp in slices]
+    finally:
+        if native.available():
+            native.fill_mode(0)   # drop any native fill table/session
+
+
+def use_device_align(opt: MapOptions) -> bool:
+    """The JAX pipeline's _use_device_align: --gpu-align fills run on the
+    device for -c runs with dual gap costs, except -x sr (and splice runs
+    whose q2 is no intron open)."""
+    if not (opt.flag & MM_F_TPU_ALIGN) or not (opt.flag & MM_F_CIGAR):
+        return False
+    if opt.flag & MM_F_SR:
+        return False
+    if opt.flag & MM_F_SPLICE:  # exts2 device fills (q2 is intron open)
+        return opt.q2 > opt.q + opt.e
+    return not (opt.q == opt.q2 and opt.e == opt.e2)
+
+
+def unported_align_route(opt: MapOptions) -> str | None:
+    """What of a --gpu-align run this port cannot carry yet (the JAX
+    package sends these to its Python fill session, _prefill_device),
+    or None."""
+    if not use_device_align(opt):
+        return None
+    if opt.flag & MM_F_SPLICE:
+        return "--gpu-align with -x splice (exts2 fills)"
+    if opt.flag & MM_F_QSTRAND:
+        return "--gpu-align with --qstrand"
+    if opt.dbg_print_aln_seq:
+        return "--gpu-align with --print-aln-seq"
+    if not native.available():
+        return "--gpu-align without the native kit (csrc)"
+    return None
+
+
+def _prefill_native(index: MinimizerIndex, opt: MapOptions, slices: list,
+                    metrics: GpuMetrics, device: torch.device) -> None:
+    """Device gap fills of one batch (the JAX pipeline's _prefill_native):
+    the C++ aligner records every APPROX_MAX gap fill in a collect
+    pass (and answers it with a fake), the kernels solve them, and the
+    results go into the aligner's table, which the real pass
+    (finish_slices) reads.  The collect pass writes no debug dump."""
+    route = unported_align_route(opt)
+    if route is not None:
+        raise NotImplementedError(f"{route} is not yet ported")
+    t0 = time.perf_counter()
+    native.fill_mode(1)
+    try:
+        for sr, fp, pp in slices:
+            finish_read(index, opt, sr, fp, pp, dump=False)
+        meta, qblob, tblob = native.fill_fetch()
+        metrics.t_collect += time.perf_counter() - t0
+        scores, cig_off, cig_blob = ksw2_gpu.extd2_fill_batch(
+            meta, qblob, tblob, ksw2_gpu.fill_params(opt), device,
+            stats=metrics.fills)
+        t0 = time.perf_counter()
+        qoff = np.zeros(meta.shape[0] + 1, np.int64)
+        toff = np.zeros(meta.shape[0] + 1, np.int64)
+        np.cumsum(meta[:, 0], out=qoff[1:])
+        np.cumsum(meta[:, 1], out=toff[1:])
+        # duplicate keys dedup C-side (first entry wins; results identical)
+        native.fill_table_bulk(meta, qoff, qblob, toff, tblob, scores,
+                               cig_off, cig_blob)
+        native.fill_mode(2)
+        metrics.t_table += time.perf_counter() - t0
+    except BaseException:
+        native.fill_mode(0)
+        raise
 
 
 def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
-                  metrics: GpuMetrics, pool=None
+                  metrics: GpuMetrics, pool, device: torch.device
                   ) -> list[tuple[SeededRead, list]]:
-    """Collect device scores, backtrack and post-process one batch."""
+    """Collect device scores, run the batch's device gap fills
+    (--gpu-align), backtrack and post-process one batch."""
     acc, bounds, pend = batch
     t0 = time.perf_counter()
     f, p = pend.collect()
@@ -296,6 +391,8 @@ def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
         fp = f[s:e]
         pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
         slices.append((sr, fp, pp))
+    if use_device_align(opt):
+        _prefill_native(index, opt, slices, metrics, device)
     out = finish_slices(index, opt, slices, pool)
     metrics.t_finish += time.perf_counter() - t0
     return out
@@ -307,9 +404,10 @@ def map_batch_gpu(index: MinimizerIndex, opt: MapOptions,
                   ) -> list[tuple[SeededRead, list]]:
     """Seed + device-chain + finish one batch of reads (synchronous)."""
     metrics = GpuMetrics()
+    device = torch.device(device)
     acc = [seed_read(index, opt, rec) for rec in records]
     return _finish_batch(index, opt, _dispatch_batch(
-        index, opt, acc, metrics, torch.device(device)), metrics)
+        index, opt, acc, metrics, device), metrics, None, device)
 
 
 def map_file_gpu_records(index: MinimizerIndex, opt: MapOptions,
@@ -342,11 +440,11 @@ def map_file_gpu_records(index: MinimizerIndex, opt: MapOptions,
                             device, stream)
             if pending is not None:
                 yield from _finish_batch(index, opt, pending.result(),
-                                         metrics, pool)
+                                         metrics, pool, device)
             pending = fut
         if pending is not None:
             yield from _finish_batch(index, opt, pending.result(), metrics,
-                                     pool)
+                                     pool, device)
     finally:
         ex.shutdown(wait=True)
         if pool is not None:

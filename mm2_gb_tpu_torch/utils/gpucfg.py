@@ -74,6 +74,26 @@ def apply_gpu_config(cfg: GpuConfig) -> None:
 BYTES_PER_ANCHOR = 2 * (20 + 8)
 
 
+# Gap fills (ops/ksw2_gpu.extd2_fill_batch) run in chunks whose device
+# bytes (direction bytes plus CIGAR slots, p_bound + 4*(qlen+tlen) per
+# fill) stay under this budget; PERF.md has the sweep on the card.  The
+# plain twin on the CPU holds about twice that in its state, so CPU runs
+# take a smaller budget.
+FILL_CHUNK_BYTES = 512 << 20
+CPU_FILL_CHUNK_BYTES = 128 << 20
+
+
+def fill_chunk_bytes(device: torch.device) -> int:
+    """The fill chunk budget on `device`: FILL_CHUNK_BYTES, lowered to a
+    quarter of the free memory when the card has less than four times
+    the budget free; never raised."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_FILL_CHUNK_BYTES
+    free, _total = torch.cuda.mem_get_info(device)
+    return max(1 << 20, min(FILL_CHUNK_BYTES, free // 4))
+
+
 def derive_caps(device: torch.device, verbose: int = 1) -> None:
     """Lower the anchor cap to what the device's free memory holds
     (plmem_config_batch analog); never raises it.  A no-op off CUDA or

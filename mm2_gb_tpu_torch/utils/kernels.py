@@ -34,6 +34,8 @@ _SIGNATURES = {
                            _i, _i, _i, _i, _f, _f, _i, _i, _vp],
     "mm2_chain_warps_per_block": [],
     "mm2_mg_log2": [_vp, _vp, _i, _vp],
+    "mm2_extd2_fill": [_vp] * 9 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
+    "mm2_ksw2_backtrack": [_vp] * 6 + [_i, _i, _vp, _vp, _vp],
 }
 
 

@@ -2,22 +2,23 @@
 
 Without --gpu-chain the port delegates to the JAX package's host path;
 with it, `_run` maps through the GPU pipeline.  Here (no CUDA device)
-`_run` is driven with a CPU device, which takes the kernel's plain twin,
-so the port's own run path is held against the goldens too.
+`_run` is driven with a CPU device, which takes the kernels' plain
+twins, so the port's own run path (with --gpu-align, its gap fills too)
+is held against the goldens.
 """
 
 import gzip
 import json
 import os
+import re
 
 import pytest
 import torch
 
 import mm2_gb_tpu
-from mm2_gb_tpu.cli import build_parser
 from mm2_gb_tpu.utils import opts as O
 from mm2_gb_tpu_torch import cli
-from mm2_gb_tpu_torch.ops import chain_gpu
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
 from mm2_gb_tpu_torch.utils import gpucfg
 from tests.conftest import golden_path
 
@@ -34,9 +35,8 @@ def _no_pg(s):
 
 
 def _run_on_cpu(argv):
-    """The --gpu-chain run path (cli._run) on the CPU twin."""
-    argv = [SKIP_INF, "--gpu-chain", *argv]
-    args = build_parser().parse_args(argv)
+    """The --gpu-chain run path (cli._run) on the CPU twins."""
+    argv, args = cli.parse_args([SKIP_INF, "--gpu-chain", *argv])
     io_, mo = O.set_preset(args.preset)
     return cli._run(args, argv, io_, mo, torch.device("cpu"))
 
@@ -54,16 +54,30 @@ def test_host_path_matches_golden(capsys):
      "sim200.skipinf.cs.paf.gz"),
     (["-f", "0.0002,50", "-c"], "rep60.fa.gz", "rep60_q.fa.gz",
      "rep60.maxocc.c.paf.gz"),
-], ids=["sim200", "sim200_cs_c", "max_occ_rechain"])
+    (["--gpu-align", "--cs", "-c"], "simref.fa.gz", "simreads.fa.gz",
+     "sim200.skipinf.cs.paf.gz"),
+    (["--gpu-align", "-c"], "invq4.ref.fa.gz", "invq4.q.fa.gz",
+     "invq4.skipinf.c.paf.gz"),
+], ids=["sim200", "sim200_cs_c", "max_occ_rechain", "sim200_cs_c_align",
+        "invq4_c_align"])
 def test_gpu_run_path_matches_golden(flags, ref, query, golden, capsys):
-    before = chain_gpu.launches
+    before = (chain_gpu.launches, ksw2_gpu.fill_launches,
+              ksw2_gpu.backtrack_launches)
     rc = _run_on_cpu([*flags, golden_path(ref), golden_path(query)])
     assert rc == 0
     cap = capsys.readouterr()
     assert cap.out == _gold(golden)
     assert "[M::gpu]" in cap.err and "host route: 0 HPC batches" \
         in cap.err
-    assert chain_gpu.launches == before      # CPU tensors: no launch
+    m = re.search(r"fills: (\d+) \((\d+) device, (\d+) host-routed\)",
+                  cap.err)
+    if "--gpu-align" in flags:
+        assert int(m.group(1)) > 0 and int(m.group(2)) > 0
+    else:
+        assert m is None
+    # CPU tensors: no kernel launch
+    assert (chain_gpu.launches, ksw2_gpu.fill_launches,
+            ksw2_gpu.backtrack_launches) == before
 
 
 def test_gpu_run_frag_mode_falls_back_to_host(capsys):
@@ -105,10 +119,26 @@ def test_gpu_chain_without_cuda_exits_nonzero(monkeypatch, capsys):
     assert cap.out == ""
 
 
+@pytest.mark.parametrize("flag", ["--gpu-align", "--tpu-align"])
+def test_align_flag_is_accepted(flag, monkeypatch, capsys):
+    """--gpu-align (the port's name) and --tpu-align both parse and set
+    MM_F_TPU_ALIGN; without a card the run stops at the device check."""
+    argv, args = cli.parse_args(["--gpu-chain", flag, "-c", "r.fa", "q.fa"])
+    assert args.tpu_align and "--tpu-align" in argv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["--gpu-chain", flag, "-c", SKIP_INF,
+                   golden_path("simref.fa.gz"), golden_path("simreads.fa.gz")])
+    assert rc == 1
+    cap = capsys.readouterr()
+    assert "needs a CUDA device" in cap.err and cap.out == ""
+
+
 @pytest.mark.parametrize("flags", [
-    ["--tpu-align"], ["--tpu-devices", "2"], ["--tpu-devices", "0"],
+    ["-x", "splice", "-c", "--gpu-align"], ["--qstrand", "-c", "--gpu-align"],
+    ["--tpu-devices", "2"], ["--tpu-devices", "0"],
     ["--tpu-nproc", "2"], ["--tpu-profile", "prof"]],
-    ids=["tpu_align", "devices2", "devices_all", "nproc2", "profile"])
+    ids=["splice_align", "qstrand_align", "devices2", "devices_all",
+         "nproc2", "profile"])
 def test_unported_flags_exit_1(flags, capsys):
     rc = cli.main(["--gpu-chain", *flags, golden_path("simref.fa.gz"),
                    golden_path("simreads.fa.gz")])

@@ -1,10 +1,11 @@
-"""The port's CUDA kernel on the card (`gpu` marker; skips without CUDA).
+"""The port's CUDA kernels on the card (`gpu` marker; skips without CUDA).
 
 Run on a machine with a GPU:
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 This file imports no JAX, so it runs where only PyTorch is installed.
-The kernel must equal its plain PyTorch twin and the host oracle element
-for element (tolerance 0: scores and predecessors are integers).
+Each kernel must equal its plain PyTorch twin and the host oracle
+element for element (tolerance 0: scores, predecessors, direction bytes
+and CIGAR words are integers).
 """
 
 import gzip
@@ -14,16 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import kernel_operands, workloads
+from chip_smoke import (fill_oracle, fill_result_err, fill_workloads,
+                        hold_fill_calls, kernel_operands, recording_fills,
+                        workloads)
 from mm2_gb_tpu.ops.chain import _chain_dp_scores
 from mm2_gb_tpu.utils.hashkit import mg_log2
-from mm2_gb_tpu_torch.ops import chain_gpu
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
 
 pytestmark = pytest.mark.gpu
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 WORKLOADS = list(workloads())
+FILLS = list(fill_workloads(n_pairs=32, max_len=400, long_len=4800))
 
 
 @pytest.fixture
@@ -78,5 +82,43 @@ def test_gpu_chain_cli_matches_golden(cuda, flags, ref, query, golden,
                os.path.join(GOLDEN, ref), os.path.join(GOLDEN, query)])
     assert rc == 0
     assert chain_gpu.launches > before
+    with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
+        assert capsys.readouterr().out == f.read()
+
+
+@pytest.mark.parametrize("name,meta,qb,tb,prm,flag", FILLS,
+                         ids=[w[0] for w in FILLS])
+def test_fill_kernels_match_twins_and_oracle(cuda, name, meta, qb, tb, prm,
+                                             flag):
+    before = ksw2_gpu.fill_launches
+    st = ksw2_gpu.FillStats()
+    with recording_fills() as calls:
+        got = ksw2_gpu.extd2_fill_batch(meta, qb, tb, prm, cuda, flag, st)
+    assert fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag)) == 0
+    assert ksw2_gpu.fill_launches == before + len(calls)
+    assert (len(calls) > 0) == (st.device_fills > 0)
+    assert hold_fill_calls(calls, name, verbose=False)[0] == 0
+
+
+@pytest.mark.parametrize("flags,ref,query,golden", [
+    (["--cs", "-c"], "simref.fa.gz", "simreads.fa.gz",
+     "sim200.skipinf.cs.paf.gz"),
+    (["-x", "map-hifi", "-c"], "simref.fa.gz", "simreads.fa.gz",
+     "sim200.map-hifi.c.paf.gz"),
+    (["-f", "0.0002,50", "-c"], "rep60.fa.gz", "rep60_q.fa.gz",
+     "rep60.maxocc.c.paf.gz"),
+    (["--alt", os.path.join(GOLDEN, "alt.txt"), "-c"], "altref.fa.gz",
+     "simreads.fa.gz", "alt200.c.paf.gz"),
+    (["-c"], "invq4.ref.fa.gz", "invq4.q.fa.gz", "invq4.skipinf.c.paf.gz"),
+], ids=["sim200_cs_c", "map_hifi_c", "rep60_max_occ", "alt200", "invq4"])
+def test_gpu_align_cli_matches_golden(cuda, flags, ref, query, golden,
+                                      capsys):
+    from mm2_gb_tpu_torch.cli import main
+    before = ksw2_gpu.fill_launches, ksw2_gpu.backtrack_launches
+    rc = main(["--gpu-chain", "--gpu-align", "--max-chain-skip=2147483647",
+               *flags, os.path.join(GOLDEN, ref), os.path.join(GOLDEN, query)])
+    assert rc == 0
+    assert ksw2_gpu.fill_launches > before[0]
+    assert ksw2_gpu.backtrack_launches > before[1]
     with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
         assert capsys.readouterr().out == f.read()

@@ -3,7 +3,8 @@
 Runs in a subprocess: this test process already holds JAX (the JAX
 package's tests import it).  The child blocks every `jax` import, then
 imports each module of mm2_gb_tpu_torch, maps reads through the GPU
-pipeline on CPU tensors and through the CLI's host path.
+pipeline on CPU tensors, through the CLI's host path and through the
+CLI's `--gpu-chain --gpu-align -c` run path on CPU tensors.
 """
 
 import os
@@ -23,7 +24,7 @@ class BlockJax:
 
 sys.meta_path.insert(0, BlockJax())
 for m in ("mm2_gb_tpu_torch", "mm2_gb_tpu_torch.cli",
-          "mm2_gb_tpu_torch.ops.chain_gpu",
+          "mm2_gb_tpu_torch.ops.chain_gpu", "mm2_gb_tpu_torch.ops.ksw2_gpu",
           "mm2_gb_tpu_torch.models.pipeline", "mm2_gb_tpu_torch.utils.gpucfg",
           "mm2_gb_tpu_torch.utils.kernels"):
     importlib.import_module(m)
@@ -49,6 +50,24 @@ with contextlib.redirect_stdout(buf):
     assert main(["--max-chain-skip=2147483647", sys.argv[1],
                  sys.argv[2]]) == 0
 assert buf.getvalue().count("\n") > 100
+
+import os, tempfile, torch
+from mm2_gb_tpu_torch import cli
+tmp = tempfile.mkdtemp()
+with open(os.path.join(tmp, "r.fa"), "w") as f:
+    f.write(">c\n" + ref + "\n")
+with open(os.path.join(tmp, "q.fa"), "w") as f:
+    f.write("".join(">%s\n%s\n" % r for r in reads))
+argv, args = cli.parse_args(["--max-chain-skip=2147483647", "--gpu-chain",
+                             "--gpu-align", "-c", "-v", "3",
+                             os.path.join(tmp, "r.fa"),
+                             os.path.join(tmp, "q.fa")])
+io_, mo = O.set_preset(args.preset)
+buf, err = io.StringIO(), io.StringIO()
+with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+    assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
+assert buf.getvalue().count("\tcg:Z:") >= 3
+assert "fills: " in err.getvalue()
 assert "jax" not in sys.modules
 print("NOJAX_OK")
 """

@@ -2,11 +2,13 @@
 package's device pipeline and host mapper, on CPU tensors (the chain
 kernel's plain twin).  Outputs are compared as PAF bytes."""
 
+import copy
 import gzip
 import io
 
 import numpy as np
 import pytest
+import torch
 
 from mm2_gb_tpu.models.index import MinimizerIndex
 from mm2_gb_tpu.utils import opts as O
@@ -136,6 +138,13 @@ def test_metrics_report(capsys):
     err = capsys.readouterr().err
     assert "host route: 3 HPC batches" in err
     assert "(0.000 Gpairs/s)" in err
+    assert "fills:" not in err
+    met.fills.fills, met.fills.device_fills, met.fills.host_fills = 7, 5, 2
+    met.fills.cells, met.fills.fill_ms, met.fills.chunks = 4_000_000, 2.0, 1
+    met.report(3)
+    err = capsys.readouterr().err
+    assert ("fills: 7 (5 device, 2 host-routed) in 1 chunks; 4000000 "
+            "cells; fill kernel 2.000 ms (2.000 GCUPS)") in err
 
 
 def test_empty_batch_has_no_dispatch():
@@ -144,3 +153,77 @@ def test_empty_batch_has_no_dispatch():
     out = gp.map_batch_gpu(index, mo, recs, device="cpu")
     assert len(out) == 1 and out[0][1] == []
     assert np.array_equal(out[0][0].ax, np.empty(0, np.uint64))
+
+
+def test_real_pass_exception_closes_the_fill_session(tmp_path, monkeypatch):
+    """An exception in the real pass, after the batch's device results
+    are in the C++ aligner's table, leaves the fill session off: a later
+    run's host alignment does not answer from that (here poisoned)
+    table."""
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    index, mo, reads = _setup(40_000, 4, 1_500, 3_000, 41)
+    mo.flag |= O.MM_F_CIGAR | O.MM_F_OUT_CG
+    qpath = _write_fasta(tmp_path, reads)
+    base = list(gp.map_file_gpu(index, mo, [qpath], device="cpu"))
+    assert base
+    batch, finish = K.extd2_fill_batch, gp.finish_read
+
+    def poisoned(*a, **kw):
+        scores, cig_off, cig_blob = batch(*a, **kw)
+        return scores + 1, cig_off, cig_blob
+
+    def real_pass_fails(*a, dump=True):
+        if dump:
+            raise RuntimeError("real pass")
+        return finish(*a, dump=dump)
+    monkeypatch.setattr(K, "extd2_fill_batch", poisoned)
+    monkeypatch.setattr(gp, "finish_read", real_pass_fails)
+    align = copy.copy(mo)
+    align.flag |= O.MM_F_TPU_ALIGN
+    with pytest.raises(RuntimeError, match="real pass"):
+        list(gp.map_file_gpu(index, align, [qpath], device="cpu"))
+    monkeypatch.setattr(gp, "finish_read", finish)
+    assert list(gp.map_file_gpu(index, mo, [qpath], device="cpu")) == base
+
+
+def test_print_seeds_once_with_gpu_align(capsys):
+    """--gpu-chain --gpu-align -c --print-seeds: the fill collect pass
+    writes no dump, so the RS/SD/CN lines appear once, equal to the
+    reference's, and the PAF equals the -c golden."""
+    from mm2_gb_tpu_torch import cli
+    argv, args = cli.parse_args([
+        "--max-chain-skip=2147483647", "--gpu-chain", "--gpu-align", "-c",
+        "--print-seeds", golden_path("invq4.ref.fa.gz"),
+        golden_path("invq4.q.fa.gz")])
+    io_, mo = O.set_preset(args.preset)
+    assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
+    cap = capsys.readouterr()
+    with gzip.open(golden_path("invq4.skipinf.c.paf.gz"), "rt") as f:
+        assert cap.out == f.read()
+    dumps = [line for line in cap.err.splitlines()
+             if line[:3] in ("RS\t", "SD\t", "CN\t")]
+    with gzip.open(golden_path("invq4.print-seeds.txt.gz"), "rt") as f:
+        assert dumps == f.read().splitlines()
+    assert "fills: 45 (45 device, 0 host-routed)" in cap.err
+
+
+def test_unported_align_routes():
+    """The --gpu-align routes the JAX package sends to its Python fill
+    session are named; -x sr and single gap costs align on the host."""
+    def opt(preset=None, flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN, **kw):
+        _io, mo = O.set_preset(preset)
+        mo.flag |= flag
+        for k, v in kw.items():
+            setattr(mo, k, v)
+        return mo
+    assert gp.use_device_align(opt()) and gp.unported_align_route(opt()) \
+        is None
+    assert "splice" in gp.unported_align_route(opt("splice"))
+    assert "qstrand" in gp.unported_align_route(
+        opt(flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN | O.MM_F_QSTRAND))
+    assert "print-aln-seq" in gp.unported_align_route(
+        opt(dbg_print_aln_seq=True))
+    for mo in (opt("sr"), opt(q2=4, e2=2), opt(flag=O.MM_F_TPU_ALIGN),
+               opt(flag=O.MM_F_CIGAR)):
+        assert not gp.use_device_align(mo)
+        assert gp.unported_align_route(mo) is None
