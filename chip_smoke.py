@@ -21,16 +21,28 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
 3. end to end through the CLI entry point, `--gpu-chain
    --max-chain-skip=2147483647`: byte-identical to the sim200 goldens
    (with and without --cs -c, and with --gpu-align for --cs -c and
-   -x map-hifi -c); on the 1200-read bench flowcell byte-identical to
+   -x map-hifi -c); on a 600-read draw of the bench flowcell (the bench
+   has 1200 reads; half, for the time limit) byte-identical to
    the host path (`python -m mm2_gb_tpu`, same -t, in a subprocess),
    with kernel launches > 0 and no batch chained on the host; then
    `--gpu-align -c` on the flowcell byte-identical to the host path's
    -c, with fill and backtrack launches > 0;
-4. every kernel launch of those two flowcell runs, on the inputs it was
-   given, against its twin, exact, and both timed (CUDA events).  A fill
-   launch is re-run on its recorded operands and must reproduce the
+   Then the splice slice: the exts2 fill kernel and the backtrack's
+   intron mode against their twins and ksw2_splice.exts2 on seeded
+   splice workloads (every flag variant, BED junction bytes, a junction
+   bonus that wraps int8, N bases, unrelated pairs, tlen to ~25 kb, the
+   global-scratch ring, the mat gate); `--gpu-chain --gpu-align -x
+   splice -c` byte-identical to the splice40 (with and without
+   --junc-bed) and sim200 -G 8000 goldens; the 1000-read cDNA set at
+   `-ax splice -t 8` identical to the host path, every fill on the
+   device;
+4. every kernel launch of those flowcell and cDNA runs, on the inputs it
+   was given, against its twin, exact, and both timed (CUDA events).  A
+   fill launch is re-run on its recorded operands and must reproduce the
    recorded direction bytes (by fingerprint) before the twins are held
-   against it.
+   against it; the cDNA run's splice launches, and the splice
+   workloads' launches under the same options, are held against one
+   twin run over all of their fills.
 
 The line before the last is a JSON object with each kernel's launches on
 the main path, its error against the twin and both times; the last line
@@ -52,7 +64,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "smoke")
-N_READS = 1200      # bench flowcell: 4 Mbp reference, 10-100 kb reads
+N_READS = 600       # bench flowcell: 4 Mbp reference, 10-100 kb reads
+                    # (at half the bench's 1200 reads, for the time limit)
+N_CDNA = 1000       # cDNA set: 10 Mbp reference, spliced reads
 THREADS = 8
 SKIP_INF = "--max-chain-skip=2147483647"
 KERNEL_REPS = 3
@@ -423,6 +437,324 @@ def phase2_fills():
     return err
 
 
+# the splice flag variants of tests/test_ksw2_tpu.py:204-210, RIGHT with
+# REV_CIGAR, the splice preset's own set and no splice bits at all
+SPLICE_VARIANTS = (0x100, 0x100 | 0x400, 0x100 | 0x02, 0x100 | 0x200 | 0x400,
+                   0x100 | 0x80, 0x100 | 0x02 | 0x80,
+                   0x100 | 0x200 | 0x400 | 0x02 | 0x80, 0)
+
+
+def _mutate_splice(rng, s, sub, indel):
+    """s with substitutions and 1-bp indels at the given rates."""
+    import numpy as np
+    u = rng.random(s.shape[0])
+    out = np.where(u < sub, rng.integers(0, 4, s.shape[0]), s).astype(np.uint8)
+    keep = (u < sub) | (u >= sub + indel / 2)
+    ins = (u >= sub + indel / 2) & (u < sub + indel)
+    rep = keep.astype(np.int64) + ins
+    out = np.repeat(out, rep)
+    ends = np.cumsum(rep)[ins] - 1       # the inserted copy: a new base
+    out[ends] = rng.integers(0, 4, ends.shape[0])
+    return out if out.shape[0] else np.zeros(1, np.uint8)
+
+
+def splice_pairs(rng, n, max_intron, min_intron=60, max_exons=3):
+    """Seeded splice gap fills (q, t, flag, junc): a query of 1-3 exons
+    against a target with introns (log-uniform min_intron..max_intron,
+    GT..AG, or GA..TG under KSW_EZ_REV_CIGAR) between them.  Fill k takes
+    flag variant k % 8 and kind (k // 8) % 6: spliced; with N bases;
+    an unrelated query; a leading target stretch (a long tail deletion,
+    which the backtrack turns into N); indel-rich; one exon, no intron.
+    Odd fills carry random BED junction bytes."""
+    import numpy as np
+    out = []
+    for k in range(n):
+        flag = 0x08 | SPLICE_VARIANTS[k % len(SPLICE_VARIANTS)]
+        kind = (k // len(SPLICE_VARIANTS)) % 6
+        rc = bool(flag & 0x80)
+        exons = [rng.integers(0, 4, int(rng.integers(20, 300)))
+                 .astype(np.uint8)
+                 for _ in range(1 if kind == 5 else
+                                int(rng.integers(1, max_exons + 1)))]
+        parts = []
+        for i, ex in enumerate(exons):
+            parts.append(ex)
+            if i + 1 < len(exons):
+                ln = int(np.exp(rng.uniform(np.log(min_intron),
+                                            np.log(max_intron))))
+                intr = rng.integers(0, 4, max(ln, 4)).astype(np.uint8)
+                intr[:2] = (2, 0) if rc else (2, 3)
+                intr[-2:] = (3, 2) if rc else (0, 2)
+                parts.append(intr)
+        if kind == 3:
+            parts.insert(0, rng.integers(0, 4, int(rng.integers(20, 400)))
+                         .astype(np.uint8))
+        t = np.concatenate(parts)
+        q = np.concatenate(exons)
+        if kind == 2:
+            q = rng.integers(0, 4, q.shape[0]).astype(np.uint8)
+        else:
+            q = _mutate_splice(rng, q, 0.03 if kind == 4 else 0.05,
+                               0.08 if kind == 4 else 0.01)
+        if kind == 1:
+            q[rng.random(q.shape[0]) < 0.03] = 4
+            t[rng.random(t.shape[0]) < 0.03] = 4
+        junc = (rng.integers(0, 16, t.shape[0]).astype(np.uint8) if k % 2
+                else None)
+        out.append((q, t, flag, junc))
+    return out
+
+
+def _pack_splice(fills):
+    """(meta, qblob, tblob, jblob, flags) of (q, t, flag, junc) fills, as
+    the pipeline's splice collect pass packs them."""
+    import numpy as np
+    cat = (lambda xs: np.concatenate(xs).astype(np.uint8) if xs
+           else np.empty(0, np.uint8))
+    meta = np.array([[len(q), len(t), 0 if j is None else len(j)]
+                     for q, t, _f, j in fills], np.int64).reshape(-1, 3)
+    return (meta, cat([q for q, _t, _f, _j in fills]),
+            cat([t for _q, t, _f, _j in fills]),
+            cat([j for _q, _t, _f, j in fills if j is not None]),
+            np.array([f for _q, _t, f, _j in fills], np.int64))
+
+
+def splice_workloads(n_pairs=48, max_intron=2000, long_intron=24_000,
+                     n_long=6):
+    """(name, meta, qblob, tblob, jblob, flags, params) of the splice fill
+    checks: every flag variant and fill kind under the splice and
+    splice:hq presets; a junction bonus of 130, which wraps int8; an odd
+    non-canonical cost (C-truncated flank score), with a ~2.5 kb query
+    (its state ring in global scratch); fills with introns of
+    long_intron / 5 to long_intron and one of long_intron (tlen ~25 kb
+    at the default); a matrix that fails the mat gate."""
+    import numpy as np
+    from mm2_gb_tpu.ops import ksw2
+    from mm2_gb_tpu.utils import opts as O
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    rng = np.random.default_rng(31337)
+    _io, mo = O.set_preset("splice")
+    prm = KS.splice_params(mo)
+    yield "splice", *_pack_splice(splice_pairs(rng, n_pairs, max_intron)), prm
+    # the other options' workloads check scoring, not length
+    _io, hq = O.set_preset("splice:hq")
+    yield ("splice:hq", *_pack_splice(splice_pairs(rng, n_pairs,
+                                                   max_intron // 2)),
+           KS.splice_params(hq))
+    mat = ksw2.gen_simple_mat(5, mo.a, mo.b, mo.sc_ambi)
+    yield ("junc_wrap", *_pack_splice(splice_pairs(rng, n_pairs // 2,
+                                                   max_intron // 2)),
+           KS.splice_params_from(mat, 2, 1, 32, 9, 130))
+    fills = splice_pairs(rng, n_pairs // 2, max_intron // 2)
+    t = rng.integers(0, 4, 2600).astype(np.uint8)
+    fills.append((_mutate_splice(rng, t[40:], 0.05, 0.01), t, 0x08 | 0x100,
+                  None))
+    yield ("noncan_odd", *_pack_splice(fills),
+           KS.splice_params_from(mat, 2, 1, 32, 15, 9))
+    fills = splice_pairs(rng, n_long, long_intron, long_intron // 5, 2)
+    ex = rng.integers(0, 4, (2, 250)).astype(np.uint8)
+    intron = rng.integers(0, 4, long_intron).astype(np.uint8)
+    intron[:2], intron[-2:] = (2, 3), (0, 2)
+    t = np.concatenate([ex[0], intron, ex[1]])   # the longest tlen
+    fills.append((_mutate_splice(rng, ex.reshape(-1), 0.05, 0.01), t,
+                  0x08 | 0x100 | 0x200 | 0x400,
+                  rng.integers(0, 16, t.shape[0]).astype(np.uint8)))
+    yield "long", *_pack_splice(fills), prm
+    yield ("mat_gate", *_pack_splice(splice_pairs(rng, 8, max_intron)),
+           KS.splice_params_from(ksw2.gen_simple_mat(5, 1, 40, 1), 2, 1, 32,
+                                 9, 9))
+
+
+def splice_oracle(meta, qblob, tblob, jblob, flags, prm):
+    """ksw2_splice.exts2 of every fill: (scores, cig_off, cig_blob)."""
+    import numpy as np
+    from mm2_gb_tpu.ops import ksw2_splice
+    n = meta.shape[0]
+    qo, to, jo = (np.concatenate([[0], np.cumsum(meta[:, c])])
+                  for c in range(3))
+    scores, cigs = np.zeros(n, np.int32), []
+    for k in range(n):
+        ez = ksw2_splice.exts2(
+            qblob[qo[k]:qo[k + 1]], tblob[to[k]:to[k + 1]], prm.mat, prm.q,
+            prm.e, prm.q2, prm.noncan, -1, prm.junc_bonus, int(flags[k]),
+            jblob[jo[k]:jo[k + 1]] if meta[k, 2] else None)
+        scores[k] = ez.score
+        cigs.append(ez.cigar)
+    off = np.concatenate([[0], np.cumsum([c.shape[0] for c in cigs])])
+    return scores, off, (np.concatenate(cigs).astype(np.uint32) if cigs
+                         else np.empty(0, np.uint32))
+
+
+@contextlib.contextmanager
+def recording_splice():
+    """Record every exts2_fill and intron ksw2_backtrack call made by
+    exts2_fill_batch inside (the wrappers still count their launches): a
+    list of [fill args, score, fingerprint of p, backtrack args without
+    p, cig, n_cig]."""
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    calls, fill, bt = [], KS.exts2_fill, KS.ksw2_backtrack
+
+    def rec_fill(*a):
+        sc, p = fill(*a)
+        calls.append([a, sc, _fingerprint(p)])
+        return sc, p
+
+    def rec_bt(*a):
+        cig, nc = bt(*a)
+        calls[-1] += [a[1:], cig, nc]
+        return cig, nc
+    KS.exts2_fill, KS.ksw2_backtrack = rec_fill, rec_bt
+    try:
+        yield calls
+    finally:
+        KS.exts2_fill, KS.ksw2_backtrack = fill, bt
+
+
+def _merge_splice_calls(calls):
+    """One operand set holding every recorded launch's fills (blobs
+    concatenated, offsets shifted): (fill args, backtrack args without p,
+    per-launch (fill, p, word) bases)."""
+    import torch
+
+    def blob(i):
+        parts, base, size = [], {}, 0
+        for c in calls:
+            b = c[0][i]
+            key = (b.data_ptr(), b.numel())
+            if key not in base:
+                base[key] = size
+                parts.append(b)
+                size += b.numel()
+        return torch.cat(parts), [base[(c[0][i].data_ptr(), c[0][i].numel())]
+                                  for c in calls]
+    (qb, qbase), (tb, tbase), (jb, jbase) = blob(0), blob(1), blob(2)
+    cols = {k: [] for k in ("qo", "to", "jo", "ql", "tl", "fl", "po", "w",
+                            "co", "rev")}
+    bases, fbase, pbase, cbase = [], 0, 0, 0
+    for c, qb0, tb0, jb0 in zip(calls, qbase, tbase, jbase):
+        (_q, _t, _j, qo, to, jo, ql, tl, fl, po, p_total, _prm) = c[0]
+        _po, _ql, _tl, w, co, rev, _mil = c[3]
+        cols["qo"].append(qo + qb0)
+        cols["to"].append(to + tb0)
+        cols["jo"].append(torch.where(jo >= 0, jo + jb0, jo))
+        cols["po"].append(po + pbase)
+        cols["co"].append(co[:-1] + cbase)
+        for k, v in (("ql", ql), ("tl", tl), ("fl", fl), ("w", w),
+                     ("rev", rev)):
+            cols[k].append(v)
+        bases.append((fbase, pbase, cbase))
+        fbase, pbase, cbase = (fbase + ql.shape[0], pbase + p_total,
+                               cbase + int(co[-1]))
+    m = {k: torch.cat(v) for k, v in cols.items()}
+    co = torch.cat([m["co"], m["co"].new_tensor([cbase])])
+    prm = calls[0][0][-1]
+    return ((qb, tb, jb, m["qo"], m["to"], m["jo"], m["ql"], m["tl"],
+             m["fl"], m["po"], pbase, prm),
+            (m["po"], m["ql"], m["tl"], m["w"], co, m["rev"],
+             prm.long_thres), bases)
+
+
+def hold_splice_calls(calls, label, verbose=True, extra=()):
+    """Each recorded exts2_fill + intron backtrack launch (of calls, then
+    of extra, launches made under the same options) against the twins.
+    The twins step one row of the longest fill at a time, so the fills of
+    all launches go through one run of each (per-fill results do not
+    depend on the company a fill keeps); then each launch's kernel is
+    re-run on its recorded operands, its p must match the recorded
+    fingerprint and its slice of the twin's p, its scores the twin's, and
+    both backtracks on it the recorded words.  Returns (max_abs_err, fill
+    ms and backtrack ms summed over calls' launches, and the twins' ms of
+    the one run: fill ms, fill twin ms, backtrack ms, backtrack twin
+    ms)."""
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    n_timed = len(calls)
+    calls = list(calls) + list(extra)
+    if not calls:
+        return 0, 0.0, 0.0, 0.0, 0.0
+    fa_all, ba_all, bases = _merge_splice_calls(calls)
+    (sc_t, p_t), fpl = _timed(KS.exts2_fill_torch, *fa_all)
+    (cg_t, nc_t), bpl = _timed(K.ksw2_backtrack_torch, p_t, *ba_all)
+    err, fms, bms = 0, 0.0, 0.0
+    for i, ((fa, sc, fp, ba, cig, nc), (f0, p0, c0)) in enumerate(
+            zip(calls, bases)):
+        n, p_total, n_words = fa[6].shape[0], fa[10], cig.shape[0]
+        (sck, pk), tk = _timed(KS.exts2_fill, *fa)
+        e = max(_max_err(sck, sc), _max_err(sc_t[f0:f0 + n], sc),
+                _max_err(p_t[p0:p0 + p_total], pk),
+                0 if _fingerprint(pk) == fp else 2**31)
+        (cgk, nck), tb = _timed(K.ksw2_backtrack, pk, *ba)
+        e = max(e, _max_err(cgk, cig), _max_err(nck, nc),
+                _max_err(cg_t[c0:c0 + n_words], cig),
+                _max_err(nc_t[f0:f0 + n], nc))
+        del pk
+        if verbose and i < n_timed:
+            log(f"{label} launch {i}: {n} fills, "
+                f"{int((fa[6].long() * fa[7].long()).sum())} cells; fill "
+                f"{tk:.3f} ms, backtrack {tb:.3f} ms; max_abs_err {e}")
+        err = max(err, e)
+        if i < n_timed:
+            fms, bms = fms + tk, bms + tb
+    if verbose:
+        log(f"{label}: {n_timed} launches ({len(calls) - n_timed} more of "
+            f"the splice workloads held with them, max_abs_err {err}), "
+            f"{sc_t.shape[0]} fills; twins (one run over all of them) fill "
+            f"{fpl:.3f} ms, backtrack {bpl:.3f} ms")
+    return err, fms, fpl, bms, bpl
+
+
+def _params_key(prm):
+    """The values of a SpliceParams (its matrix is an array)."""
+    return (prm.mat.tobytes(), prm.q, prm.e, prm.q2, prm.noncan,
+            prm.junc_bonus)
+
+
+def phase2_splice():
+    """The exts2 fill kernel and the intron backtrack against their twins
+    and ksw2_splice.exts2 (the native kit here) on the splice workloads;
+    exact.  The launches under the splice preset's options are held
+    against the twins later, in the main-path run's twin run (their
+    longest fill is as long as the main path's); returns (max_abs_err
+    against the twins of the others, those launches)."""
+    import torch
+    from mm2_gb_tpu.utils import opts as O
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    dev = torch.device("cuda")
+    later = _params_key(KS.splice_params(O.set_preset("splice")[1]))
+    err, groups = 0, {}   # launches by option set: one twin run each
+    for name, meta, qb, tb, jb, fl, prm in splice_workloads():
+        st = KS.FillStats()
+        with recording_splice() as calls:
+            got = KS.exts2_fill_batch(meta, qb, tb, jb, fl, prm, dev, st)
+        e_or = fill_result_err(got, splice_oracle(meta, qb, tb, jb, fl, prm))
+        log(f"splice {name}: {st.fills} fills ({st.host_fills} host-routed, "
+            f"{st.scratch_fills} with the ring in global scratch), longest "
+            f"tlen {int(meta[:, 1].max())}, {len(calls)} launches; "
+            f"batch==ksw2_splice.exts2 max_abs_err={e_or}")
+        if e_or:
+            fail(f"splice workload {name} disagrees with the oracle")
+        if name == "mat_gate" and st.host_fills != st.fills:
+            fail("the mat gate did not route every splice fill to the host")
+        if name != "mat_gate" and st.host_fills:
+            fail(f"splice workload {name}: fills on the host")
+        if name == "noncan_odd" and not st.scratch_fills:
+            fail("no splice fill took the global-scratch ring")
+        groups.setdefault(_params_key(prm), []).extend(calls)
+    out = [0, 0.0, 0.0, 0.0, 0.0]
+    for key, calls in groups.items():
+        if key != later:
+            r = hold_splice_calls(calls, "splice workloads", verbose=False)
+            out = [max(out[0], r[0])] + [a + b for a, b in zip(out[1:],
+                                                                r[1:])]
+            err = max(err, r[0])
+    log(f"splice workloads of other options: kernel==twin "
+        f"max_abs_err={err}; fill {out[1]:.3f} ms (twin {out[2]:.3f} ms), "
+        f"backtrack {out[3]:.3f} ms (twin {out[4]:.3f} ms)")
+    if err:
+        fail("a splice workload launch differs from the twins")
+    return err, groups.get(later, [])
+
+
 def _cli(main, argv):
     """Run a CLI entry point in this process; (rc, stdout, stderr, wall)."""
     out, err = io.StringIO(), io.StringIO()
@@ -549,6 +881,125 @@ def phase3():
     return launches, calls, align_launches, fcalls
 
 
+def cdna_set(n_reads=N_CDNA, genome_len=10_000_000, max_intron=20_000,
+             seed=11, work=WORK):
+    """(ref, reads) FASTA paths of the seeded cDNA set, written once under
+    work: a random reference with genes of 3-12 exons (60-600 bp) and
+    GT..AG introns log-uniform from 100 bp to max_intron, and reads from
+    random starts in the first half of a transcript to its end, with 5%
+    substitutions and 3% indels, half reverse-complemented (the scale-up
+    of tools/fuzz_diff.py::make_splice)."""
+    import numpy as np
+    ref_p = os.path.join(work, f"cdna{n_reads}_ref.fa")
+    reads_p = os.path.join(work, f"cdna{n_reads}_reads.fa")
+    if os.path.exists(ref_p) and os.path.exists(reads_p):
+        return ref_p, reads_p
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, genome_len).astype(np.uint8)
+    genes, pos = [], 1000
+    while True:
+        n_ex = int(rng.integers(3, 13))
+        ex_len = rng.integers(60, 601, n_ex)
+        in_len = np.exp(rng.uniform(np.log(100), np.log(max_intron),
+                                    n_ex - 1)).astype(np.int64)
+        if pos + ex_len.sum() + in_len.sum() + 1000 > genome_len:
+            break
+        exons = []
+        for i in range(n_ex):
+            exons.append((pos, pos + int(ex_len[i])))
+            pos += int(ex_len[i])
+            if i + 1 < n_ex:
+                g[pos:pos + 2] = (2, 3)
+                pos += int(in_len[i])
+                g[pos - 2:pos] = (0, 2)
+        genes.append(exons)
+        pos += int(rng.integers(1000, 20_000))
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    with open(reads_p + ".tmp", "wb") as f:
+        for i in range(n_reads):
+            tx = np.concatenate([g[a:b] for a, b in
+                                 genes[int(rng.integers(len(genes)))]])
+            r = _mutate_splice(rng, tx[int(rng.integers(tx.shape[0] // 2)):],
+                               0.05, 0.03)
+            if rng.random() < 0.5:
+                r = comp[r[::-1]]
+            f.write(b">tx%d\n%s\n" % (i, lut[r].tobytes()))
+    with open(ref_p + ".tmp", "wb") as f:
+        f.write(b">chr1\n" + lut[g].tobytes() + b"\n")
+    os.replace(reads_p + ".tmp", reads_p)
+    os.replace(ref_p + ".tmp", ref_p)
+    return ref_p, reads_p
+
+
+def _no_pg(sam):
+    """SAM text without its @PG line (it holds each side's command)."""
+    return "".join(line for line in sam.splitlines(keepends=True)
+                   if not line.startswith("@PG"))
+
+
+def phase3_splice():
+    """The splice slice end to end, `--gpu-chain --gpu-align -x splice`:
+    byte-identical to the splice40 goldens (with and without --junc-bed)
+    and the sim200 -G 8000 golden; on the cDNA set, `-ax splice -t 8`
+    identical to the host path (`python -m mm2_gb_tpu`, a subprocess; all
+    but the @PG line, which holds each side's command), with exts2 and
+    intron backtrack launches > 0 and no fill on the host.  Returns the
+    cDNA run's (fill, backtrack) launches and its recorded splice calls."""
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    gold = os.path.join(REPO, "tests", "golden")
+    for flags, ref, query, golden in (
+            (["-c"], "splice_genome.fa.gz", "splice_reads.fa.gz",
+             "splice40.skipinf.c.paf.gz"),
+            (["--junc-bed", os.path.join(gold, "splice.bed.gz"), "-c"],
+             "splice_genome.fa.gz", "splice_reads.fa.gz",
+             "splice40.juncbed.c.paf.gz"),
+            (["-G", "8000", "-c"], "simref.fa.gz", "simreads.fa.gz",
+             "sim200.splice-G8k.c.paf.gz")):
+        G.launches = KS.fill_launches = K.backtrack_launches = 0
+        rc, out, err, wall = _cli(cli.main, [
+            "--gpu-chain", "--gpu-align", SKIP_INF, "-x", "splice", *flags,
+            os.path.join(gold, ref), os.path.join(gold, query)])
+        with gzip.open(os.path.join(gold, golden), "rt") as f:
+            same = out == f.read()
+        log(f"{golden}: rc {rc}, {wall:.2f} s, chain launches {G.launches}, "
+            f"exts2 launches {KS.fill_launches}, backtrack launches "
+            f"{K.backtrack_launches}, byte-identical {same}")
+        if (rc != 0 or not same or G.launches == 0 or KS.fill_launches == 0
+                or K.backtrack_launches == 0):
+            sys.stderr.write(err[-3000:])
+            fail(f"splice golden {golden}")
+
+    ref, reads = cdna_set()
+    t0 = time.perf_counter()
+    host_sam = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-ax", "splice", "-t",
+                      str(THREADS), ref, reads], "host path on the cDNA set")
+    log(f"cDNA host path -ax splice (-t {THREADS}, subprocess): "
+        f"{time.perf_counter() - t0:.3f} s, {host_sam.count(chr(10))} lines")
+    with recording_splice() as calls:
+        G.launches = KS.fill_launches = K.backtrack_launches = 0
+        rc, out, err, wall = _cli(cli.main, [
+            "--gpu-chain", "--gpu-align", SKIP_INF, "-ax", "splice", "-t",
+            str(THREADS), "-v", "3", ref, reads])
+        launches = (KS.fill_launches, K.backtrack_launches)
+    sys.stderr.write(err)
+    m = re.search(r"fills: (\d+) \((\d+) device, (\d+) host-routed\)", err)
+    if rc != 0 or m is None:
+        fail("--gpu-chain --gpu-align -ax splice on the cDNA set")
+    same = _no_pg(out) == _no_pg(host_sam)
+    log(f"cDNA --gpu-chain --gpu-align -ax splice (-t {THREADS}, in "
+        f"process): {wall:.3f} s, fills {m.group(1)} ({m.group(3)} "
+        f"host-routed), exts2 launches {launches[0]}, backtrack launches "
+        f"{launches[1]}, chain launches {G.launches}, identical to the host "
+        f"path but @PG {same}")
+    if not same or min(launches) == 0 or int(m.group(3)) != 0:
+        fail("cDNA --gpu-align -ax splice run")
+    return launches, calls
+
+
 def phase4(calls):
     """Each main-path kernel call against the twin on its own inputs;
     (max_abs_err, kernel ms, twin ms) summed over the calls."""
@@ -601,11 +1052,19 @@ def main() -> int:
     phase1()
     err = phase2()
     fill_err = phase2_fills()
+    splice_err, splice_later = phase2_splice()
     launches, calls, (n_fill, n_bt), fcalls = phase3()
+    (n_sfill, n_sbt), scalls = phase3_splice()
     e, ms, plain_ms = phase4(calls)
     fe, fms, fpl, bms, bpl = hold_fill_calls(fcalls, "main-path fill")
     if fe:
         fail("a main-path fill or backtrack launch differs from its twin")
+    if _params_key(scalls[0][0][-1]) != _params_key(splice_later[0][0][-1]):
+        fail("the cDNA run's options differ from the splice preset's")
+    se, sfms, sfpl, sbms, sbpl = hold_splice_calls(
+        scalls, "main-path splice", extra=splice_later)
+    if se:
+        fail("a main-path or splice workload launch differs from its twins")
     if "jax" in sys.modules:
         fail("jax was imported")
     src = "mm2_gb_tpu_torch/csrc/extd2_kernel.cu"
@@ -622,7 +1081,16 @@ def main() -> int:
         {"name": "ksw2_backtrack", "route": "cuda", "source": src,
          "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
          "launches": n_bt, "max_abs_err": max(fill_err, fe),
-         "ms": bms, "plain_ms": bpl}]}), flush=True)
+         "ms": bms, "plain_ms": bpl},
+        {"name": "exts2_fill", "route": "cuda",
+         "source": "mm2_gb_tpu_torch/csrc/exts2_kernel.cu",
+         "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:951",
+         "launches": n_sfill, "max_abs_err": max(splice_err, se),
+         "ms": sfms, "plain_ms": sfpl},
+        {"name": "ksw2_backtrack_intron", "route": "cuda", "source": src,
+         "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
+         "launches": n_sbt, "max_abs_err": max(splice_err, se),
+         "ms": sbms, "plain_ms": sbpl}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -40,7 +40,12 @@
 // per fill: the walk is serial and the fills independent.  Off-band
 // cells force the state (i < st: I, i > en: D); the two tails follow the
 // loop.  Run-length words are written straight into the fill's slot of
-// qlen + tlen words and reversed in place unless KSW_EZ_REV_CIGAR.
+// qlen + tlen words and reversed in place unless KSW_EZ_REV_CIGAR (one
+// flag for the launch, or one byte per fill).  Intron mode
+// (min_intron_len > 0, the splice fills of exts2_kernel.cu) is
+// backtrack_core's (ksw2kit.cpp:117-145), replacing backtrack_device's
+// intron_ops and the host _rle_cigar_splice: state 3 emits N, and the
+// tail deletion of i + 1 bases is an N when i >= min_intron_len.
 //
 // Plain C interface (no PyTorch headers): the Python wrappers in
 // mm2_gb_tpu_torch/ops/ksw2_gpu.py pass raw device pointers and the
@@ -262,10 +267,12 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
 __global__ void ksw2_backtrack_kernel(
     const uint8_t* __restrict__ p, const long long* __restrict__ p_off,
     const int* __restrict__ qlens, const int* __restrict__ tlens,
-    const int* __restrict__ ws, const long long* __restrict__ cig_off, int n,
-    int rev, unsigned* __restrict__ cig, int* __restrict__ n_cig) {
+    const int* __restrict__ ws, const long long* __restrict__ cig_off,
+    const uint8_t* __restrict__ rev_fill, int n, int rev, int min_intron_len,
+    unsigned* __restrict__ cig, int* __restrict__ n_cig) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n) return;
+  if (rev_fill) rev = rev_fill[f];
   const int qlen = qlens[f], tlen = tlens[f];
   int w = ws[f];
   if (w < 0) w = qlen > tlen ? qlen : tlen;
@@ -311,14 +318,14 @@ __global__ void ksw2_backtrack_kernel(
       --i;
       --j;
     } else if (state == 1 || state == 3) {
-      push(2, 1);
+      push(state == 3 && min_intron_len > 0 ? 3 : 2, 1);
       --i;
     } else {
       push(1, 1);
       --j;
     }
   }
-  if (i >= 0) push(2, i + 1);
+  if (i >= 0) push(min_intron_len > 0 && i >= min_intron_len ? 3 : 2, i + 1);
   if (j >= 0) push(1, j + 1);
   if (run_len > 0) out[nc++] = run_len << 4 | run_op;
   if (!rev) {
@@ -359,17 +366,23 @@ int mm2_extd2_fill(const void* qblob, const void* tblob, const void* qoff,
   return (int)cudaGetLastError();
 }
 
-// Backtracks the n fills of mm2_extd2_fill from (tlen-1, qlen-1): CIGAR
-// words into cig at cig_off[k] (room for qlen[k] + tlen[k]), their count
-// into n_cig[k].  Returns the CUDA error of the launch.
+// Backtracks the n fills of mm2_extd2_fill (or mm2_exts2_fill, with
+// w = qlen + tlen) from (tlen-1, qlen-1): CIGAR words into cig at
+// cig_off[k] (room for qlen[k] + tlen[k]), their count into n_cig[k].
+// KSW_EZ_REV_CIGAR order is rev_fill[k] when rev_fill is not null, else
+// rev; min_intron_len > 0 is the splice fills' intron mode.  Returns the
+// CUDA error of the launch.
 int mm2_ksw2_backtrack(const void* p, const void* p_off, const void* qlen,
                        const void* tlen, const void* w, const void* cig_off,
-                       int n, int rev, void* cig, void* n_cig, void* stream) {
+                       const void* rev_fill, int n, int rev,
+                       int min_intron_len, void* cig, void* n_cig,
+                       void* stream) {
   if (n <= 0) return 0;
   ksw2_backtrack_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)p, (const long long*)p_off, (const int*)qlen,
-      (const int*)tlen, (const int*)w, (const long long*)cig_off, n, rev,
-      (unsigned*)cig, (int*)n_cig);
+      (const int*)tlen, (const int*)w, (const long long*)cig_off,
+      (const uint8_t*)rev_fill, n, rev, min_intron_len, (unsigned*)cig,
+      (int*)n_cig);
   return (int)cudaGetLastError();
 }
 

@@ -10,10 +10,15 @@ and post-processed on the host and written in input order.
 module imports the TPU chain kernel, and with it JAX.
 
 With --gpu-align (and -c), each batch's gap fills run on the device
-between the readback and the host finish (`_prefill_native`): a collect
-pass of the C++ aligner records every APPROX_MAX fill, the fill and
-backtrack kernels solve them (ops/ksw2_gpu.extd2_fill_batch), and the
-real pass reads the results from the aligner's table.
+between the readback and the host finish.  Genomic presets take
+`_prefill_native`: a collect pass of the C++ aligner records every
+APPROX_MAX fill, the fill and backtrack kernels solve them
+(ops/ksw2_gpu.extd2_fill_batch), and the real pass reads the results
+from the aligner's table.  Splice presets take `_prefill_device`: the
+Python align driver (the only one that aligns splice reads) records the
+splice fills in a collect pass, the exts2 and intron backtrack kernels
+solve them (ops/ksw2s_gpu.exts2_fill_batch), and the real pass reads
+them from the driver's fill cache.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from mm2_gb_tpu.models.index import MinimizerIndex
 from mm2_gb_tpu.models.mapper import (_chain_gaps, _dbg_chain_dump,
                                        _dbg_seed_dump, post_process)
 from mm2_gb_tpu.ops import chain as chain_ops
+from mm2_gb_tpu.ops import ksw2
 from mm2_gb_tpu.ops import chain_rmq as rmq_ops
 from mm2_gb_tpu.ops import seed as seed_ops
 from mm2_gb_tpu.ops.sketch import sketch
@@ -40,7 +46,7 @@ from mm2_gb_tpu.utils.opts import (MapOptions, MM_F_CIGAR, MM_F_HEAP_SORT,
                                    MM_F_NO_HASH_NAME, MM_F_NO_LJOIN,
                                    MM_F_QSTRAND, MM_F_RMQ, MM_F_SPLICE,
                                    MM_F_SR, MM_F_TPU_ALIGN, MM_I_HPC)
-from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
 from mm2_gb_tpu_torch.utils.gpucfg import current_config
 
 INT32_MAX = 2**31 - 1
@@ -173,10 +179,10 @@ class GpuMetrics:
     n_batches: int = 0
     n_spills: int = 0        # batches cut by anchor/read caps
     n_host_hpc: int = 0      # batches chained on the host: non-uniform span
-    # --gpu-align gap fills (_prefill_native)
+    # --gpu-align gap fills (_prefill_native, _prefill_device)
     fills: ksw2_gpu.FillStats = None
-    t_collect: float = 0.0   # the C++ aligner's collect pass
-    t_table: float = 0.0     # loading the results into its table
+    t_collect: float = 0.0   # the align driver's collect pass
+    t_table: float = 0.0     # loading the results into its table (cache)
 
     def __post_init__(self):
         self.wall0 = time.perf_counter()
@@ -211,7 +217,8 @@ class GpuMetrics:
               f"({gcups:.3f} GCUPS), backtrack kernel "
               f"{fs.backtrack_ms:.3f} ms; collect {self.t_collect:.3f}s, "
               f"device batch {fs.batch_s:.3f}s, table "
-              f"{self.t_table:.3f}s\n")
+              f"{self.t_table:.3f}s; {fs.scratch_fills} with state in "
+              f"global scratch\n")
 
 
 def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
@@ -294,8 +301,9 @@ def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
     per-read work fans out, output order is the input order).  Debug
     dump modes stay sequential so their stderr interleaving matches the
     reference's -t 1 requirement (main.c:209,213).  Closes the native
-    fill session however the pass ends, so the C++ aligner never answers
-    a later batch from this batch's table."""
+    fill session and drops the Python fill cache however the pass ends,
+    so neither aligner answers a later batch from this batch's fills."""
+    from mm2_gb_tpu.ops import align as align_ops
     try:
         if (pool is not None and len(slices) > 1
                 and not (opt.dbg_print_seed or opt.dbg_print_chain
@@ -306,6 +314,7 @@ def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
         return [(sr, finish_read(index, opt, sr, fp, pp))
                 for sr, fp, pp in slices]
     finally:
+        align_ops.set_fill_cache(None)
         if native.available():
             native.fill_mode(0)   # drop any native fill table/session
 
@@ -325,12 +334,10 @@ def use_device_align(opt: MapOptions) -> bool:
 
 def unported_align_route(opt: MapOptions) -> str | None:
     """What of a --gpu-align run this port cannot carry yet (the JAX
-    package sends these to its Python fill session, _prefill_device),
-    or None."""
+    package sends these to its Python fill session with device
+    extensions, which this port has not yet), or None."""
     if not use_device_align(opt):
         return None
-    if opt.flag & MM_F_SPLICE:
-        return "--gpu-align with -x splice (exts2 fills)"
     if opt.flag & MM_F_QSTRAND:
         return "--gpu-align with --qstrand"
     if opt.dbg_print_aln_seq:
@@ -347,9 +354,6 @@ def _prefill_native(index: MinimizerIndex, opt: MapOptions, slices: list,
     pass (and answers it with a fake), the kernels solve them, and the
     results go into the aligner's table, which the real pass
     (finish_slices) reads.  The collect pass writes no debug dump."""
-    route = unported_align_route(opt)
-    if route is not None:
-        raise NotImplementedError(f"{route} is not yet ported")
     t0 = time.perf_counter()
     native.fill_mode(1)
     try:
@@ -375,6 +379,54 @@ def _prefill_native(index: MinimizerIndex, opt: MapOptions, slices: list,
         raise
 
 
+def _prefill_device(index: MinimizerIndex, opt: MapOptions, slices: list,
+                    metrics: GpuMetrics, device: torch.device) -> None:
+    """Device splice gap fills of one batch (the JAX pipeline's
+    _prefill_device for the "splice" kind): the Python align driver
+    records every splice gap fill in a collect pass (and answers it with
+    a fake), the unique ones (by align._fill_key) go to the exts2 and
+    intron backtrack kernels in one exts2_fill_batch call, and the
+    results become the driver's fill cache, which the real pass
+    (finish_slices) reads; a miss there falls back to ksw2_splice.exts2.
+    The collect pass writes no debug dump."""
+    from mm2_gb_tpu.ops import align as align_ops
+    t0 = time.perf_counter()
+    align_ops.begin_fill_collect()
+    try:
+        for sr, fp, pp in slices:
+            finish_read(index, opt, sr, fp, pp, dump=False)
+    finally:
+        fills = align_ops.end_fill_collect()
+    uniq: dict = {}
+    for _kind, qseq, tseq, w, flag, zdrop, end_bonus, junc in fills:
+        uniq.setdefault(align_ops._fill_key(qseq, tseq, w, flag, zdrop,
+                                            end_bonus, junc),
+                        (qseq, tseq, flag, junc))
+    metrics.t_collect += time.perf_counter() - t0
+    if not uniq:
+        return
+    vals = list(uniq.values())
+    cat = (lambda xs: np.concatenate(xs).astype(np.uint8, copy=False)
+           if xs else np.empty(0, np.uint8))
+    meta = np.array([(len(q), len(t), 0 if j is None else len(j))
+                     for q, t, _f, j in vals], np.int64)
+    scores, cig_off, cig_blob = ksw2s_gpu.exts2_fill_batch(
+        meta, cat([q for q, _t, _f, _j in vals]),
+        cat([t for _q, t, _f, _j in vals]),
+        cat([j for _q, _t, _f, j in vals if j is not None]),
+        np.array([f for _q, _t, f, _j in vals], np.int64),
+        ksw2s_gpu.splice_params(opt), device, stats=metrics.fills)
+    t0 = time.perf_counter()
+    cache = {}
+    for k, key in enumerate(uniq):
+        ez = ksw2.Extz()
+        ez.score = int(scores[k])
+        ez.cigar = cig_blob[cig_off[k]:cig_off[k + 1]]
+        cache[key] = ez
+    align_ops.set_fill_cache(cache)
+    metrics.t_table += time.perf_counter() - t0
+
+
 def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
                   metrics: GpuMetrics, pool, device: torch.device
                   ) -> list[tuple[SeededRead, list]]:
@@ -392,7 +444,13 @@ def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
         pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
         slices.append((sr, fp, pp))
     if use_device_align(opt):
-        _prefill_native(index, opt, slices, metrics, device)
+        route = unported_align_route(opt)
+        if route is not None:
+            raise NotImplementedError(f"{route} is not yet ported")
+        if opt.flag & MM_F_SPLICE:
+            _prefill_device(index, opt, slices, metrics, device)
+        else:
+            _prefill_native(index, opt, slices, metrics, device)
     out = finish_slices(index, opt, slices, pool)
     metrics.t_finish += time.perf_counter() - t0
     return out

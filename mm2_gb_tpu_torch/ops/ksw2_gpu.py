@@ -14,7 +14,8 @@ records in its collect pass.  Two hand-written CUDA kernels do the work
   (rows packed at a running sum of their widths) and the score.
 - `ksw2_backtrack`: ksw_backtrack with is_rot (ksw2.h:126-158), one
   thread per fill, run-length CIGAR words into a slot of qlen + tlen
-  words per fill.
+  words per fill; with min_intron_len > 0 the intron mode of the splice
+  fills (ops/ksw2s_gpu.py).
 
 `extd2_fill_torch` and `ksw2_backtrack_torch` are their plain PyTorch
 twins, same inputs and outputs; the wrappers take them only for tensors
@@ -96,10 +97,12 @@ def fill_params(opt) -> FillParams:
 
 @dataclass
 class FillStats:
-    """Counters of extd2_fill_batch, summed over calls."""
+    """Counters of extd2_fill_batch (and ksw2s_gpu.exts2_fill_batch),
+    summed over calls."""
     fills: int = 0          # fills asked for
     device_fills: int = 0   # solved by the fill + backtrack kernels
     host_fills: int = 0     # host route: collapse, mat gate, empty side
+    scratch_fills: int = 0  # device fills whose state is in global scratch
     chunks: int = 0         # kernel launch pairs
     cells: int = 0          # sum of qlen * tlen over device fills
     fill_ms: float = 0.0    # extd2_fill kernel time (CUDA events)
@@ -424,15 +427,21 @@ def _row_widths(qlen, tlen, w, n_rows_max: int) -> torch.Tensor:
     return torch.where(r < (qlen + tlen - 1)[:, None], wid, 0)
 
 
-def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
+def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
+                         min_intron_len: int = 0):
     """Plain PyTorch backtrack (the twin of the ksw2_backtrack kernel):
     every fill's walk from (tlen-1, qlen-1) advances in lockstep, one
     unit op per step, run-length encoded as it goes.  Returns (cig int32
     [cig_off[-1]] of uint32 words, n_cig int32 [n]): fill k's words are
-    cig[cig_off[k]:cig_off[k] + n_cig[k]]."""
+    cig[cig_off[k]:cig_off[k] + n_cig[k]].  rev_cigar: a bool, or one
+    per fill (a tensor); min_intron_len > 0: intron mode (state 3 is N,
+    a tail deletion of i + 1 >= min_intron_len + 1 bases is N)."""
     dev = p.device
     n = qlen.shape[0]
     i64 = torch.int64
+    rev = (rev_cigar.to(dev, torch.bool) if isinstance(rev_cigar, torch.Tensor)
+           else torch.full((n,), bool(rev_cigar), dtype=torch.bool,
+                           device=dev))
     total = int(cig_off[-1]) if n else 0
     cig = torch.zeros(total + 1, dtype=i64, device=dev)  # + a trash word
     n_cig = torch.zeros(n, dtype=i64, device=dev)
@@ -451,15 +460,17 @@ def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
     state = torch.zeros(n, dtype=i64, device=dev)
     run_op = torch.full((n,), -1, dtype=i64, device=dev)
     run_len = torch.zeros(n, dtype=i64, device=dev)
+    in_tail = torch.zeros(n, dtype=torch.bool, device=dev)
+    tail_n = torch.zeros(n, dtype=torch.bool, device=dev)
 
     def flush(mask):
         word = (run_len << 4) | run_op
         cig.scatter_(0, torch.where(mask, co + n_cig, total), word)
         n_cig.add_(mask.to(i64))
 
-    for _ in range(rows_max + 2):
+    for step in range(rows_max + 2):   # a walk takes <= qlen + tlen steps
         alive = (i >= 0) | (j >= 0)
-        if not bool(alive.any()):
+        if step % 64 == 0 and not bool(alive.any()):   # a rare device wait
             break
         both = (i >= 0) & (j >= 0)
         r = torch.clamp(i + j, min=0)
@@ -474,10 +485,17 @@ def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
         s1 = torch.where(s1 == 0, tmp & 7, s1)
         s1 = torch.where(both & (i < st), 2, s1)
         s1 = torch.where(both & (i > en), 1, s1)
-        s1 = torch.where((j < 0) & (i >= 0), 1, s1)   # tail: D run
+        d_tail = (j < 0) & (i >= 0)
+        s1 = torch.where(d_tail, 1, s1)               # tail: D run
         s1 = torch.where((i < 0) & (j >= 0), 2, s1)   # tail: I run
         is_ins = (s1 == 2) | (s1 == 4)
         op = torch.where(s1 == 0, 0, torch.where(is_ins, 1, 2))
+        if min_intron_len > 0:
+            # the tail's length is known where it starts: i + 1 bases
+            tail_n = torch.where(d_tail & ~in_tail, i >= min_intron_len,
+                                 tail_n)
+            in_tail |= d_tail
+            op = torch.where((both & (s1 == 3)) | (d_tail & tail_n), 3, op)
         new_run = alive & (op != run_op)
         flush(new_run & (run_len > 0))
         run_op = torch.where(new_run, op, run_op)
@@ -489,25 +507,28 @@ def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
         state = torch.where(alive & both, s1, state)
     flush(run_len > 0)
     cig = cig[:total]
-    if not rev_cigar:   # words were emitted back to front
+    if not bool(rev.all()):   # words were emitted back to front
         k = torch.arange(total, device=dev)
         owner = torch.repeat_interleave(torch.arange(n, device=dev),
                                         cig_off[1:].to(i64) - co)
         pos = k - co[owner]
-        src = torch.where(pos < n_cig[owner],
+        src = torch.where((pos < n_cig[owner]) & ~rev[owner],
                           co[owner] + n_cig[owner] - 1 - pos, k)
         cig = cig[src]
     return cig.to(torch.int32), n_cig.to(torch.int32)
 
 
-def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
-    """Backtrack n filled fills (the p, p_off of extd2_fill; cig_off
-    int64 [n + 1] with at least qlen[k] + tlen[k] words per fill).
+def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
+                   min_intron_len: int = 0):
+    """Backtrack n filled fills (the p, p_off of extd2_fill, or of
+    ksw2s_gpu.exts2_fill with w = qlen + tlen; cig_off int64 [n + 1]
+    with at least qlen[k] + tlen[k] words per fill).
 
     Returns (cig int32 [cig_off[-1]] holding uint32 CIGAR words, n_cig
-    int32 [n]); reversed (KSW_EZ_REV_CIGAR order) when rev_cigar.  CPU
-    tensors take the plain twin; CUDA tensors launch the kernel; a build
-    or launch failure raises."""
+    int32 [n]); reversed (KSW_EZ_REV_CIGAR order) where rev_cigar, a
+    bool or a bool tensor [n].  min_intron_len > 0 is the splice fills'
+    intron mode (N ops).  CPU tensors take the plain twin; CUDA tensors
+    launch the kernel; a build or launch failure raises."""
     global backtrack_launches
     for name, t, dt in (("p", p, torch.uint8), ("p_off", p_off, torch.int64),
                         ("qlen", qlen, torch.int32),
@@ -526,9 +547,16 @@ def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
                              f"elements, expected {n}")
     if cig_off.shape[0] != n + 1:
         raise ValueError("ksw2_backtrack: cig_off must have n + 1 entries")
+    rev_fill = None
+    if isinstance(rev_cigar, torch.Tensor):
+        if (rev_cigar.dtype != torch.bool or rev_cigar.shape != (n,)
+                or rev_cigar.device != p.device):
+            raise ValueError("ksw2_backtrack: a per-fill rev_cigar must be "
+                             f"a bool tensor of {n} on {p.device}")
+        rev_fill = rev_cigar.to(torch.uint8)
     if p.device.type == "cpu":
         return ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off,
-                                    rev_cigar)
+                                    rev_cigar, min_intron_len)
     if p.device.type != "cuda":
         raise ValueError(f"ksw2_backtrack: unsupported device {p.device}")
     lib = kernels.library()
@@ -539,8 +567,10 @@ def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar: bool):
         return cig, n_cig
     rc = lib.mm2_ksw2_backtrack(
         p.data_ptr(), p_off.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-        w.data_ptr(), cig_off.data_ptr(), n, int(bool(rev_cigar)),
-        cig.data_ptr(), n_cig.data_ptr(),
+        w.data_ptr(), cig_off.data_ptr(),
+        None if rev_fill is None else rev_fill.data_ptr(), n,
+        int(bool(rev_cigar)) if rev_fill is None else 0,
+        int(min_intron_len), cig.data_ptr(), n_cig.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream)
     kernels.check(rc, "ksw2_backtrack")
     backtrack_launches += 1
@@ -563,6 +593,37 @@ def _chunks(nbytes: np.ndarray, budget: int) -> list[tuple[int, int]]:
     if s < len(nbytes):
         out.append((s, len(nbytes)))
     return out
+
+
+def chunk_words(cig, n_cig, cig_off) -> np.ndarray:
+    """A chunk's CIGAR words (the backtrack's slots cig_off, n_cig words
+    used in each), compacted on the device and brought back as uint32."""
+    m = n_cig.shape[0]
+    slot = torch.repeat_interleave(torch.arange(m, device=cig.device),
+                                   cig_off[1:] - cig_off[:-1])
+    keep = (torch.arange(cig.shape[0], device=cig.device)
+            - cig_off[:-1][slot] < n_cig[slot])
+    return cig[keep].cpu().numpy().view(np.uint32)
+
+
+def assemble_cigars(n: int, n_cig: np.ndarray, dev_idx: np.ndarray,
+                    pieces: list, host_cig: dict
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """(cig_off int64 [n + 1], cig_blob uint32) of a batch: the device
+    fills dev_idx (their words in `pieces`, in dev_idx order) and the
+    host-routed ones (host_cig: fill -> words)."""
+    cig_off = np.zeros(n + 1, np.int64)
+    np.cumsum(n_cig, out=cig_off[1:])
+    cig_blob = np.empty(int(cig_off[-1]), np.uint32)
+    if pieces:
+        words = np.concatenate(pieces)
+        cnt = n_cig[dev_idx]
+        start = np.cumsum(cnt) - cnt
+        within = np.arange(words.shape[0]) - np.repeat(start, cnt)
+        cig_blob[np.repeat(cig_off[dev_idx], cnt) + within] = words
+    for k, c in host_cig.items():
+        cig_blob[cig_off[k]:cig_off[k + 1]] = c
+    return cig_off, cig_blob
 
 
 def extd2_fill_batch(meta: np.ndarray, qblob: np.ndarray,
@@ -653,32 +714,18 @@ def extd2_fill_batch(meta: np.ndarray, qblob: np.ndarray,
             if cuda:
                 ev[2].record()
             del p
-            # compact the words of each slot on the device
-            slot = torch.repeat_interleave(
-                torch.arange(m, device=device), co[1:] - co[:-1])
-            keep = (torch.arange(cig.shape[0], device=device) - co[:-1][slot]
-                    < nc[slot])
-            words = cig[keep].cpu().numpy().view(np.uint32)
+            pieces.append(chunk_words(cig, nc, co))
             scores[idx] = sc.cpu().numpy()
             n_cig[idx] = nc.cpu().numpy()
-            pieces.append(words)
             if cuda:
                 stats.fill_ms += ev[0].elapsed_time(ev[1])
                 stats.backtrack_ms += ev[1].elapsed_time(ev[2])
             stats.chunks += 1
         stats.cells += int((qlen * tlen)[dev_idx].sum())
+        nb = (tlen[dev_idx] + 15) // 16 * 16
+        stats.scratch_fills += int((STATE_ROWS * nb > SMEM_STATE_MAX).sum())
 
-    cig_off = np.zeros(n + 1, np.int64)
-    np.cumsum(n_cig, out=cig_off[1:])
-    cig_blob = np.empty(int(cig_off[-1]), np.uint32)
-    if pieces:
-        words = np.concatenate(pieces)
-        cnt = n_cig[dev_idx]
-        start = np.cumsum(cnt) - cnt
-        within = np.arange(words.shape[0]) - np.repeat(start, cnt)
-        cig_blob[np.repeat(cig_off[dev_idx], cnt) + within] = words
-    for k, c in host_cig.items():
-        cig_blob[cig_off[k]:cig_off[k + 1]] = c
+    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
     stats.fills += n
     stats.device_fills += int(dev_idx.shape[0])
     stats.host_fills += len(host_cig)

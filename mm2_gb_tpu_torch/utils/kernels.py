@@ -35,7 +35,8 @@ _SIGNATURES = {
     "mm2_chain_warps_per_block": [],
     "mm2_mg_log2": [_vp, _vp, _i, _vp],
     "mm2_extd2_fill": [_vp] * 9 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
-    "mm2_ksw2_backtrack": [_vp] * 6 + [_i, _i, _vp, _vp, _vp],
+    "mm2_ksw2_backtrack": [_vp] * 7 + [_i, _i, _i, _vp, _vp, _vp],
+    "mm2_exts2_fill": [_vp] * 11 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
 }
 
 

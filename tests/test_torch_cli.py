@@ -18,11 +18,21 @@ import torch
 import mm2_gb_tpu
 from mm2_gb_tpu.utils import opts as O
 from mm2_gb_tpu_torch import cli
-from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
 from mm2_gb_tpu_torch.utils import gpucfg
 from tests.conftest import golden_path
 
 SKIP_INF = "--max-chain-skip=2147483647"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The twins gain nothing from intra-op threads at these sizes, and
+    under several test workers those threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _gold(name):
@@ -58,11 +68,14 @@ def test_host_path_matches_golden(capsys):
      "sim200.skipinf.cs.paf.gz"),
     (["--gpu-align", "-c"], "invq4.ref.fa.gz", "invq4.q.fa.gz",
      "invq4.skipinf.c.paf.gz"),
+    (["--gpu-align", "-x", "splice", "--junc-bed",
+      golden_path("splice.bed.gz"), "-c"], "splice_genome.fa.gz",
+     "splice_reads.fa.gz", "splice40.juncbed.c.paf.gz"),
 ], ids=["sim200", "sim200_cs_c", "max_occ_rechain", "sim200_cs_c_align",
-        "invq4_c_align"])
+        "invq4_c_align", "splice40_juncbed_align"])
 def test_gpu_run_path_matches_golden(flags, ref, query, golden, capsys):
     before = (chain_gpu.launches, ksw2_gpu.fill_launches,
-              ksw2_gpu.backtrack_launches)
+              ksw2_gpu.backtrack_launches, ksw2s_gpu.fill_launches)
     rc = _run_on_cpu([*flags, golden_path(ref), golden_path(query)])
     assert rc == 0
     cap = capsys.readouterr()
@@ -77,7 +90,7 @@ def test_gpu_run_path_matches_golden(flags, ref, query, golden, capsys):
         assert m is None
     # CPU tensors: no kernel launch
     assert (chain_gpu.launches, ksw2_gpu.fill_launches,
-            ksw2_gpu.backtrack_launches) == before
+            ksw2_gpu.backtrack_launches, ksw2s_gpu.fill_launches) == before
 
 
 def test_gpu_run_frag_mode_falls_back_to_host(capsys):
@@ -134,17 +147,37 @@ def test_align_flag_is_accepted(flag, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-x", "splice", "-c", "--gpu-align"], ["--qstrand", "-c", "--gpu-align"],
+    ["-x", "splice", "-c", "--gpu-align", "--print-aln-seq"],
+    ["--qstrand", "-c", "--gpu-align"],
     ["--tpu-devices", "2"], ["--tpu-devices", "0"],
-    ["--tpu-nproc", "2"], ["--tpu-profile", "prof"]],
+    ["--tpu-nproc", "2"], ["--tpu-profile", "prof"],
+    ["--print-aln-seq", "-c", "--gpu-align"]],
     ids=["splice_align", "qstrand_align", "devices2", "devices_all",
-         "nproc2", "profile"])
+         "nproc2", "profile", "print_aln_seq_align"])
 def test_unported_flags_exit_1(flags, capsys):
+    """What the port cannot carry yet exits 1 before mapping; -x splice
+    --gpu-align itself is ported, but not with --print-aln-seq (it needs
+    the device extensions)."""
     rc = cli.main(["--gpu-chain", *flags, golden_path("simref.fa.gz"),
                    golden_path("simreads.fa.gz")])
     assert rc == 1
     cap = capsys.readouterr()
     assert "not yet ported" in cap.err and cap.out == ""
+
+
+@pytest.mark.parametrize("preset", [None, "splice"])
+def test_gpu_align_without_native_kit_exits_1(preset, monkeypatch, capsys):
+    """--gpu-align without the native kit (the JAX package's Python fill
+    session with device extensions) exits 1 before mapping."""
+    from mm2_gb_tpu_torch.models import pipeline as gp
+    monkeypatch.setattr(gp.native, "available", lambda: False)
+    rc = cli.main(["--gpu-chain", "--gpu-align", "-c",
+                   *(["-x", preset] if preset else []),
+                   golden_path("simref.fa.gz"), golden_path("simreads.fa.gz")])
+    assert rc == 1
+    cap = capsys.readouterr()
+    assert "without the native kit" in cap.err and "not yet ported" in cap.err
+    assert cap.out == ""
 
 
 def test_gpu_cfg_json_is_read(tmp_path, capsys):

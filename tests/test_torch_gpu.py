@@ -16,11 +16,12 @@ import pytest
 import torch
 
 from chip_smoke import (fill_oracle, fill_result_err, fill_workloads,
-                        hold_fill_calls, kernel_operands, recording_fills,
-                        workloads)
+                        hold_fill_calls, hold_splice_calls, kernel_operands,
+                        recording_fills, recording_splice, splice_oracle,
+                        splice_workloads, workloads)
 from mm2_gb_tpu.ops.chain import _chain_dp_scores
 from mm2_gb_tpu.utils.hashkit import mg_log2
-from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
 
 pytestmark = pytest.mark.gpu
 
@@ -28,6 +29,8 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 WORKLOADS = list(workloads())
 FILLS = list(fill_workloads(n_pairs=32, max_len=400, long_len=4800))
+SPLICE = list(splice_workloads(n_pairs=24, max_intron=1000,
+                               long_intron=8000, n_long=3))
 
 
 @pytest.fixture
@@ -119,6 +122,44 @@ def test_gpu_align_cli_matches_golden(cuda, flags, ref, query, golden,
                *flags, os.path.join(GOLDEN, ref), os.path.join(GOLDEN, query)])
     assert rc == 0
     assert ksw2_gpu.fill_launches > before[0]
+    assert ksw2_gpu.backtrack_launches > before[1]
+    with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
+        assert capsys.readouterr().out == f.read()
+
+
+@pytest.mark.parametrize("name,meta,qb,tb,jb,fl,prm", SPLICE,
+                         ids=[w[0] for w in SPLICE])
+def test_splice_kernels_match_twins_and_oracle(cuda, name, meta, qb, tb, jb,
+                                               fl, prm):
+    before = ksw2s_gpu.fill_launches
+    st = ksw2_gpu.FillStats()
+    with recording_splice() as calls:
+        got = ksw2s_gpu.exts2_fill_batch(meta, qb, tb, jb, fl, prm, cuda, st)
+    assert fill_result_err(got, splice_oracle(meta, qb, tb, jb, fl,
+                                              prm)) == 0
+    assert ksw2s_gpu.fill_launches == before + len(calls)
+    assert (len(calls) > 0) == (st.device_fills > 0)
+    assert hold_splice_calls(calls, name, verbose=False)[0] == 0
+
+
+@pytest.mark.parametrize("flags,ref,query,golden", [
+    (["-c"], "splice_genome.fa.gz", "splice_reads.fa.gz",
+     "splice40.skipinf.c.paf.gz"),
+    (["--junc-bed", os.path.join(GOLDEN, "splice.bed.gz"), "-c"],
+     "splice_genome.fa.gz", "splice_reads.fa.gz",
+     "splice40.juncbed.c.paf.gz"),
+    (["-G", "8000", "-c"], "simref.fa.gz", "simreads.fa.gz",
+     "sim200.splice-G8k.c.paf.gz"),
+], ids=["splice40", "splice40_juncbed", "sim200_G8k"])
+def test_gpu_align_splice_cli_matches_golden(cuda, flags, ref, query, golden,
+                                             capsys):
+    from mm2_gb_tpu_torch.cli import main
+    before = ksw2s_gpu.fill_launches, ksw2_gpu.backtrack_launches
+    rc = main(["--gpu-chain", "--gpu-align", "--max-chain-skip=2147483647",
+               "-x", "splice", *flags, os.path.join(GOLDEN, ref),
+               os.path.join(GOLDEN, query)])
+    assert rc == 0
+    assert ksw2s_gpu.fill_launches > before[0]
     assert ksw2_gpu.backtrack_launches > before[1]
     with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
         assert capsys.readouterr().out == f.read()

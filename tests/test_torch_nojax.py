@@ -4,7 +4,8 @@ Runs in a subprocess: this test process already holds JAX (the JAX
 package's tests import it).  The child blocks every `jax` import, then
 imports each module of mm2_gb_tpu_torch, maps reads through the GPU
 pipeline on CPU tensors, through the CLI's host path and through the
-CLI's `--gpu-chain --gpu-align -c` run path on CPU tensors.
+CLI's `--gpu-chain --gpu-align -c` run path on CPU tensors, for the
+default preset and for `-x splice` (the exts2 fills).
 """
 
 import os
@@ -25,6 +26,7 @@ class BlockJax:
 sys.meta_path.insert(0, BlockJax())
 for m in ("mm2_gb_tpu_torch", "mm2_gb_tpu_torch.cli",
           "mm2_gb_tpu_torch.ops.chain_gpu", "mm2_gb_tpu_torch.ops.ksw2_gpu",
+          "mm2_gb_tpu_torch.ops.ksw2s_gpu",
           "mm2_gb_tpu_torch.models.pipeline", "mm2_gb_tpu_torch.utils.gpucfg",
           "mm2_gb_tpu_torch.utils.kernels"):
     importlib.import_module(m)
@@ -68,7 +70,24 @@ with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
     assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
 assert buf.getvalue().count("\tcg:Z:") >= 3
 assert "fills: " in err.getvalue()
+
+import gzip
+with gzip.open(sys.argv[3], "rt") as f:
+    recs = f.read().split(">")[1:]
+with open(os.path.join(tmp, "s.fa"), "w") as f:
+    f.write("".join(">" + r for r in recs[16:18]))
+argv, args = cli.parse_args(["--max-chain-skip=2147483647", "--gpu-chain",
+                             "--gpu-align", "-x", "splice", "-c", "-v", "3",
+                             sys.argv[4], os.path.join(tmp, "s.fa")])
+io_, mo = O.set_preset(args.preset)
+buf, err = io.StringIO(), io.StringIO()
+with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+    assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
+assert any("N" in line.split("cg:Z:")[1]           # an intron
+           for line in buf.getvalue().splitlines() if "cg:Z:" in line)
+assert " 0 host-routed" in err.getvalue()
 assert "jax" not in sys.modules
+assert "mm2_gb_tpu.ops.ksw2_tpu" not in sys.modules
 print("NOJAX_OK")
 """
 
@@ -79,7 +98,9 @@ def test_port_never_imports_jax():
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", SCRIPT,
                         golden_path("simref.fa.gz"),
-                        golden_path("simreads.fa.gz")],
+                        golden_path("simreads.fa.gz"),
+                        golden_path("splice_reads.fa.gz"),
+                        golden_path("splice_genome.fa.gz")],
                        capture_output=True, text=True, env=env, cwd=root,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

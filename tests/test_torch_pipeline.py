@@ -20,6 +20,16 @@ from mm2_gb_tpu_torch.utils import gpucfg
 from tests.conftest import golden_path
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The twins gain nothing from intra-op threads at these sizes, and
+    under several test workers those threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(ref_len, n_reads, lo, hi, seed):
     ref = random_reference(ref_len, seed=seed)
     reads = simulate_readset(ref, n_reads, lo, hi, seed=seed + 1)
@@ -186,6 +196,76 @@ def test_real_pass_exception_closes_the_fill_session(tmp_path, monkeypatch):
     assert list(gp.map_file_gpu(index, mo, [qpath], device="cpu")) == base
 
 
+def _splice_subset(tmp_path):
+    """Index and options of `-x splice -c` on the splice40 genome, and
+    four of its reads (a ~4 s run on the twins)."""
+    with gzip.open(golden_path("splice_reads.fa.gz"), "rt") as f:
+        recs = f.read().split(">")[1:]
+    qpath = tmp_path / "q4.fa"
+    qpath.write_text("".join(">" + r for r in recs[16:20]))
+    io_, mo = O.set_preset("splice")
+    mo.max_chain_skip = 2**31 - 1
+    mo.flag |= O.MM_F_CIGAR | O.MM_F_OUT_CG
+    index = MinimizerIndex.from_fasta(golden_path("splice_genome.fa.gz"), io_)
+    O.mapopt_update(mo, index)
+    align = copy.copy(mo)
+    align.flag |= O.MM_F_TPU_ALIGN
+    return index, mo, align, str(qpath)
+
+
+def test_splice_real_pass_reads_the_fill_cache(tmp_path, monkeypatch):
+    """-x splice --gpu-align: the collect pass's fills reach the exts2
+    batch once each, and the real pass takes their results from the fill
+    cache (adding 1 to every device score changes the PAF) and does not
+    recompute them; the cache is gone after the run."""
+    from mm2_gb_tpu.ops import align as align_ops
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    index, mo, align, qpath = _splice_subset(tmp_path)
+    base = list(gp.map_file_gpu(index, mo, [qpath], device="cpu"))
+    assert base and list(gp.map_file_gpu(index, align, [qpath],
+                                         device="cpu")) == base
+    batch = KS.exts2_fill_batch
+    seen = []
+
+    def poisoned(meta, *a, **kw):
+        scores, cig_off, cig_blob = batch(meta, *a, **kw)
+        seen.append(meta)
+        return scores + 1, cig_off, cig_blob
+    monkeypatch.setattr(KS, "exts2_fill_batch", poisoned)
+    bad = list(gp.map_file_gpu(index, align, [qpath], device="cpu"))
+    assert len(seen) == 1 and seen[0].shape[0] > 10
+    assert bad != base
+    assert align_ops._fill_cache is None
+
+
+def test_real_pass_exception_clears_the_fill_cache(tmp_path, monkeypatch):
+    """An exception in a splice run's real pass, after the batch's device
+    results are in the Python fill cache, leaves no cache behind: a later
+    host run's alignment does not answer from that (here poisoned)
+    cache, and its PAF is unchanged."""
+    from mm2_gb_tpu.ops import align as align_ops
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    index, mo, align, qpath = _splice_subset(tmp_path)
+    base = list(gp.map_file_gpu(index, mo, [qpath], device="cpu"))
+    batch, finish = KS.exts2_fill_batch, gp.finish_read
+
+    def poisoned(*a, **kw):
+        scores, cig_off, cig_blob = batch(*a, **kw)
+        return scores + 1, cig_off, cig_blob
+
+    def real_pass_fails(*a, dump=True):
+        if dump:
+            raise RuntimeError("real pass")
+        return finish(*a, dump=dump)
+    monkeypatch.setattr(KS, "exts2_fill_batch", poisoned)
+    monkeypatch.setattr(gp, "finish_read", real_pass_fails)
+    with pytest.raises(RuntimeError, match="real pass"):
+        list(gp.map_file_gpu(index, align, [qpath], device="cpu"))
+    monkeypatch.setattr(gp, "finish_read", finish)
+    assert list(gp.map_file_gpu(index, mo, [qpath], device="cpu")) == base
+    assert align_ops._fill_cache is None
+
+
 def test_print_seeds_once_with_gpu_align(capsys):
     """--gpu-chain --gpu-align -c --print-seeds: the fill collect pass
     writes no dump, so the RS/SD/CN lines appear once, equal to the
@@ -207,9 +287,30 @@ def test_print_seeds_once_with_gpu_align(capsys):
     assert "fills: 45 (45 device, 0 host-routed)" in cap.err
 
 
+def test_print_seeds_once_with_splice_align(tmp_path, capsys):
+    """-x splice --gpu-align --print-seeds: the Python collect pass writes
+    no dump, so the RS/SD/CN lines and the PAF equal those of the run
+    without --gpu-align."""
+    from mm2_gb_tpu_torch import cli
+    _index, _mo, _align, qpath = _splice_subset(tmp_path)
+    runs = []
+    for align in ([], ["--gpu-align"]):
+        argv, args = cli.parse_args([
+            "--max-chain-skip=2147483647", "--gpu-chain", *align, "-x",
+            "splice", "-c", "--print-seeds",
+            golden_path("splice_genome.fa.gz"), qpath])
+        io_, mo = O.set_preset(args.preset)
+        assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
+        cap = capsys.readouterr()
+        runs.append((cap.out, [line for line in cap.err.splitlines()
+                               if line[:3] in ("RS\t", "SD\t", "CN\t")]))
+    assert runs[0][1] and runs[1] == runs[0]
+
+
 def test_unported_align_routes():
-    """The --gpu-align routes the JAX package sends to its Python fill
-    session are named; -x sr and single gap costs align on the host."""
+    """The --gpu-align routes that need the JAX package's device
+    extensions are named; -x sr and single gap costs align on the host,
+    and so do splice options whose q2 is no intron open."""
     def opt(preset=None, flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN, **kw):
         _io, mo = O.set_preset(preset)
         mo.flag |= flag
@@ -218,7 +319,13 @@ def test_unported_align_routes():
         return mo
     assert gp.use_device_align(opt()) and gp.unported_align_route(opt()) \
         is None
-    assert "splice" in gp.unported_align_route(opt("splice"))
+    # -x splice is ported (exts2 fills); with --print-aln-seq it is
+    # refused like the genomic presets
+    assert gp.use_device_align(opt("splice"))
+    assert gp.unported_align_route(opt("splice")) is None
+    assert "print-aln-seq" in gp.unported_align_route(
+        opt("splice", dbg_print_aln_seq=True))
+    assert not gp.use_device_align(opt("splice", q2=3))
     assert "qstrand" in gp.unported_align_route(
         opt(flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN | O.MM_F_QSTRAND))
     assert "print-aln-seq" in gp.unported_align_route(
