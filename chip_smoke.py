@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (mm2_gb_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke, below
+    python3 chip_smoke.py --walls    # --qstrand walls: port vs host path
 
 Run from the root of a checkout, on a machine with a CUDA GPU, nvcc and
 a CUDA build of PyTorch.  Phases (any failure exits non-zero):
@@ -36,18 +37,33 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    --junc-bed) and sim200 -G 8000 goldens; the 1000-read cDNA set at
    `-ax splice -t 8` identical to the host path, every fill on the
    device;
-4. every kernel launch of those flowcell and cDNA runs, on the inputs it
-   was given, against its twin, exact, and both timed (CUDA events).  A
-   fill launch is re-run on its recorded operands and must reproduce the
-   recorded direction bytes (by fingerprint) before the twins are held
-   against it; the cDNA run's splice launches, and the splice
-   workloads' launches under the same options, are held against one
-   twin run over all of their fills.
+   Then the extension slice: the extd2_ext kernel and the backtrack from
+   its per-fill starts against their twins and the port's ksw2.extd2 on
+   seeded extension workloads (five presets' penalties, both flag
+   forms, Z-drop, reach_end, N bases, the q/e swap, state in global
+   scratch, the host routes); `--gpu-chain --gpu-align --qstrand -c`
+   byte-identical to the sim200 qstrand golden (no real-pass miss of
+   the device results) and the no-native-kit route to the sim200 --cs
+   -c golden; on a draw of the bench flowcell `--qstrand -c -t 8`
+   identical to the host path, with extension launches > 0 and no
+   real-pass miss.  The genomic -c runs need the port's host
+   kit: the smoke fails if it did not build;
+4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
+   the inputs it was given, against its twin, exact, and both timed
+   (CUDA events; a kernel's are the pair its wrapper records right
+   around the launch).  A fill launch is re-run on its recorded operands and
+   must reproduce the recorded direction bytes (by fingerprint) before
+   the twins are held against it; the cDNA run's splice launches (with
+   the splice workloads' launches under the same options) and the
+   --qstrand run's extension launches are each held against one twin
+   run over all of their fills.
 
 The line before the last is a JSON object with each kernel's launches on
-the main path, its error against the twin and both times; the last line
-is {"ok": true, "device": {...}}.  Generated inputs and the kernel build
-go under build/ in the checkout.
+its path, its error against the twin, both times and the least time the
+card could take for the same work; the last line is {"ok": true,
+"device": {...}}.  The smoke fails if JAX or any module of the JAX
+package was imported.  Generated inputs and the kernel build go under
+build/ in the checkout.
 """
 
 from __future__ import annotations
@@ -67,6 +83,8 @@ WORK = os.path.join(REPO, "build", "smoke")
 N_READS = 600       # bench flowcell: 4 Mbp reference, 10-100 kb reads
                     # (at half the bench's 1200 reads, for the time limit)
 N_CDNA = 1000       # cDNA set: 10 Mbp reference, spliced reads
+N_QSTRAND = 600     # the bench flowcell's draw for the --qstrand run
+                    # (half the bench's 1200 reads, as N_READS)
 THREADS = 8
 SKIP_INF = "--max-chain-skip=2147483647"
 KERNEL_REPS = 3
@@ -276,8 +294,8 @@ def fill_workloads(n_pairs=96, max_len=600, long_len=5000):
     max_len..long_len bp (state in global scratch past ~4.5 kb); a matrix
     that fails the mat gate."""
     import numpy as np
-    from mm2_gb_tpu.ops import ksw2
-    from mm2_gb_tpu.utils import opts as O
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.utils import opts as O
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     rng = np.random.default_rng(2718)
     am, right, rev = (ksw2.KSW_EZ_APPROX_MAX, ksw2.KSW_EZ_RIGHT,
@@ -308,16 +326,18 @@ def fill_workloads(n_pairs=96, max_len=600, long_len=5000):
            am)
 
 
-def fill_oracle(meta, qblob, tblob, prm, flag):
-    """ksw2.extd2 of every fill: (scores, cig_off, cig_blob)."""
+def fill_oracle(meta, qblob, tblob, prm, flag, extd2=None):
+    """extd2 (the port's ksw2.extd2 unless given) of every fill: (scores,
+    cig_off, cig_blob)."""
     import numpy as np
-    from mm2_gb_tpu.ops import ksw2
+    from mm2_gb_tpu_torch.ops import ksw2
+    extd2 = extd2 or ksw2.extd2
     n = meta.shape[0]
     qo = np.concatenate([[0], np.cumsum(meta[:, 0])])
     to = np.concatenate([[0], np.cumsum(meta[:, 1])])
     scores, cigs = np.zeros(n, np.int32), []
     for k in range(n):
-        ez = ksw2.extd2(qblob[qo[k]:qo[k + 1]], tblob[to[k]:to[k + 1]],
+        ez = extd2(qblob[qo[k]:qo[k + 1]], tblob[to[k]:to[k + 1]],
                         prm.mat, prm.q, prm.e, prm.q2, prm.e2,
                         int(meta[k, 2]), -1, 0, flag)
         scores[k] = ez.score
@@ -348,13 +368,13 @@ def recording_fills():
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     calls, fill, bt = [], K.extd2_fill, K.ksw2_backtrack
 
-    def rec_fill(*a):
-        sc, p = fill(*a)
+    def rec_fill(*a, **kw):
+        sc, p = fill(*a, **kw)
         calls.append([a, sc, _fingerprint(p)])
         return sc, p
 
-    def rec_bt(*a):
-        cig, nc = bt(*a)
+    def rec_bt(*a, **kw):
+        cig, nc = bt(*a, **kw)
         calls[-1] += [a[1:], cig, nc]
         return cig, nc
     K.extd2_fill, K.ksw2_backtrack = rec_fill, rec_bt
@@ -374,6 +394,7 @@ def _fingerprint(p):
 
 
 def _timed(fn, *args):
+    """A plain version's call and its time (CUDA events around it)."""
     import torch
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0.record()
@@ -381,6 +402,17 @@ def _timed(fn, *args):
     t1.record()
     torch.cuda.synchronize()
     return out, t0.elapsed_time(t1)
+
+
+def _timed_launch(fn, *args, **kw):
+    """A kernel wrapper's call and the time of its kernel alone: the CUDA
+    events the wrapper records right around the launch, after its host
+    work (launch shape, allocations)."""
+    import torch
+    ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = fn(*args, events=ev, **kw)
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1])
 
 
 def hold_fill_calls(calls, label, verbose=True):
@@ -392,12 +424,12 @@ def hold_fill_calls(calls, label, verbose=True):
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     err, fms, fpl, bms, bpl = 0, 0.0, 0.0, 0.0, 0.0
     for i, (fa, sc, fp, ba, cig, nc) in enumerate(calls):
-        (sck, pk), tk = _timed(K.extd2_fill, *fa)
+        (sck, pk), tk = _timed_launch(K.extd2_fill, *fa)
         same_p = _fingerprint(pk) == fp
         (sct, pt), tt = _timed(K.extd2_fill_torch, *fa)
         e = max(_max_err(sck, sc), _max_err(sct, sc), _max_err(pt, pk),
                 0 if same_p else 2**31)
-        (cgk, nck), tb = _timed(K.ksw2_backtrack, pk, *ba)
+        (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba)
         (cgt, nct), tbt = _timed(K.ksw2_backtrack_torch, pk, *ba)
         e = max(e, _max_err(cgk, cig), _max_err(nck, nc), _max_err(cgt, cig),
                 _max_err(nct, nc))
@@ -435,6 +467,259 @@ def phase2_fills():
             fail(f"fill workload {name}: no collapse case on the host")
         err = max(err, e_tw)
     return err
+
+
+# the align driver's two extension flag forms: EXTZ_ONLY (the right
+# extension, the inversion fill) and EXTZ_ONLY|RIGHT|REV_CIGAR (the left)
+EXT_FLAGS = (0x40, 0x40 | 0x02 | 0x80)
+EXT_BONUS = (-1, 10, 0, 200)
+
+
+def _pack_ext(pairs, ws):
+    """(meta, qblob, tblob) of (q, t) extension pairs: meta [qlen, tlen,
+    w], as the pipeline's Python collect pass packs them."""
+    meta, qb, tb = _pack_fills(pairs, ws)
+    return meta[:, :3].copy(), qb, tb
+
+
+def ext_workloads(n_pairs=96, max_len=600, long_len=3400):
+    """(name, meta, qblob, tblob, zdrop, params, flag, end_bonus) of the
+    extension checks: fill_pairs's pairs (related, indel-rich, N bases,
+    unrelated, band-collapse shapes) under five presets' penalties in
+    both flag forms, Z-drop off, tight and at the presets' values, end
+    bonuses from -1 to 200 (reach_end); the q/e swap; pairs with tlen
+    past 3.2 kb (state in global scratch), one of them unrelated (an
+    early Z-drop); a matrix that fails the mat gate."""
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import opts as O
+    rng = np.random.default_rng(1618)
+    k = 0
+    for preset in FILL_PRESETS:
+        _io, mo = O.set_preset(preset)
+        for flag in EXT_FLAGS:
+            pairs, ws = fill_pairs(rng, n_pairs, 1, max_len)
+            zd = rng.choice([-1, 20, mo.zdrop, mo.zdrop_inv], len(pairs))
+            yield (f"{preset or 'map-ont'}/{flag:#x}", *_pack_ext(pairs, ws),
+                   zd, K.fill_params(mo), flag, EXT_BONUS[k % 4])
+            k += 1
+    pairs, ws = fill_pairs(rng, n_pairs, 1, max_len)
+    yield ("qe_swap", *_pack_ext(pairs, ws),
+           rng.choice([-1, 50, 400], len(pairs)),
+           K.fill_params_from(ksw2.gen_simple_mat(5, 2, 4, 1), 24, 1, 4, 2),
+           EXT_FLAGS[1], 10)
+    _io, mo = O.set_preset(None)
+    t = rng.integers(0, 4, long_len).astype(np.uint8)
+    q = t[:400].copy()
+    q[rng.random(400) < 0.05] = 4
+    pairs = [(q, t), (rng.integers(0, 4, 1500).astype(np.uint8), t.copy())]
+    yield ("long", *_pack_ext(pairs, [-1, -1]), np.array([400, 100]),
+           K.fill_params(mo), EXT_FLAGS[0], 10)
+    pairs, ws = fill_pairs(rng, 12, 1, max_len)
+    yield ("mat_gate", *_pack_ext(pairs, ws), np.full(12, 400),
+           K.fill_params_from(ksw2.gen_simple_mat(5, 2, 40, 1), 4, 2, 24, 1),
+           EXT_FLAGS[0], -1)
+
+
+def ext_oracle(meta, qblob, tblob, zdrop, prm, flag, end_bonus):
+    """The port's ksw2.extd2 of every extension: (fields [n, 10], cig_off,
+    cig_blob)."""
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    n = meta.shape[0]
+    qo = np.concatenate([[0], np.cumsum(meta[:, 0])])
+    to = np.concatenate([[0], np.cumsum(meta[:, 1])])
+    fields, cigs = np.zeros((n, len(K.EXT_FIELDS)), np.int32), []
+    for k in range(n):
+        ez = ksw2.extd2(qblob[qo[k]:qo[k + 1]], tblob[to[k]:to[k + 1]],
+                        prm.mat, prm.q, prm.e, prm.q2, prm.e2,
+                        int(meta[k, 2]), int(zdrop[k]), end_bonus, flag)
+        fields[k] = [int(getattr(ez, f)) for f in K.EXT_FIELDS]
+        cigs.append(ez.cigar)
+    off = np.concatenate([[0], np.cumsum([c.shape[0] for c in cigs])])
+    return fields, off, (np.concatenate(cigs).astype(np.uint32) if cigs
+                         else np.empty(0, np.uint32))
+
+
+@contextlib.contextmanager
+def recording_ext():
+    """Record every extd2_ext call made inside and the ksw2_backtrack call
+    from its starts (the wrappers still count their launches): a list of
+    [ext args, ext, fingerprint of p, backtrack args without p, cig,
+    n_cig].  Backtracks without starts (gap fills) pass through."""
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    calls, ext, bt = [], K.extd2_ext, K.ksw2_backtrack
+
+    def rec_ext(*a, **kw):
+        e, p = ext(*a, **kw)
+        calls.append([a, e, _fingerprint(p)])
+        return e, p
+
+    def rec_bt(*a, starts=None, **kw):
+        cig, nc = bt(*a, starts=starts, **kw)
+        if starts is not None:
+            calls[-1] += [a[1:], cig, nc]
+        return cig, nc
+    K.extd2_ext, K.ksw2_backtrack = rec_ext, rec_bt
+    try:
+        yield calls
+    finally:
+        K.extd2_ext, K.ksw2_backtrack = ext, bt
+
+
+def _merge_ext_calls(calls):
+    """One operand set holding the fills of recorded extension launches
+    that share their KSW_EZ_RIGHT flag and end bonus (blobs concatenated,
+    offsets shifted): (ext args, backtrack args without p, per-launch
+    (fill, p, word) bases)."""
+    import torch
+
+    def blob(i):
+        parts, base, size = [], {}, 0
+        for c in calls:
+            b = c[0][i]
+            key = (b.data_ptr(), b.numel())
+            if key not in base:
+                base[key] = size
+                parts.append(b)
+                size += b.numel()
+        return torch.cat(parts), [base[(c[0][i].data_ptr(), c[0][i].numel())]
+                                  for c in calls]
+    (qb, qbase), (tb, tbase) = blob(0), blob(1)
+    cols = {k: [] for k in ("qo", "to", "ql", "tl", "w", "zd", "po", "co")}
+    bases, fbase, pbase, cbase = [], 0, 0, 0
+    for c, qb0, tb0 in zip(calls, qbase, tbase):
+        (_q, _t, qo, to, ql, tl, w, zd, po, p_total, _prm, _r, _eb) = c[0]
+        co = c[3][4]
+        for k, v in (("qo", qo + qb0), ("to", to + tb0), ("ql", ql),
+                     ("tl", tl), ("w", w), ("zd", zd), ("po", po + pbase),
+                     ("co", co[:-1] + cbase)):
+            cols[k].append(v)
+        bases.append((fbase, pbase, cbase))
+        fbase, pbase, cbase = (fbase + ql.shape[0], pbase + p_total,
+                               cbase + int(co[-1]))
+    m = {k: torch.cat(v) for k, v in cols.items()}
+    co = torch.cat([m["co"], m["co"].new_tensor([cbase])])
+    prm, right, eb = calls[0][0][10:13]
+    return ((qb, tb, m["qo"], m["to"], m["ql"], m["tl"], m["w"], m["zd"],
+             m["po"], pbase, prm, right, eb),
+            (m["po"], m["ql"], m["tl"], m["w"], co, calls[0][3][5]), bases)
+
+
+def hold_ext_calls(calls, label, verbose=True):
+    """Recorded extd2_ext + backtrack launches of one option set against
+    the twins: one run of each twin over the fills of all launches with
+    the same KSW_EZ_RIGHT flag and end bonus (per-fill results do not
+    depend on the company a fill keeps), then each launch re-run on its
+    recorded operands: its p must match the recorded fingerprint and its
+    slice of the twin's p, its ext rows the recorded and the twin's, and
+    both backtracks from its starts the recorded words.  Returns
+    (max_abs_err, ext ms and backtrack ms summed over the launches, the
+    twins' ms summed over their runs: ext ms, ext twin ms, backtrack ms,
+    backtrack twin ms)."""
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    if not calls:
+        return 0, 0.0, 0.0, 0.0, 0.0
+    groups = {}
+    for i, c in enumerate(calls):
+        groups.setdefault((bool(c[0][11]), int(c[0][12])), []).append(i)
+    twin, fpl, bpl = {}, 0.0, 0.0
+    for idx in groups.values():
+        fa_all, ba_all, bases = _merge_ext_calls([calls[i] for i in idx])
+        (e_t, p_t), t_e = _timed(K.extd2_ext_torch, *fa_all)
+        (cg_t, nc_t), t_b = _timed(
+            lambda *a: K.ksw2_backtrack_torch(*a, starts=e_t[:, 10:]), p_t,
+            *ba_all)
+        fpl, bpl = fpl + t_e, bpl + t_b
+        for i, (f0, p0, c0) in zip(idx, bases):
+            fa, cig = calls[i][0], calls[i][4]
+            n = fa[4].shape[0]
+            twin[i] = (e_t[f0:f0 + n], p_t[p0:p0 + fa[9]],
+                       cg_t[c0:c0 + cig.shape[0]], nc_t[f0:f0 + n])
+    err, fms, bms = 0, 0.0, 0.0
+    for i, (fa, ek0, fp, ba, cig, nc) in enumerate(calls):
+        e_t, p_t, cg_t, nc_t = twin[i]
+        (ek, pk), tk = _timed_launch(K.extd2_ext, *fa)
+        e = max(_max_err(ek, ek0), _max_err(e_t, ek0), _max_err(p_t, pk),
+                0 if _fingerprint(pk) == fp else 2**31)
+        (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba,
+                                       starts=ek[:, 10:])
+        e = max(e, _max_err(cgk, cig), _max_err(nck, nc),
+                _max_err(cg_t, cig), _max_err(nc_t, nc))
+        del pk
+        if verbose:
+            log(f"{label} launch {i}: {fa[4].shape[0]} extensions, "
+                f"{int((fa[4].long() * fa[5].long()).sum())} cells; ext "
+                f"{tk:.3f} ms, backtrack {tb:.3f} ms; max_abs_err {e}")
+        err = max(err, e)
+        fms, bms = fms + tk, bms + tb
+    if verbose:
+        log(f"{label}: {len(calls)} launches, "
+            f"{sum(c[0][4].shape[0] for c in calls)} extensions; twins "
+            f"({len(groups)} runs, one per RIGHT flag and end bonus) ext "
+            f"{fpl:.3f} ms, backtrack {bpl:.3f} ms")
+    return err, fms, fpl, bms, bpl
+
+
+def ext_result_err(got, want) -> int:
+    """Largest difference between two (fields, cig_off, cig_blob), or
+    2**31 when their shapes or CIGAR lengths differ."""
+    import numpy as np
+    if got[0].shape != want[0].shape or not np.array_equal(got[1], want[1]):
+        return 2**31
+    d = np.abs(got[0].astype(np.int64) - want[0].astype(np.int64))
+    w = np.abs(got[2].astype(np.int64) - want[2].astype(np.int64))
+    return int(max(d.max(initial=0), w.max(initial=0)))
+
+
+def phase2_ext():
+    """The extd2_ext kernel and the backtrack from its starts against
+    their twins and the port's ksw2.extd2 (the native kit here) on the
+    extension workloads; exact.  The launches of one option set go
+    through one twin run."""
+    import torch
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    dev = torch.device("cuda")
+    err, groups = 0, {}
+    for name, meta, qb, tb, zd, prm, flag, eb in ext_workloads():
+        st = K.FillStats()
+        with recording_ext() as calls:
+            got = K.extd2_ext_batch(meta, qb, tb, zd, prm, flag, eb, dev, st)
+        e_or = ext_result_err(got, ext_oracle(meta, qb, tb, zd, prm, flag,
+                                              eb))
+        log(f"ext {name}: {st.ext_fills} extensions ({st.ext_host_fills} "
+            f"host-routed, {st.scratch_fills} with state in global "
+            f"scratch), {int(got[0][:, 8].sum())} Z-dropped, "
+            f"{int(got[0][:, 9].sum())} reach the end, {len(calls)} "
+            f"launches; batch==ksw2.extd2 max_abs_err={e_or}")
+        if e_or:
+            fail(f"ext workload {name} disagrees with the oracle")
+        if name == "mat_gate" and st.ext_host_fills != st.ext_fills:
+            fail("the mat gate did not route every extension to the host")
+        if name == "long" and not st.scratch_fills:
+            fail("no extension took the global-scratch state")
+        if name.endswith(f"/{EXT_FLAGS[0]:#x}") and not (
+                0 < st.ext_host_fills < st.ext_fills):
+            fail(f"ext workload {name}: no collapse case on the host")
+        groups.setdefault(_prm_key(prm), []).extend(calls)
+    out = [0, 0.0, 0.0, 0.0, 0.0]
+    for calls in groups.values():
+        r = hold_ext_calls(calls, "ext workloads", verbose=False)
+        out = [max(out[0], r[0])] + [a + b for a, b in zip(out[1:], r[1:])]
+    err = out[0]
+    log(f"ext workloads: kernel==twin max_abs_err={err}; ext "
+        f"{out[1]:.3f} ms (twin {out[2]:.3f} ms), backtrack {out[3]:.3f} ms "
+        f"(twin {out[4]:.3f} ms)")
+    if err:
+        fail("an ext workload launch differs from the twins")
+    return err
+
+
+def _prm_key(prm):
+    """The values of a FillParams (its matrix is an array)."""
+    return (prm.mat.tobytes(), prm.q, prm.e, prm.q2, prm.e2)
 
 
 # the splice flag variants of tests/test_ksw2_tpu.py:204-210, RIGHT with
@@ -529,8 +814,8 @@ def splice_workloads(n_pairs=48, max_intron=2000, long_intron=24_000,
     long_intron / 5 to long_intron and one of long_intron (tlen ~25 kb
     at the default); a matrix that fails the mat gate."""
     import numpy as np
-    from mm2_gb_tpu.ops import ksw2
-    from mm2_gb_tpu.utils import opts as O
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.utils import opts as O
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     rng = np.random.default_rng(31337)
     _io, mo = O.set_preset("splice")
@@ -565,16 +850,18 @@ def splice_workloads(n_pairs=48, max_intron=2000, long_intron=24_000,
                                  9, 9))
 
 
-def splice_oracle(meta, qblob, tblob, jblob, flags, prm):
-    """ksw2_splice.exts2 of every fill: (scores, cig_off, cig_blob)."""
+def splice_oracle(meta, qblob, tblob, jblob, flags, prm, exts2=None):
+    """exts2 (the port's ksw2_splice.exts2 unless given) of every fill:
+    (scores, cig_off, cig_blob)."""
     import numpy as np
-    from mm2_gb_tpu.ops import ksw2_splice
+    from mm2_gb_tpu_torch.ops import ksw2_splice
+    exts2 = exts2 or ksw2_splice.exts2
     n = meta.shape[0]
     qo, to, jo = (np.concatenate([[0], np.cumsum(meta[:, c])])
                   for c in range(3))
     scores, cigs = np.zeros(n, np.int32), []
     for k in range(n):
-        ez = ksw2_splice.exts2(
+        ez = exts2(
             qblob[qo[k]:qo[k + 1]], tblob[to[k]:to[k + 1]], prm.mat, prm.q,
             prm.e, prm.q2, prm.noncan, -1, prm.junc_bonus, int(flags[k]),
             jblob[jo[k]:jo[k + 1]] if meta[k, 2] else None)
@@ -594,13 +881,13 @@ def recording_splice():
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     calls, fill, bt = [], KS.exts2_fill, KS.ksw2_backtrack
 
-    def rec_fill(*a):
-        sc, p = fill(*a)
+    def rec_fill(*a, **kw):
+        sc, p = fill(*a, **kw)
         calls.append([a, sc, _fingerprint(p)])
         return sc, p
 
-    def rec_bt(*a):
-        cig, nc = bt(*a)
+    def rec_bt(*a, **kw):
+        cig, nc = bt(*a, **kw)
         calls[-1] += [a[1:], cig, nc]
         return cig, nc
     KS.exts2_fill, KS.ksw2_backtrack = rec_fill, rec_bt
@@ -679,11 +966,11 @@ def hold_splice_calls(calls, label, verbose=True, extra=()):
     for i, ((fa, sc, fp, ba, cig, nc), (f0, p0, c0)) in enumerate(
             zip(calls, bases)):
         n, p_total, n_words = fa[6].shape[0], fa[10], cig.shape[0]
-        (sck, pk), tk = _timed(KS.exts2_fill, *fa)
+        (sck, pk), tk = _timed_launch(KS.exts2_fill, *fa)
         e = max(_max_err(sck, sc), _max_err(sc_t[f0:f0 + n], sc),
                 _max_err(p_t[p0:p0 + p_total], pk),
                 0 if _fingerprint(pk) == fp else 2**31)
-        (cgk, nck), tb = _timed(K.ksw2_backtrack, pk, *ba)
+        (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba)
         e = max(e, _max_err(cgk, cig), _max_err(nck, nc),
                 _max_err(cg_t[c0:c0 + n_words], cig),
                 _max_err(nc_t[f0:f0 + n], nc))
@@ -717,7 +1004,7 @@ def phase2_splice():
     longest fill is as long as the main path's); returns (max_abs_err
     against the twins of the others, those launches)."""
     import torch
-    from mm2_gb_tpu.utils import opts as O
+    from mm2_gb_tpu_torch.utils import opts as O
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     dev = torch.device("cuda")
     later = _params_key(KS.splice_params(O.set_preset("splice")[1]))
@@ -774,14 +1061,11 @@ def _host(args, what):
     return p.stdout
 
 
-def flowcell():
-    """(ref, reads) of the bench flowcell, generated from its seeds."""
-    out = _host(["-c", "import sys\n"
-                 "from mm2_gb_tpu.utils.simulate import materialize_flowcell"
-                 "\nprint(*materialize_flowcell(int(sys.argv[1]), "
-                 "sys.argv[2]), sep='\\n')", str(N_READS), WORK],
-                "generating the flowcell")
-    return out.split()
+def flowcell(n_reads=N_READS):
+    """(ref, reads) of the bench flowcell's first n_reads reads, generated
+    from its seeds (written once under WORK)."""
+    from mm2_gb_tpu_torch.utils.simulate import materialize_flowcell
+    return materialize_flowcell(n_reads, WORK)
 
 
 def phase3():
@@ -1000,6 +1284,100 @@ def phase3_splice():
     return launches, calls
 
 
+def _fills_line(err, what):
+    """(gap fills, their host-routed, extensions, their host-routed, and
+    the real pass's misses: fills, extensions, splice fills) of a run's
+    `[M::gpu] fills:` line."""
+    m = re.search(r"fills: (\d+) \(\d+ device, (\d+) host-routed\).*"
+                  r"extensions: (\d+) \(\d+ device, (\d+) host-routed\).*"
+                  r"misses \(aligned on the host\): (\d+) fill, (\d+) ext, "
+                  r"(\d+) splice", err)
+    if m is None:
+        sys.stderr.write(err[-3000:])
+        fail(f"no fills line from {what}")
+    return tuple(int(g) for g in m.groups())
+
+
+def phase3_qstrand():
+    """This slice's path, the Python fill session with device extensions,
+    `--gpu-chain --gpu-align -c`: `--qstrand` byte-identical to the sim200
+    qstrand golden; the no-native-kit route (the whole host layer in
+    NumPy) byte-identical to the sim200 --cs -c golden; `--qstrand -c
+    -t 8` on a draw of the bench
+    flowcell identical to the host path (`python -m mm2_gb_tpu`, a
+    subprocess), with extension launches > 0, no gap fill on the host and
+    no miss of the device results in the real pass.  Returns the flowcell run's (ext, backtrack-from-starts) launches and
+    its recorded extension calls."""
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import native
+    gold = os.path.join(REPO, "tests", "golden")
+    simref = os.path.join(gold, "simref.fa.gz")
+    G.launches = K.fill_launches = K.ext_launches = 0
+    rc, out, err, wall = _cli(cli.main, [
+        "--gpu-chain", "--gpu-align", SKIP_INF, "--qstrand", "-c", "-v", "3",
+        simref, os.path.join(gold, "simreads.fa.gz")])
+    with gzip.open(os.path.join(gold, "sim200.qstrand.c.paf.gz"), "rt") as f:
+        same = out == f.read()
+    n = _fills_line(err, "sim200 --qstrand")
+    log(f"sim200 --gpu-align --qstrand -c: rc {rc}, {wall:.2f} s, chain "
+        f"launches {G.launches}, fill launches {K.fill_launches}, ext "
+        f"launches {K.ext_launches}, fills {n[0]} ({n[1]} host-routed), "
+        f"extensions {n[2]} ({n[3]} host-routed), real-pass misses {n[4:]} "
+        f"(fill, ext, splice), byte-identical {same}")
+    if (rc != 0 or not same or min(G.launches, K.fill_launches,
+                                   K.ext_launches) == 0 or n[1] or any(n[4:])):
+        fail("sim200 --qstrand golden")
+
+    available, native.available = native.available, lambda: False
+    try:
+        K.ext_launches = 0
+        rc, out, err, wall = _cli(cli.main, [
+            "--gpu-chain", "--gpu-align", SKIP_INF, "--cs", "-c", "-v", "3",
+            simref, os.path.join(gold, "simreads.fa.gz")])
+    finally:
+        native.available = available
+    with gzip.open(os.path.join(gold, "sim200.skipinf.cs.paf.gz"), "rt") as f:
+        same = out == f.read()
+    n = _fills_line(err, "the no-native-kit run")
+    log(f"sim200 with no native kit, --gpu-align --cs -c: rc {rc}, "
+        f"{wall:.2f} s, ext launches {K.ext_launches}, fills {n[0]}, "
+        f"extensions {n[2]}, byte-identical {same}")
+    if rc != 0 or not same or K.ext_launches == 0:
+        fail("the no-native-kit route")
+
+    ref, reads = flowcell(N_QSTRAND)
+    t0 = time.perf_counter()
+    host_q = _host(["-m", "mm2_gb_tpu", SKIP_INF, "--qstrand", "-c", "-t",
+                    str(THREADS), ref, reads], "host path --qstrand -c")
+    log(f"flowcell ({N_QSTRAND} reads) host path --qstrand -c (-t "
+        f"{THREADS}, subprocess): {time.perf_counter() - t0:.3f} s, "
+        f"{host_q.count(chr(10))} lines")
+    with recording_ext() as calls:
+        G.launches = K.fill_launches = 0
+        K.ext_launches = K.start_backtrack_launches = 0
+        rc, out, err, wall = _cli(cli.main, [
+            "--gpu-chain", "--gpu-align", SKIP_INF, "--qstrand", "-c", "-t",
+            str(THREADS), "-v", "3", ref, reads])
+        launches = (K.ext_launches, K.start_backtrack_launches)
+    sys.stderr.write(err)
+    if rc != 0:
+        fail("--gpu-chain --gpu-align --qstrand -c on the flowcell")
+    n = _fills_line(err, "the flowcell --qstrand run")
+    same = out == host_q
+    log(f"flowcell --gpu-chain --gpu-align --qstrand -c (-t {THREADS}, in "
+        f"process): {wall:.3f} s, fills {n[0]} ({n[1]} host-routed), "
+        f"extensions {n[2]} ({n[3]} host-routed), real-pass misses (aligned "
+        f"on the host) {n[4]} fill, {n[5]} ext, {n[6]} splice, ext launches "
+        f"{launches[0]}, ext backtrack launches {launches[1]}, fill "
+        f"launches {K.fill_launches}, chain launches {G.launches}, "
+        f"byte-identical to host path {same}")
+    if not same or min(launches) == 0 or n[1] or any(n[4:]):
+        fail("flowcell --gpu-align --qstrand run")
+    return launches, calls
+
+
 def phase4(calls):
     """Each main-path kernel call against the twin on its own inputs;
     (max_abs_err, kernel ms, twin ms) summed over the calls."""
@@ -1034,6 +1412,141 @@ def phase4(calls):
     return err, ms, plain_ms
 
 
+# the card's peaks (H100 SXM data sheet):
+# HBM bytes per second, and float32 operations per second outside the
+# tensor cores, against which the DPs' int8/int32 scalar operations are
+# counted (no faster rate applies to them, so the bound stays a bound)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# scalar operations per unit of work, counted from the kernels' inner
+# loops: a chain pair (pair_total and the reduction), a DP cell of the
+# fill, the extension (plus the H row and its key) and the splice fill
+# (plus the site scores), a backtrack step
+OPS_PER = {"chain": 40, "fill": 50, "ext": 56, "splice": 56, "step": 20}
+
+
+def _bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for moving nbytes
+    and doing ops on the card."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def band_cells(ql, tl, w):
+    """In-band DP cells of each fill, sum over rows r of en0 - st0 + 1
+    (ksw2._row_window): qlen * tlen when the band holds the whole
+    matrix (w >= max(qlen, tlen)), else counted row by row."""
+    import numpy as np
+    ql, tl, w = (np.asarray(a, np.int64) for a in (ql, tl, w))
+    w = np.where(w < 0, np.maximum(ql, tl), w)
+    cells = ql * tl
+    for k in np.nonzero(w < np.maximum(ql, tl))[0].tolist():
+        r = np.arange(ql[k] + tl[k] - 1)
+        st0 = np.maximum(np.maximum(0, r - ql[k] + 1), (r - w[k] + 1) >> 1)
+        en0 = np.minimum(np.minimum(tl[k] - 1, r), (r + w[k]) >> 1)
+        cells[k] = int(np.maximum(en0 - st0 + 1, 0).sum())
+    return cells
+
+
+def dp_bound(launches, ops_per_cell, out_per_fill, junction=False):
+    """Bound of DP launches [(qlen, tlen, w or None: unbanded)]: each
+    base read once (the junction bytes too where given), one direction
+    byte per in-band cell written once, out_per_fill bytes of results
+    per fill; ops_per_cell operations per cell."""
+    nbytes = ops = 0
+    for ql, tl, w in launches:
+        ql, tl = ql.cpu().numpy(), tl.cpu().numpy()
+        cells = int(band_cells(ql, tl, -1 if w is None else w.cpu().numpy())
+                    .sum())
+        nbytes += (int(ql.sum()) + int(tl.sum()) * (2 if junction else 1)
+                   + cells + out_per_fill * ql.shape[0])
+        ops += cells * ops_per_cell
+    return _bound(nbytes, ops)
+
+
+def walk_bound(launches):
+    """Bound of backtrack launches [(cig, n_cig)]: one direction byte read
+    per step of the walk (the unit ops of the CIGAR words), the words and
+    counts written once."""
+    nbytes = ops = 0
+    for cig, nc in launches:
+        steps = int((cig.long() >> 4).sum())
+        nbytes += steps + 4 * (int(nc.sum()) + nc.shape[0])
+        ops += steps * OPS_PER["step"]
+    return _bound(nbytes, ops)
+
+
+def chain_bound(calls):
+    """Bound of chain launches [(args, kw, f, p)]: x, y and the range of
+    each anchor read once and the segment bounds, f and p written once;
+    OPS_PER["chain"] operations per pair."""
+    import torch
+    nbytes = ops = 0
+    for args, _kw, _f, _p in calls:
+        n, n_seg = args[0].shape[0], args[3].shape[0]
+        nbytes += 20 * n + 8 * n_seg
+        ops += int(args[2].sum(dtype=torch.int64)) * OPS_PER["chain"]
+    return _bound(nbytes, ops)
+
+
+def require_host_kit():
+    """Fail unless the port's host kit built and loaded: without it the
+    genomic -c runs take the NumPy host layer and the Python fill
+    session, another and much slower path."""
+    from mm2_gb_tpu_torch.utils import native
+    if not native.available():
+        fail("the port's host kit did not build or load (see the warning "
+             "above)")
+    log(f"host kit {native._lib_path()}")
+
+
+def walls():
+    """`python3 chip_smoke.py --walls`: the wall of `--gpu-chain
+    --gpu-align --qstrand -c -t 8` on the N_QSTRAND-read flowcell draw
+    beside the JAX package's host path at the same flags, each a
+    subprocess (interpreter start, imports and index build in both; the
+    kernels and both host kits built first), in turns host, port, port,
+    host; every output byte-compared; each port run's kernel time (the
+    CUDA-event sums of its -v 3 lines) as a share of its wall."""
+    phase1()
+    require_host_kit()
+    _host(["-c", "from mm2_gb_tpu.utils import native\n"
+           "assert native.available()"], "building the JAX package's kit")
+    ref, reads = flowcell(N_QSTRAND)
+    flags = [SKIP_INF, "--qstrand", "-c", "-t", str(THREADS), ref, reads]
+    host = ("host", ["-m", "mm2_gb_tpu", *flags])
+    port = ("port", ["-m", "mm2_gb_tpu_torch", "--gpu-chain", "--gpu-align",
+                     "-v", "3", *flags])
+    outs = []
+    for name, args in (host, port, port, host):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, *args], cwd=REPO, text=True,
+                           capture_output=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            sys.stderr.write(p.stderr[-3000:])
+            fail(f"the {name} run")
+        outs.append(p.stdout)
+        msg = f"{name} --qstrand -c -t {THREADS}: wall {wall:.3f} s"
+        if name == "port":
+            dev = [line for line in p.stderr.splitlines()
+                   if line.startswith("[M::gpu]")]
+            for line in dev:
+                log(line)
+            chain = re.search(r"kernel ([\d.]+)s \(", p.stderr)
+            ms = sum(float(x) for x in re.findall(r"kernel ([\d.]+) ms",
+                                                   p.stderr))
+            busy = ms / 1e3 + (float(chain.group(1)) if chain else 0.0)
+            msg += (f", kernels {busy:.3f} s ({busy / wall * 100:.2f}% of "
+                    "the wall)")
+        log(msg)
+    same = all(o == outs[0] for o in outs)
+    log(f"{N_QSTRAND}-read flowcell: {outs[0].count(chr(10))} lines, all "
+        f"four outputs byte-identical {same}")
+    if not same:
+        fail("the --qstrand walls' outputs differ")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "mm2_gb_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1049,12 +1562,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     os.makedirs(WORK, exist_ok=True)
+    if sys.argv[1:] == ["--walls"]:
+        walls()
+        return 0
     phase1()
     err = phase2()
     fill_err = phase2_fills()
     splice_err, splice_later = phase2_splice()
+    ext_err = phase2_ext()
+    require_host_kit()
     launches, calls, (n_fill, n_bt), fcalls = phase3()
     (n_sfill, n_sbt), scalls = phase3_splice()
+    (n_ext, n_ebt), ecalls = phase3_qstrand()
     e, ms, plain_ms = phase4(calls)
     fe, fms, fpl, bms, bpl = hold_fill_calls(fcalls, "main-path fill")
     if fe:
@@ -1065,32 +1584,46 @@ def main() -> int:
         scalls, "main-path splice", extra=splice_later)
     if se:
         fail("a main-path or splice workload launch differs from its twins")
+    xe, xms, xpl, xbms, xbpl = hold_ext_calls(ecalls, "main-path ext")
+    if xe:
+        fail("a main-path extension launch differs from its twins")
     if "jax" in sys.modules:
         fail("jax was imported")
+    if any(m == "mm2_gb_tpu" or m.startswith("mm2_gb_tpu.")
+           for m in sys.modules):
+        fail("a module of the JAX package was imported")
     src = "mm2_gb_tpu_torch/csrc/extd2_kernel.cu"
+
+    def entry(name, source, replaces, n, e, t, t_plain, bound):
+        b_ms, b_by = bound
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": e,
+                "ms": t, "plain_ms": t_plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
     print(json.dumps({"kernels": [
-        {"name": "chain_segments", "route": "cuda",
-         "source": "mm2_gb_tpu_torch/csrc/chain_kernel.cu",
-         "replaces": "mm2_gb_tpu/ops/chain_tpu.py:222",
-         "launches": launches, "max_abs_err": max(err, e),
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "extd2_fill", "route": "cuda", "source": src,
-         "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:359",
-         "launches": n_fill, "max_abs_err": max(fill_err, fe),
-         "ms": fms, "plain_ms": fpl},
-        {"name": "ksw2_backtrack", "route": "cuda", "source": src,
-         "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
-         "launches": n_bt, "max_abs_err": max(fill_err, fe),
-         "ms": bms, "plain_ms": bpl},
-        {"name": "exts2_fill", "route": "cuda",
-         "source": "mm2_gb_tpu_torch/csrc/exts2_kernel.cu",
-         "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:951",
-         "launches": n_sfill, "max_abs_err": max(splice_err, se),
-         "ms": sfms, "plain_ms": sfpl},
-        {"name": "ksw2_backtrack_intron", "route": "cuda", "source": src,
-         "replaces": "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
-         "launches": n_sbt, "max_abs_err": max(splice_err, se),
-         "ms": sbms, "plain_ms": sbpl}]}), flush=True)
+        entry("chain_segments", "mm2_gb_tpu_torch/csrc/chain_kernel.cu",
+              "mm2_gb_tpu/ops/chain_tpu.py:222", launches, max(err, e), ms,
+              plain_ms, chain_bound(calls)),
+        entry("extd2_fill", src, "mm2_gb_tpu/ops/ksw2_tpu.py:359", n_fill,
+              max(fill_err, fe), fms, fpl, dp_bound(
+                  [c[0][4:7] for c in fcalls], OPS_PER["fill"], 4)),
+        entry("ksw2_backtrack", src, "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
+              n_bt, max(fill_err, fe), bms, bpl,
+              walk_bound([c[4:6] for c in fcalls])),
+        entry("exts2_fill", "mm2_gb_tpu_torch/csrc/exts2_kernel.cu",
+              "mm2_gb_tpu/ops/ksw2_tpu.py:951", n_sfill,
+              max(splice_err, se), sfms, sfpl, dp_bound(
+                  [(c[0][6], c[0][7], None) for c in scalls],
+                  OPS_PER["splice"], 4, junction=True)),
+        entry("ksw2_backtrack_intron", src, "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
+              n_sbt, max(splice_err, se), sbms, sbpl,
+              walk_bound([c[4:6] for c in scalls])),
+        entry("extd2_ext", src, "mm2_gb_tpu/ops/ksw2_tpu.py:550", n_ext,
+              max(ext_err, xe), xms, xpl, dp_bound(
+                  [c[0][4:7] for c in ecalls], OPS_PER["ext"], 48)),
+        entry("ksw2_backtrack_ext", src, "mm2_gb_tpu/ops/ksw2_tpu.py:1552",
+              n_ebt, max(ext_err, xe), xbms, xbpl,
+              walk_bound([c[4:6] for c in ecalls]))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,11 @@
-// Gap-fill DP (ksw2 extd2, APPROX_MAX) and its backtrack for Hopper
+// Gap-fill and extension DP (ksw2 extd2) and its backtrack for Hopper
 // (sm_90a).
 //
 // Replaces the Pallas kernel mm2_gb_tpu/ops/ksw2_tpu.py::_extd2_kernel in
-// fill mode (track_h=False), with prep_fill_operands folded in, and the
-// XLA program backtrack_device with _rle_cigar folded in.  Semantics are
+// fill mode (track_h=False) and in extension mode (track_h=True), with
+// prep_fill_operands folded in, the XLA program backtrack_device with
+// _rle_cigar folded in, and ext_batch_device's host epilogue (the
+// backtrack start of each extension).  Semantics are
 // the oracle's, mm2_gb_tpu/ops/ksw2.py::extd2 (the SSE4.1
 // ksw2_extd2_sse.c kernel), as csrc/ksw2kit.cpp writes them in scalar
 // int8 C++:
@@ -36,8 +38,35 @@
 // kernel is latency-bound on the dependent rows; many fills per SM (small
 // blocks, ~2 KB of shared memory each) hide it.
 //
+// Extension mode (TRACK_H, KSW_EZ_EXTZ_ONLY: the left and right
+// extensions and the inversion fill of the align driver) is the oracle's
+// non-approx branch (ksw2kit.cpp:554-568): an int32 H row (4 x nbytes,
+// beside the int8 rows) with H[en0] = H[en0-1] + u[en0] (H[0] + v[0] when
+// en0 == 0) and H[t] += v[t] over [st0, en0), then the row maximum, mte,
+// mqe, Z-drop and the score.  The same single barrier per row serves it:
+//   - each lane's thread updates its H in the row pass; the previous
+//     row's H[en0 - 1], which another thread updates in place in this
+//     row, was copied into a parity slot by its owner in the previous row
+//     (when it lay outside that row's window nobody writes it now, and it
+//     is read in place);
+//   - the row maximum ranks lanes as row_max (ksw2kit.cpp:94-110) does:
+//     en0 first, then the 4-lane blocks by ((t-st0)%4, (t-st0)/4), then
+//     the tail lanes by position.  Each thread packs (H, inverted rank)
+//     into one 64-bit key, a warp shuffle reduces the keys, and each
+//     warp's best goes to a parity slot; after the barrier every thread
+//     reduces those slots and so holds the same max, H[st0], H[en0] and
+//     Z-drop decision, and a drop ends the row loop for the whole block;
+//   - after the loop, ext_batch_device's epilogue (ksw2_tpu.py:1741-1762)
+//     picks the backtrack start: (mqe_t, qlen-1) when the end bonus
+//     reaches the query end, else (max_t, max_q), else none.  The fill's
+//     [score, max, max_t, max_q, mqe, mqe_t, mte, mte_q, zdropped,
+//     reach_end, i0, j0] go out as int32, and the backtrack reads i0, j0
+//     from there: no host round trip between the two launches.
+//
 // ksw2_backtrack: ksw_backtrack with is_rot (ksw2.h:126-158), one thread
-// per fill: the walk is serial and the fills independent.  Off-band
+// per fill: the walk is serial and the fills independent.  It starts at
+// (tlen-1, qlen-1), or at a per-fill (i0, j0) (extensions; a start of -1
+// writes no CIGAR).  Off-band
 // cells force the state (i < st: I, i > en: D); the two tails follow the
 // loop.  Run-length words are written straight into the fill's slot of
 // qlen + tlen words and reversed in place unless KSW_EZ_REV_CIGAR (one
@@ -53,11 +82,13 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int kNegInf = -0x40000000;
+constexpr int kMaxWarps = 8;   // blocks of at most 256 threads
 
 struct FillConsts {
   int q, e, q2, e2;          // swapped: q + e <= q2 + e2
@@ -81,16 +112,45 @@ __device__ __forceinline__ int row_width(int r, int qlen, int tlen, int w) {
   return (en0 | 15) - (st0 & ~15) + 1;
 }
 
-template <bool RIGHT>
+// the row-maximum key of lane t of [st0, en0]: H in the high word, the
+// lane's rank under row_max's tie rules inverted in the low word
+__device__ __forceinline__ long long row_key(int h, int t, int st0,
+                                             int en0) {
+  int rank = 0;
+  if (t != en0) {
+    const int nb = (en0 - st0) / 4, d = t - st0;
+    rank = d < 4 * nb ? 1 + (d % 4) * nb + d / 4 : 1 + d;
+  }
+  return (long long)h * 4294967296LL + (long long)(0x7fffffff - rank);
+}
+
+// lane of the rank a row_key holds
+__device__ __forceinline__ int key_lane(long long key, int st0, int en0) {
+  const int rank = 0x7fffffff - (int)(key & 0xffffffffLL);
+  if (rank == 0) return en0;
+  const int nb = (en0 - st0) / 4;
+  if (rank <= 4 * nb) {
+    const int k = rank - 1;
+    return st0 + 4 * (k % nb) + k / nb;
+  }
+  return st0 + rank - 1;
+}
+
+template <bool RIGHT, bool TRACK_H>
 __global__ void __launch_bounds__(256) extd2_fill_kernel(
     const uint8_t* __restrict__ qblob, const uint8_t* __restrict__ tblob,
     const long long* __restrict__ qoff, const long long* __restrict__ toff,
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     const int* __restrict__ ws, const long long* __restrict__ p_off,
     const long long* __restrict__ scr_off, int8_t* __restrict__ scratch,
-    uint8_t* __restrict__ p, int* __restrict__ score, FillConsts c) {
+    uint8_t* __restrict__ p, int* __restrict__ score, FillConsts c,
+    const int* __restrict__ zdrops, int end_bonus, int* __restrict__ ext) {
   extern __shared__ int8_t smem[];
   __shared__ int slot_v[2], slot_u[2];
+  // extension mode: H[en0 - 1] of the previous row, H[en0] and H[st0] of
+  // this row, and each warp's best row key, by row parity
+  __shared__ int slot_hp[2], slot_hen0[2], slot_hst0[2];
+  __shared__ long long slot_key[2][kMaxWarps];
   const int f = blockIdx.x;
   const int qlen = qlens[f], tlen = tlens[f];
   int w = ws[f];
@@ -107,6 +167,7 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
   int8_t* V1 = V0 + nbytes;
   int8_t* X20 = V1 + nbytes;
   int8_t* X21 = X20 + nbytes;
+  int* H = (int*)(X21 + nbytes);   // extension mode: 4 x nbytes more
   const uint8_t* qs = qblob + qoff[f];
   const uint8_t* ts = tblob + toff[f];
   uint8_t* pf = p + p_off[f];
@@ -122,6 +183,7 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
     U[t] = Y[t] = X0[t] = X1[t] = V0[t] = V1[t] = nqe;
     Y2[t] = X20[t] = X21[t] = nqe2;
     S[t] = 0;
+    if (TRACK_H) H[t] = kNegInf;
   }
   __syncthreads();
 
@@ -129,6 +191,12 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
   int last_st = -1, last_en = -1;
   long long row_off = 0;
   const int n_rows = qlen + tlen - 1;
+  // extension mode: the oracle's Extz fields (ksw2kit.cpp Ez), the same
+  // in every thread
+  const int zdrop = TRACK_H ? zdrops[f] : -1;
+  int mx = 0, max_t = -1, max_q = -1, mqe = kNegInf, mqe_t = -1;
+  int mte = kNegInf, mte_q = -1, dropped = 0;
+  int prev_st0 = -1, prev_en0 = -1;
   for (int r = 0; r < n_rows; ++r) {
     const int par = r & 1;
     int8_t* xc = par ? X1 : X0;
@@ -161,6 +229,17 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
       v1 = bv;
     }
     const bool reset = en >= r;
+    // extension mode: the previous row's H[en0 - 1], and the lane whose
+    // H the next row reads so
+    int h_prev = 0, next_en0 = -1;
+    if (TRACK_H) {
+      if (r > 0 && en0 > 0)
+        h_prev = en0 - 1 >= prev_st0 && en0 - 1 <= prev_en0 ? slot_hp[par]
+                                                              : H[en0 - 1];
+      int nst0;
+      row_window(r + 1, qlen, tlen, w, nst0, next_en0);
+    }
+    long long key = LLONG_MIN;
     int hi = st0 + 16 * ((en0 - st0) / 16 + 1);
     if (hi > nbytes) hi = nbytes;
     const int last = en > hi - 1 ? en : hi - 1;
@@ -229,10 +308,72 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
       d |= (ta ? 0x08 : 0) | (tb ? 0x10 : 0) | (ta2 ? 0x20 : 0) |
            (tb2 ? 0x40 : 0);
       prow[t - st] = d;
-      if (t == lh) slot_v[par] = vn;
-      if (t == lh + 1) slot_u[par] = un;
+      if (TRACK_H) {
+        if (t >= st0 && t <= en0) {   // the H row (ksw2kit.cpp:556-564)
+          int h;
+          if (r == 0)
+            h = vn - (c.q + c.e);
+          else if (t < en0)
+            h = H[t] + vn;
+          else
+            h = en0 > 0 ? h_prev + un : H[en0] + vn;
+          H[t] = h;
+          const long long k = row_key(h, t, st0, en0);
+          key = k > key ? k : key;
+          if (t == st0) slot_hst0[par] = h;
+          if (t == en0) slot_hen0[par] = h;
+          if (t == next_en0 - 1) slot_hp[par ^ 1] = h;
+        }
+      } else {
+        if (t == lh) slot_v[par] = vn;
+        if (t == lh + 1) slot_u[par] = un;
+      }
+    }
+    if (TRACK_H) {
+      for (int o = 16; o > 0; o >>= 1) {
+        const long long k = __shfl_xor_sync(0xffffffffu, key, o);
+        key = k > key ? k : key;
+      }
+      if ((tid & 31) == 0) slot_key[par][tid >> 5] = key;
     }
     __syncthreads();
+    if (TRACK_H) {
+      // the row maximum, mte, mqe, Z-drop and the score
+      // (ksw2kit.cpp:560-568), the same in every thread
+      for (int k = 0; k < (nt >> 5); ++k)
+        key = slot_key[par][k] > key ? slot_key[par][k] : key;
+      const int max_h = (int)(key >> 32);
+      const int mt = key_lane(key, st0, en0);
+      const int h_en0 = slot_hen0[par], h_st0 = slot_hst0[par];
+      if (en0 == tlen - 1 && h_en0 > mte) {
+        mte = h_en0;
+        mte_q = r - en;
+      }
+      if (r - st0 == qlen - 1 && h_st0 > mqe) {
+        mqe = h_st0;
+        mqe_t = st0;
+      }
+      // apply_zdrop (ksw2kit.cpp:37-50), e2 the extension cost
+      if (max_h > mx) {
+        mx = max_h;
+        max_t = mt;
+        max_q = r - mt;
+      } else if (mt >= max_t && r - mt >= max_q) {
+        const int tl = mt - max_t, ql = r - mt - max_q;
+        const int l = tl > ql ? tl - ql : ql - tl;
+        if (zdrop >= 0 && mx - max_h > zdrop + l * c.e2) {
+          dropped = 1;
+          break;
+        }
+      }
+      if (r == n_rows - 1 && en0 == tlen - 1) sc_final = h_en0;
+      prev_st0 = st0;
+      prev_en0 = en0;
+      last_st = st;
+      last_en = en;
+      row_off += en - st + 1;
+      continue;
+    }
     // the approx-max H0 walk (ksw2.py:587-608); lh stays in [st0, en0]
     // of the row, so the lanes it reads were written just now
     const int vl = slot_v[par], ul = slot_u[par];
@@ -261,14 +402,43 @@ __global__ void __launch_bounds__(256) extd2_fill_kernel(
     last_en = en;
     row_off += en - st + 1;
   }
-  if (tid == 0) score[f] = sc_final;
+  if (tid != 0) return;
+  if (!TRACK_H) {
+    score[f] = sc_final;
+    return;
+  }
+  // ext_batch_device's epilogue (ksw2_tpu.py:1741-1762): the backtrack
+  // start
+  int reach_end = 0, i0 = -1, j0 = -1;
+  if (!dropped && mqe + end_bonus > mx) {
+    reach_end = 1;
+    i0 = mqe_t;
+    j0 = qlen - 1;
+  } else if (max_t >= 0 && max_q >= 0) {
+    i0 = max_t;
+    j0 = max_q;
+  }
+  int* o = ext + 12LL * f;
+  o[0] = sc_final;
+  o[1] = mx;
+  o[2] = max_t;
+  o[3] = max_q;
+  o[4] = mqe;
+  o[5] = mqe_t;
+  o[6] = mte;
+  o[7] = mte_q;
+  o[8] = dropped;
+  o[9] = reach_end;
+  o[10] = i0;
+  o[11] = j0;
 }
 
 __global__ void ksw2_backtrack_kernel(
     const uint8_t* __restrict__ p, const long long* __restrict__ p_off,
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     const int* __restrict__ ws, const long long* __restrict__ cig_off,
-    const uint8_t* __restrict__ rev_fill, int n, int rev, int min_intron_len,
+    const uint8_t* __restrict__ rev_fill, const int* __restrict__ start,
+    int start_stride, int n, int rev, int min_intron_len,
     unsigned* __restrict__ cig, int* __restrict__ n_cig) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= n) return;
@@ -278,11 +448,18 @@ __global__ void ksw2_backtrack_kernel(
   if (w < 0) w = qlen > tlen ? qlen : tlen;
   const uint8_t* pf = p + p_off[f];
   unsigned* out = cig + cig_off[f];
-  const int n_rows = qlen + tlen - 1;
-  long long off = 0;  // start of row cur_r in the fill's region
-  for (int r = 0; r < n_rows - 1; ++r) off += row_width(r, qlen, tlen, w);
-  int cur_r = n_rows - 1;
   int i = tlen - 1, j = qlen - 1, state = 0, nc = 0;
+  if (start) {
+    i = start[(long long)f * start_stride];
+    j = start[(long long)f * start_stride + 1];
+    if (i < 0 || j < 0) {
+      n_cig[f] = 0;
+      return;
+    }
+  }
+  int cur_r = i + j;
+  long long off = 0;  // start of row cur_r in the fill's region
+  for (int r = 0; r < cur_r; ++r) off += row_width(r, qlen, tlen, w);
   unsigned run_op = 0, run_len = 0;
   auto push = [&](unsigned op, unsigned len) {
     if (run_len > 0 && run_op == op) {
@@ -357,32 +534,64 @@ int mm2_extd2_fill(const void* qblob, const void* tblob, const void* qoff,
                    int smem_bytes, void* stream) {
   if (n <= 0) return 0;
   FillConsts c{q, e, q2, e2, mat0, mat1, sc_n, long_thres, long_diff};
-  auto kernel = right ? extd2_fill_kernel<true> : extd2_fill_kernel<false>;
+  auto kernel = right ? extd2_fill_kernel<true, false>
+                      : extd2_fill_kernel<false, false>;
   kernel<<<n, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const uint8_t*)qblob, (const uint8_t*)tblob, (const long long*)qoff,
       (const long long*)toff, (const int*)qlen, (const int*)tlen,
       (const int*)w, (const long long*)p_off, (const long long*)scr_off,
-      (int8_t*)scratch, (uint8_t*)p, (int*)score, c);
+      (int8_t*)scratch, (uint8_t*)p, (int*)score, c, nullptr, 0, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// Extension mode (KSW_EZ_EXTZ_ONLY) of the n fills: as mm2_extd2_fill,
+// with Z-drop zdrop[k] (< 0: none) and the launch's end bonus; fill k's
+// [score, max, max_t, max_q, mqe, mqe_t, mte, mte_q, zdropped,
+// reach_end, i0, j0] into ext[12k ...], (i0, j0) the backtrack start (-1:
+// none).  The state takes 14 x nbytes (the int32 H row after the 10 int8
+// rows).  threads is a multiple of 32, at most 256.
+int mm2_extd2_ext(const void* qblob, const void* tblob, const void* qoff,
+                  const void* toff, const void* qlen, const void* tlen,
+                  const void* w, const void* zdrop, const void* p_off,
+                  const void* scr_off, int n, void* scratch, void* p,
+                  void* ext, int q, int e, int q2, int e2, int mat0,
+                  int mat1, int sc_n, int long_thres, int long_diff,
+                  int right, int end_bonus, int threads, int smem_bytes,
+                  void* stream) {
+  if (n <= 0) return 0;
+  if (threads <= 0 || threads > 32 * kMaxWarps || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  FillConsts c{q, e, q2, e2, mat0, mat1, sc_n, long_thres, long_diff};
+  auto kernel = right ? extd2_fill_kernel<true, true>
+                      : extd2_fill_kernel<false, true>;
+  kernel<<<n, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const uint8_t*)qblob, (const uint8_t*)tblob, (const long long*)qoff,
+      (const long long*)toff, (const int*)qlen, (const int*)tlen,
+      (const int*)w, (const long long*)p_off, (const long long*)scr_off,
+      (int8_t*)scratch, (uint8_t*)p, nullptr, c, (const int*)zdrop,
+      end_bonus, (int*)ext);
   return (int)cudaGetLastError();
 }
 
 // Backtracks the n fills of mm2_extd2_fill (or mm2_exts2_fill, with
-// w = qlen + tlen) from (tlen-1, qlen-1): CIGAR words into cig at
+// w = qlen + tlen, or mm2_extd2_ext) from (tlen-1, qlen-1), or from
+// (start[k * start_stride], start[k * start_stride + 1]) when start is
+// not null (a start of -1 writes no word): CIGAR words into cig at
 // cig_off[k] (room for qlen[k] + tlen[k]), their count into n_cig[k].
 // KSW_EZ_REV_CIGAR order is rev_fill[k] when rev_fill is not null, else
 // rev; min_intron_len > 0 is the splice fills' intron mode.  Returns the
 // CUDA error of the launch.
 int mm2_ksw2_backtrack(const void* p, const void* p_off, const void* qlen,
                        const void* tlen, const void* w, const void* cig_off,
-                       const void* rev_fill, int n, int rev,
-                       int min_intron_len, void* cig, void* n_cig,
-                       void* stream) {
+                       const void* rev_fill, const void* start,
+                       int start_stride, int n, int rev, int min_intron_len,
+                       void* cig, void* n_cig, void* stream) {
   if (n <= 0) return 0;
   ksw2_backtrack_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)p, (const long long*)p_off, (const int*)qlen,
       (const int*)tlen, (const int*)w, (const long long*)cig_off,
-      (const uint8_t*)rev_fill, n, rev, min_intron_len, (unsigned*)cig,
-      (int*)n_cig);
+      (const uint8_t*)rev_fill, (const int*)start, start_stride, n, rev,
+      min_intron_len, (unsigned*)cig, (int*)n_cig);
   return (int)cudaGetLastError();
 }
 

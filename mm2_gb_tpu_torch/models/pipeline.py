@@ -10,44 +10,48 @@ and post-processed on the host and written in input order.
 module imports the TPU chain kernel, and with it JAX.
 
 With --gpu-align (and -c), each batch's gap fills run on the device
-between the readback and the host finish.  Genomic presets take
+between the readback and the host finish.  Genomic runs take
 `_prefill_native`: a collect pass of the C++ aligner records every
 APPROX_MAX fill, the fill and backtrack kernels solve them
 (ops/ksw2_gpu.extd2_fill_batch), and the real pass reads the results
-from the aligner's table.  Splice presets take `_prefill_device`: the
-Python align driver (the only one that aligns splice reads) records the
-splice fills in a collect pass, the exts2 and intron backtrack kernels
-solve them (ops/ksw2s_gpu.exts2_fill_batch), and the real pass reads
-them from the driver's fill cache.
+from the aligner's table.  The runs the C++ aligner does not carry
+(splice presets, --qstrand, --print-aln-seq, no native kit) take
+`_prefill_device`: the Python align driver records its gap fills,
+extensions and splice fills in a collect pass, the kernels solve them
+(extd2_fill_batch, ops/ksw2_gpu.extd2_ext_batch,
+ops/ksw2s_gpu.exts2_fill_batch), and the real pass reads them from the
+driver's fill cache.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from mm2_gb_tpu.models import hit as hitmod
-from mm2_gb_tpu.models.index import MinimizerIndex
-from mm2_gb_tpu.models.mapper import (_chain_gaps, _dbg_chain_dump,
-                                       _dbg_seed_dump, post_process)
-from mm2_gb_tpu.ops import chain as chain_ops
-from mm2_gb_tpu.ops import ksw2
-from mm2_gb_tpu.ops import chain_rmq as rmq_ops
-from mm2_gb_tpu.ops import seed as seed_ops
-from mm2_gb_tpu.ops.sketch import sketch
-from mm2_gb_tpu.utils import ksort, native
-from mm2_gb_tpu.utils.fastx import SeqRecord, read_batches
-from mm2_gb_tpu.utils.hashkit import read_order_hash
-from mm2_gb_tpu.utils.opts import (MapOptions, MM_F_CIGAR, MM_F_HEAP_SORT,
-                                   MM_F_NO_HASH_NAME, MM_F_NO_LJOIN,
-                                   MM_F_QSTRAND, MM_F_RMQ, MM_F_SPLICE,
-                                   MM_F_SR, MM_F_TPU_ALIGN, MM_I_HPC)
-from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
+from mm2_gb_tpu_torch.models import hit as hitmod
+from mm2_gb_tpu_torch.models.index import MinimizerIndex
+from mm2_gb_tpu_torch.models.mapper import (_chain_gaps, _dbg_chain_dump,
+                                            _dbg_seed_dump, post_process)
+from mm2_gb_tpu_torch.ops import align as align_ops
+from mm2_gb_tpu_torch.ops import chain as chain_ops
+from mm2_gb_tpu_torch.ops import chain_gpu, ksw2, ksw2_gpu, ksw2s_gpu
+from mm2_gb_tpu_torch.ops import chain_rmq as rmq_ops
+from mm2_gb_tpu_torch.ops import seed as seed_ops
+from mm2_gb_tpu_torch.ops.sketch import sketch
+from mm2_gb_tpu_torch.utils import ksort, native
+from mm2_gb_tpu_torch.utils.fastx import SeqRecord, read_batches
 from mm2_gb_tpu_torch.utils.gpucfg import current_config
+from mm2_gb_tpu_torch.utils.hashkit import read_order_hash
+from mm2_gb_tpu_torch.utils.opts import (MapOptions, MM_F_CIGAR,
+                                         MM_F_HEAP_SORT, MM_F_NO_HASH_NAME,
+                                         MM_F_NO_LJOIN, MM_F_QSTRAND,
+                                         MM_F_RMQ, MM_F_SPLICE, MM_F_SR,
+                                         MM_F_TPU_ALIGN, MM_I_HPC)
 
 INT32_MAX = 2**31 - 1
 
@@ -209,8 +213,9 @@ class GpuMetrics:
           f"device-wait {self.t_wait:.3f}s, finish {self.t_finish:.3f}s; "
           f"host {host:.3f}s / wall {wall:.3f}s\n")
         fs = self.fills
-        if fs.fills:
+        if fs.fills or fs.ext_fills:
             gcups = fs.cells / fs.fill_ms / 1e6 if fs.fill_ms else 0.0
+            ext_gcups = fs.ext_cells / fs.ext_ms / 1e6 if fs.ext_ms else 0.0
             w(f"[M::gpu] fills: {fs.fills} ({fs.device_fills} device, "
               f"{fs.host_fills} host-routed) in {fs.chunks} chunks; "
               f"{fs.cells} cells; fill kernel {fs.fill_ms:.3f} ms "
@@ -218,7 +223,14 @@ class GpuMetrics:
               f"{fs.backtrack_ms:.3f} ms; collect {self.t_collect:.3f}s, "
               f"device batch {fs.batch_s:.3f}s, table "
               f"{self.t_table:.3f}s; {fs.scratch_fills} with state in "
-              f"global scratch\n")
+              f"global scratch; extensions: {fs.ext_fills} "
+              f"({fs.ext_fills - fs.ext_host_fills} device, "
+              f"{fs.ext_host_fills} host-routed) in {fs.ext_chunks} "
+              f"chunks; {fs.ext_cells} cells; ext kernel "
+              f"{fs.ext_ms:.3f} ms ({ext_gcups:.3f} GCUPS), backtrack "
+              f"kernel {fs.ext_backtrack_ms:.3f} ms; real-pass misses "
+              f"(aligned on the host): {fs.misses['fill']} fill, "
+              f"{fs.misses['ext']} ext, {fs.misses['splice']} splice\n")
 
 
 def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
@@ -300,10 +312,8 @@ def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
     results — on `pool` when given (the kt_for analog, kthread.c:59-82:
     per-read work fans out, output order is the input order).  Debug
     dump modes stay sequential so their stderr interleaving matches the
-    reference's -t 1 requirement (main.c:209,213).  Closes the native
-    fill session and drops the Python fill cache however the pass ends,
-    so neither aligner answers a later batch from this batch's fills."""
-    from mm2_gb_tpu.ops import align as align_ops
+    reference's -t 1 requirement (main.c:209,213).  Ends the fill
+    session however the pass ends (_end_fill_session)."""
     try:
         if (pool is not None and len(slices) > 1
                 and not (opt.dbg_print_seed or opt.dbg_print_chain
@@ -314,9 +324,17 @@ def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
         return [(sr, finish_read(index, opt, sr, fp, pp))
                 for sr, fp, pp in slices]
     finally:
-        align_ops.set_fill_cache(None)
-        if native.available():
-            native.fill_mode(0)   # drop any native fill table/session
+        _end_fill_session()
+
+
+def _end_fill_session() -> None:
+    """Close the native fill session, drop the Python fill cache and turn
+    the Python driver's extension collection off, so neither aligner
+    answers a later batch or run from this batch's fills."""
+    align_ops.set_fill_cache(None)
+    align_ops.collect_ext = False
+    if native.available():
+        native.fill_mode(0)   # drop any native fill table/session
 
 
 def use_device_align(opt: MapOptions) -> bool:
@@ -332,19 +350,13 @@ def use_device_align(opt: MapOptions) -> bool:
     return not (opt.q == opt.q2 and opt.e == opt.e2)
 
 
-def unported_align_route(opt: MapOptions) -> str | None:
-    """What of a --gpu-align run this port cannot carry yet (the JAX
-    package sends these to its Python fill session with device
-    extensions, which this port has not yet), or None."""
-    if not use_device_align(opt):
-        return None
-    if opt.flag & MM_F_QSTRAND:
-        return "--gpu-align with --qstrand"
-    if opt.dbg_print_aln_seq:
-        return "--gpu-align with --print-aln-seq"
-    if not native.available():
-        return "--gpu-align without the native kit (csrc)"
-    return None
+def _native_session(opt: MapOptions) -> bool:
+    """Whether the C++ aligner carries the run's fills: the JAX pipeline's
+    _prefill_native declines splice, --qstrand, --print-aln-seq and the
+    absence of the native kit (pipeline.py:404-408; -x sr and single gap
+    costs do not reach here)."""
+    return (native.available() and not opt.dbg_print_aln_seq
+            and not (opt.flag & (MM_F_SPLICE | MM_F_QSTRAND)))
 
 
 def _prefill_native(index: MinimizerIndex, opt: MapOptions, slices: list,
@@ -381,50 +393,121 @@ def _prefill_native(index: MinimizerIndex, opt: MapOptions, slices: list,
 
 def _prefill_device(index: MinimizerIndex, opt: MapOptions, slices: list,
                     metrics: GpuMetrics, device: torch.device) -> None:
-    """Device splice gap fills of one batch (the JAX pipeline's
-    _prefill_device for the "splice" kind): the Python align driver
-    records every splice gap fill in a collect pass (and answers it with
-    a fake), the unique ones (by align._fill_key) go to the exts2 and
-    intron backtrack kernels in one exts2_fill_batch call, and the
-    results become the driver's fill cache, which the real pass
-    (finish_slices) reads; a miss there falls back to ksw2_splice.exts2.
-    The collect pass writes no debug dump."""
-    from mm2_gb_tpu.ops import align as align_ops
+    """Device fills of one batch through the Python align driver (the JAX
+    pipeline's _prefill_device, pipeline.py:457-505): a collect pass
+    records every gap fill ("fill"), extension ("ext") and splice fill
+    ("splice") and answers each with a fake; the unique ones (by
+    align._fill_key) go to the kernels, one batch call per (kind, flag,
+    end bonus) -- one for all splice fills, whose batch takes per-fill
+    flags; the results become the driver's fill cache, which the real
+    pass (finish_slices) reads, and a miss there aligns on the host
+    (counted in metrics.fills.misses).
+    Extensions always go to the card here (align.collect_ext, set for
+    the session; _end_fill_session turns it off).  The collect pass
+    writes no debug dump."""
     t0 = time.perf_counter()
-    align_ops.begin_fill_collect()
     try:
-        for sr, fp, pp in slices:
-            finish_read(index, opt, sr, fp, pp, dump=False)
-    finally:
-        fills = align_ops.end_fill_collect()
-    uniq: dict = {}
-    for _kind, qseq, tseq, w, flag, zdrop, end_bonus, junc in fills:
-        uniq.setdefault(align_ops._fill_key(qseq, tseq, w, flag, zdrop,
-                                            end_bonus, junc),
-                        (qseq, tseq, flag, junc))
-    metrics.t_collect += time.perf_counter() - t0
-    if not uniq:
-        return
-    vals = list(uniq.values())
-    cat = (lambda xs: np.concatenate(xs).astype(np.uint8, copy=False)
-           if xs else np.empty(0, np.uint8))
-    meta = np.array([(len(q), len(t), 0 if j is None else len(j))
-                     for q, t, _f, j in vals], np.int64)
-    scores, cig_off, cig_blob = ksw2s_gpu.exts2_fill_batch(
-        meta, cat([q for q, _t, _f, _j in vals]),
-        cat([t for _q, t, _f, _j in vals]),
-        cat([j for _q, _t, _f, j in vals if j is not None]),
-        np.array([f for _q, _t, f, _j in vals], np.int64),
-        ksw2s_gpu.splice_params(opt), device, stats=metrics.fills)
-    t0 = time.perf_counter()
-    cache = {}
-    for k, key in enumerate(uniq):
-        ez = ksw2.Extz()
-        ez.score = int(scores[k])
+        align_ops.collect_ext = True
+        align_ops.begin_fill_collect()
+        try:
+            for sr, fp, pp in slices:
+                finish_read(index, opt, sr, fp, pp, dump=False)
+        finally:
+            fills = align_ops.end_fill_collect()
+        groups: dict = {}
+        for kind, qseq, tseq, w, flag, zdrop, end_bonus, junc in fills:
+            key = align_ops._fill_key(qseq, tseq, w, flag, zdrop, end_bonus,
+                                      junc)
+            group = ("splice",) if kind == "splice" else (kind, flag,
+                                                          end_bonus)
+            groups.setdefault(group, {}).setdefault(
+                key, (qseq, tseq, w, flag, zdrop, junc))
+        metrics.t_collect += time.perf_counter() - t0
+        cache = _FillCache(metrics.fills.misses,
+                           bool(opt.flag & MM_F_SPLICE))
+        for group, uniq in groups.items():
+            cache.update(zip(uniq, _solve_group(group, list(uniq.values()),
+                                                opt, metrics, device)))
+        t0 = time.perf_counter()
+        align_ops.set_fill_cache(cache)
+        metrics.t_table += time.perf_counter() - t0
+    except BaseException:
+        _end_fill_session()
+        raise
+
+
+class _FillCache(dict):
+    """_prefill_device's results as the Python align driver's fill cache.
+    A lookup that misses (a fill or extension the collect pass did not
+    record, which the real pass then aligns on the host) is counted in
+    `misses` by kind: "splice" in a splice run, else "fill" for
+    KSW_EZ_APPROX_MAX and "ext" for the extensions."""
+
+    def __init__(self, misses: dict, splice: bool):
+        super().__init__()
+        self.misses, self.splice = misses, splice
+        self._lock = threading.Lock()   # finish_slices' pool reads it
+
+    def get(self, key, default=None):
+        hit = dict.get(self, key)
+        if hit is not None:
+            return hit
+        kind = ("splice" if self.splice else
+                "fill" if key[3] == ksw2.KSW_EZ_APPROX_MAX else "ext")
+        with self._lock:
+            self.misses[kind] += 1
+        return default
+
+
+def _solve_group(group: tuple, vals: list, opt: MapOptions,
+                 metrics: GpuMetrics, device: torch.device) -> list:
+    """The Extz results of one group of _prefill_device's unique fills,
+    vals = [(qseq, tseq, w, flag, zdrop, junc)], in order."""
+    def cat(xs):
+        return (np.concatenate(xs).astype(np.uint8, copy=False) if xs
+                else np.empty(0, np.uint8))
+    qlen = np.array([len(v[0]) for v in vals], np.int64)
+    tlen = np.array([len(v[1]) for v in vals], np.int64)
+    w = np.array([v[2] for v in vals], np.int64)
+    qblob, tblob = cat([v[0] for v in vals]), cat([v[1] for v in vals])
+    if group[0] == "splice":
+        jl = np.array([0 if v[5] is None else len(v[5]) for v in vals],
+                      np.int64)
+        scores, cig_off, cig_blob = ksw2s_gpu.exts2_fill_batch(
+            np.stack([qlen, tlen, jl], 1), qblob, tblob,
+            cat([v[5] for v in vals if v[5] is not None]),
+            np.array([v[3] for v in vals], np.int64),
+            ksw2s_gpu.splice_params(opt), device, stats=metrics.fills)
+        fields = [dict(score=int(sc)) for sc in scores]
+    elif group[0] == "fill":
+        prm = ksw2_gpu.fill_params(opt)
+        zdrop = np.array([v[4] for v in vals], np.int64)
+        scores, cig_off, cig_blob = ksw2_gpu.extd2_fill_batch(
+            np.stack([qlen, tlen, w, zdrop], 1), qblob, tblob, prm, device,
+            group[1], stats=metrics.fills)
+        # ksw2.extd2 stops with zdropped where the band collapses (after
+        # its empty-side and mat-gate returns); APPROX_MAX sets no other
+        # field
+        wv = np.where(w < 0, np.maximum(qlen, tlen), w)
+        cut = ((qlen > 0) & (tlen > 0) & (not prm.mat_gate)
+               & ksw2_gpu.band_collapses(qlen, tlen, wv))
+        fields = [dict(score=int(sc), zdropped=bool(c))
+                  for sc, c in zip(scores, cut)]
+    else:
+        rows, cig_off, cig_blob = ksw2_gpu.extd2_ext_batch(
+            np.stack([qlen, tlen, w], 1), qblob, tblob,
+            np.array([v[4] for v in vals], np.int64),
+            ksw2_gpu.fill_params(opt), group[1], group[2], device,
+            stats=metrics.fills)
+        fields = [{f: (bool(x) if f in ("zdropped", "reach_end") else int(x))
+                   for f, x in zip(ksw2_gpu.EXT_FIELDS, row.tolist())}
+                  for row in rows]
+    out = []
+    for k, fk in enumerate(fields):
+        ez = ksw2.Extz(**fk)
         ez.cigar = cig_blob[cig_off[k]:cig_off[k + 1]]
-        cache[key] = ez
-    align_ops.set_fill_cache(cache)
-    metrics.t_table += time.perf_counter() - t0
+        out.append(ez)
+    return out
 
 
 def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
@@ -444,13 +527,10 @@ def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
         pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
         slices.append((sr, fp, pp))
     if use_device_align(opt):
-        route = unported_align_route(opt)
-        if route is not None:
-            raise NotImplementedError(f"{route} is not yet ported")
-        if opt.flag & MM_F_SPLICE:
-            _prefill_device(index, opt, slices, metrics, device)
-        else:
+        if _native_session(opt):
             _prefill_native(index, opt, slices, metrics, device)
+        else:
+            _prefill_device(index, opt, slices, metrics, device)
     out = finish_slices(index, opt, slices, pool)
     metrics.t_finish += time.perf_counter() - t0
     return out
@@ -512,8 +592,9 @@ def map_file_gpu_records(index: MinimizerIndex, opt: MapOptions,
 def map_file_gpu(index: MinimizerIndex, opt: MapOptions,
                  paths: list[str], device: torch.device | str = "cuda"):
     """Stream PAF lines for query files, chaining on the GPU."""
-    from mm2_gb_tpu.utils.opts import MM_F_NO_PRINT_2ND, MM_F_PAF_NO_HIT
-    from mm2_gb_tpu.utils.paf import write_paf
+    from mm2_gb_tpu_torch.utils.opts import (MM_F_NO_PRINT_2ND,
+                                             MM_F_PAF_NO_HIT)
+    from mm2_gb_tpu_torch.utils.paf import write_paf
     for sr, regs in map_file_gpu_records(index, opt, paths, device=device):
         if regs:
             for r in regs:

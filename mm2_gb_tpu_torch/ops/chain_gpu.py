@@ -49,7 +49,7 @@ def compute_ranges(ax: np.ndarray, read_bounds: np.ndarray,
     n = ax.shape[0]
     if n == 0:
         return np.empty(0, np.int32)
-    from mm2_gb_tpu.utils import native
+    from mm2_gb_tpu_torch.utils import native
     if native.available():
         return native.compute_ranges(ax, read_bounds, max_dist_x, max_iter)
     hi = (ax >> np.uint64(32)).astype(np.int64)       # rev|rid
@@ -328,7 +328,7 @@ def chain_scores_host(ax: np.ndarray, ay: np.ndarray, max_dist_x: int,
     """The host oracle over one read's anchors (the JAX package's
     `_chain_dp_scores` at max_skip = infinity): (f, p) with p a local
     index, -1 for none.  The HPC route of dispatch_scores."""
-    from mm2_gb_tpu.ops.chain import _chain_dp_scores
+    from mm2_gb_tpu_torch.ops.chain import _chain_dp_scores
     return _chain_dp_scores(ax, ay, max(max_dist_x, bw), max(max_dist_y, bw),
                             bw, 2**31 - 1, max_iter, np.float32(cg),
                             np.float32(cs), is_cdna, 1)

@@ -1,10 +1,11 @@
-"""Gap fills on the GPU: the extd2 fill DP and its backtrack.
+"""Gap fills and extensions on the GPU: the extd2 DP and its backtrack.
 
 Port of the host half of mm2_gb_tpu/ops/ksw2_tpu.py for the gap fills
 of `--gpu-align` (cigar + KSW_EZ_APPROX_MAX, optional KSW_EZ_RIGHT and
-KSW_EZ_REV_CIGAR, no in-DP Z-drop): every fill the C++ aligner
-records in its collect pass.  Two hand-written CUDA kernels do the work
-(csrc/extd2_kernel.cu):
+KSW_EZ_REV_CIGAR, no in-DP Z-drop), every fill the C++ aligner records
+in its collect pass, and for the extensions (KSW_EZ_EXTZ_ONLY, with H
+tracking and Z-drop) that the Python align driver records.  Hand-written
+CUDA kernels do the work (csrc/extd2_kernel.cu):
 
 - `extd2_fill`: the dual affine-gap anti-diagonal DP of
   ops/ksw2.py::extd2 (ksw2_extd2_sse.c semantics: 16-aligned stale
@@ -12,43 +13,53 @@ records in its collect pass.  Two hand-written CUDA kernels do the work
   the approx-max H0 walk), one thread block per fill.  It writes each
   row's direction bytes over [st, en] into the fill's own region of `p`
   (rows packed at a running sum of their widths) and the score.
+- `extd2_ext`: the same kernel in extension mode: the H row, the ranked
+  row maximum, mqe, mte, Z-drop and the backtrack start of each fill.
 - `ksw2_backtrack`: ksw_backtrack with is_rot (ksw2.h:126-158), one
   thread per fill, run-length CIGAR words into a slot of qlen + tlen
-  words per fill; with min_intron_len > 0 the intron mode of the splice
-  fills (ops/ksw2s_gpu.py).
+  words per fill, from the last cell or a per-fill start; with
+  min_intron_len > 0 the intron mode of the splice fills
+  (ops/ksw2s_gpu.py).
 
-`extd2_fill_torch` and `ksw2_backtrack_torch` are their plain PyTorch
-twins, same inputs and outputs; the wrappers take them only for tensors
-on the CPU.  `extd2_fill_batch` takes what the native collect pass
-returns (`native.fill_fetch`) and gives back what `native.fill_table_bulk`
-loads.  Host route (ksw2.extd2, counted): band collapse, the
+`extd2_fill_torch`, `extd2_ext_torch` and `ksw2_backtrack_torch` are
+their plain PyTorch twins, same inputs and outputs; the wrappers take
+them only for tensors on the CPU.  `extd2_fill_batch` takes what the
+native collect pass returns (`native.fill_fetch`) and gives back what
+`native.fill_table_bulk` loads; `extd2_ext_batch` solves a batch of
+extensions.  Host route (ksw2.extd2, counted): band collapse, the
 `-mat.min() > 2*(q+e)` gate and empty sides.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from mm2_gb_tpu.ops import ksw2
+from mm2_gb_tpu_torch.ops import ksw2
 from mm2_gb_tpu_torch.utils import kernels
 
 KSW_NEG_INF = ksw2.KSW_NEG_INF
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
 
 fill_launches = 0       # extd2_fill kernel launches (CUDA tensors)
+ext_launches = 0        # extd2_ext kernel launches (CUDA tensors)
 backtrack_launches = 0  # ksw2_backtrack kernel launches (CUDA tensors)
+start_backtrack_launches = 0   # of those, the ones from per-fill starts
 
 # fills whose state (10 rows of nbytes int8) exceeds this run with their
 # state in a global scratch region instead of shared memory (the default
 # 48 KiB of a block, less the kernel's static slots)
 SMEM_STATE_MAX = 44 * 1024
 # the kernel's state rows: u, y, y2, the score row, and x, v, x2 twice
-# (double-buffered by row parity)
+# (double-buffered by row parity); extension mode adds the int32 H row
 STATE_ROWS = 10
+EXT_STATE_ROWS = STATE_ROWS + 4
+# extd2_ext's per-fill output: the Extz fields, then the backtrack start
+EXT_FIELDS = ("score", "max", "max_t", "max_q", "mqe", "mqe_t", "mte",
+              "mte_q", "zdropped", "reach_end")
 
 
 @dataclass
@@ -97,17 +108,29 @@ def fill_params(opt) -> FillParams:
 
 @dataclass
 class FillStats:
-    """Counters of extd2_fill_batch (and ksw2s_gpu.exts2_fill_batch),
-    summed over calls."""
+    """Counters of extd2_fill_batch, extd2_ext_batch and
+    ksw2s_gpu.exts2_fill_batch, summed over calls."""
     fills: int = 0          # fills asked for
     device_fills: int = 0   # solved by the fill + backtrack kernels
     host_fills: int = 0     # host route: collapse, mat gate, empty side
-    scratch_fills: int = 0  # device fills whose state is in global scratch
+    scratch_fills: int = 0  # device fills and extensions whose state
+    #                         is in global scratch
     chunks: int = 0         # kernel launch pairs
     cells: int = 0          # sum of qlen * tlen over device fills
     fill_ms: float = 0.0    # extd2_fill kernel time (CUDA events)
     backtrack_ms: float = 0.0
-    batch_s: float = 0.0    # wall time of extd2_fill_batch
+    batch_s: float = 0.0    # wall time of the batch calls
+    # extensions (extd2_ext_batch), counted apart from the gap fills
+    ext_fills: int = 0
+    ext_host_fills: int = 0  # host route: collapse, mat gate, empty side
+    ext_chunks: int = 0
+    ext_cells: int = 0       # sum of qlen * tlen over device extensions
+    ext_ms: float = 0.0      # extd2_ext kernel time (CUDA events)
+    ext_backtrack_ms: float = 0.0
+    # the Python align driver's real pass: fills and extensions its
+    # collect pass did not record, which therefore align on the host
+    misses: dict = field(default_factory=lambda: dict.fromkeys(
+        ("fill", "ext", "splice"), 0))
 
 
 # --------------------------------------------------------------------------
@@ -177,12 +200,37 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     windows, in int32 holding the kernel's int8 values.  Returns
     (score int32 [n], p uint8 [p_total]): fill k's row r lies at
     p_off[k] + (sum of its earlier rows' widths), over [st, en]."""
+    return _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
+                       p_total, prm, right)
+
+
+def extd2_ext_torch(qblob, tblob, qoff, toff, qlen, tlen, w, zdrop, p_off,
+                    p_total: int, prm: FillParams, right: bool,
+                    end_bonus: int):
+    """Plain PyTorch extd2 extension (the twin of the extd2_ext kernel):
+    the fill twin's row loop with the H row, the ranked row maximum,
+    mqe, mte and Z-drop (ksw2.py:566-585) and ext_batch_device's choice
+    of the backtrack start.  Returns (ext int32 [n, 12]: the EXT_FIELDS,
+    then the backtrack start i0, j0 (-1: none); p uint8 [p_total], rows
+    after a Z-drop left 0)."""
+    return _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
+                       p_total, prm, right, zdrop, end_bonus)
+
+
+def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
+                p_total: int, prm: FillParams, right: bool, zdrop=None,
+                end_bonus: int = 0):
+    """The row loop of both twins; extension mode when zdrop is given."""
     dev = qblob.device
     n = qlen.shape[0]
-    score = torch.full((n,), KSW_NEG_INF, dtype=torch.int32, device=dev)
+    track_h = zdrop is not None
+    if track_h:
+        out = torch.full((n, 12), -1, dtype=torch.int32, device=dev)
+    else:
+        out = torch.full((n,), KSW_NEG_INF, dtype=torch.int32, device=dev)
     p = torch.zeros(p_total, dtype=torch.uint8, device=dev)
     if n == 0:
-        return score, p
+        return out, p
     i64, i32 = torch.int64, torch.int32
     ql0, tl0 = qlen.to(i64), tlen.to(i64)
     order = torch.argsort(ql0 + tl0, descending=True, stable=True)
@@ -190,6 +238,7 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     wv = torch.where(wv < 0, torch.maximum(ql, tl), wv)
     qo, to, po = qoff.to(i64)[order], toff.to(i64)[order], \
         p_off.to(i64)[order]
+    rt = bool(right)
     n_rows = ql + tl - 1
     rows_h = n_rows.cpu().numpy()
     nbytes = (tl + 15) // 16 * 16
@@ -223,6 +272,16 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     last_en = torch.full((n,), -1, dtype=i64, device=dev)
     row_off = torch.zeros(n, dtype=i64, device=dev)
     sc_out = torch.full((n,), KSW_NEG_INF, dtype=i64, device=dev)
+    if track_h:   # the H row and the oracle's Extz fields (ksw2.py:62-75)
+        Hs = torch.full((n, width), KSW_NEG_INF, dtype=i64, device=dev)
+        zd = zdrop.to(dev, i64)[order]
+        mx = torch.zeros(n, dtype=i64, device=dev)
+        max_t, max_q, mqe_t, mte_q = (torch.full((n,), -1, dtype=i64,
+                                                 device=dev)
+                                      for _ in range(4))
+        mqe = torch.full((n,), KSW_NEG_INF, dtype=i64, device=dev)
+        mte = mqe.clone()
+        dropped = torch.zeros(n, dtype=torch.bool, device=dev)
 
     def w8(x):   # the kernels' int8 casts
         return x.to(torch.int8).to(i32)
@@ -236,8 +295,31 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
             return _c8(prm.long_diff)
         return _c8(-e2)
 
+    def dirs(z, av, bv, a2, b2, right_rule):
+        """The direction state and the new z of the cell update, under
+        KSW_EZ_RIGHT's tie rules or the default ones."""
+        if right_rule:
+            d = torch.where(z > av, 0, 1)
+            z = torch.maximum(z, av)
+            d = torch.where(z > bv, d, 2)
+            z = torch.maximum(z, bv)
+            d = torch.where(z > a2, d, 3)
+            z = torch.maximum(z, a2)
+            d = torch.where(z > b2, d, 4)
+            return d, torch.maximum(z, b2)
+        d = torch.where(av > z, 1, 0)
+        z = torch.maximum(z, av)
+        d = torch.where(bv > z, 2, d)
+        z = torch.maximum(z, bv)
+        d = torch.where(a2 > z, 3, d)
+        z = torch.maximum(z, a2)
+        d = torch.where(b2 > z, 4, d)
+        return d, torch.maximum(z, b2)
+
     for r in range(int(rows_h[0])):
         a = int(np.searchsorted(-rows_h, -r, side="left"))  # n_rows > r
+        if track_h and r % 64 == 63 and bool(dropped[:a].all()):
+            break   # every fill still this long has dropped
         qla, tla, wa = ql[:a], tl[:a], wv[:a]
         st0, en0 = _windows(r, qla, tla, wa)
         st, en = st0 & -16, en0 | 15
@@ -274,32 +356,13 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
         bv = w8(yt + ut)
         a2 = w8(x2t1 + vt1)
         b2 = w8(y2t + ut)
-        if right:
-            d = torch.where(z > av, 0, 1)
-            z = torch.maximum(z, av)
-            d = torch.where(z > bv, d, 2)
-            z = torch.maximum(z, bv)
-            d = torch.where(z > a2, d, 3)
-            z = torch.maximum(z, a2)
-            d = torch.where(z > b2, d, 4)
-            z = torch.maximum(z, b2)
-        else:
-            d = torch.where(av > z, 1, 0)
-            z = torch.maximum(z, av)
-            d = torch.where(bv > z, 2, d)
-            z = torch.maximum(z, bv)
-            d = torch.where(a2 > z, 3, d)
-            z = torch.maximum(z, a2)
-            d = torch.where(b2 > z, 4, d)
-            z = torch.maximum(z, b2)
+        d, z = dirs(z, av, bv, a2, b2, rt)
         z = torch.clamp(z, max=mat0)
         tq, tq2 = w8(z - q8), w8(z - q28)
         av, bv = w8(av - tq), w8(bv - tq)
         a2, b2 = w8(a2 - tq2), w8(b2 - tq2)
-        if right:
-            ta, tb, ta2, tb2 = av >= 0, bv >= 0, a2 >= 0, b2 >= 0
-        else:
-            ta, tb, ta2, tb2 = av > 0, bv > 0, a2 > 0, b2 > 0
+        ta, tb = (av >= 0, bv >= 0) if rt else (av > 0, bv > 0)
+        ta2, tb2 = (a2 >= 0, b2 >= 0) if rt else (a2 > 0, b2 > 0)
         new = torch.stack([
             w8(z - vt1), w8(z - ut), w8(torch.where(ta, av, 0) - qe8),
             w8(torch.where(tb, bv, 0) - qe8),
@@ -312,8 +375,17 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
                     .expand(a, J, 8), cur)
         d = d | ta * 0x08 | tb * 0x10 | ta2 * 0x20 | tb2 * 0x40
         dst = po[:a, None] + row_off[:a, None] + (t - st[:, None])
-        p[dst[dp]] = d[dp].to(torch.uint8)
+        wr = dp & ~dropped[:a, None] if track_h else dp
+        p[dst[wr]] = d[wr].to(torch.uint8)
         row_off[:a] += en - st + 1
+        last_st[:a], last_en[:a] = st, en
+        if track_h:
+            _track_h_row(r, a, t, col, st, st0, en, en0, new, Hs, trash,
+                         dict(ql=ql, tl=tl, n_rows=n_rows, zd=zd, mx=mx,
+                              max_t=max_t, max_q=max_q, mqe=mqe,
+                              mqe_t=mqe_t, mte=mte, mte_q=mte_q,
+                              dropped=dropped, sc_out=sc_out), q + e, e2)
+            continue
         # the approx-max H0 walk (ksw2.py:587-608)
         lha = lh[:a]
         vl = Za[:, :, V].gather(1, (lha + 1)[:, None])[:, 0].to(i64)
@@ -328,9 +400,81 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
             lh[:a] = lha + up.to(i64) + (~in0).to(i64)
         done = (n_rows[:a] - 1 == r) & (en0 == tla - 1)
         sc_out[:a] = torch.where(done, H0[:a], sc_out[:a])
-        last_st[:a], last_en[:a] = st, en
-    score[order] = sc_out.to(torch.int32)
-    return score, p
+    if not track_h:
+        out[order] = sc_out.to(torch.int32)
+        return out, p
+    # ext_batch_device's epilogue (ksw2_tpu.py:1741-1762): the start
+    reach = ~dropped & (mqe + int(end_bonus) > mx)
+    has_max = (max_t >= 0) & (max_q >= 0)
+    i0 = torch.where(reach, mqe_t, torch.where(has_max, max_t, -1))
+    j0 = torch.where(reach, ql - 1, torch.where(has_max, max_q, -1))
+    out[order] = torch.stack([sc_out, mx, max_t, max_q, mqe, mqe_t, mte,
+                              mte_q, dropped.to(i64), reach.to(i64), i0,
+                              j0], 1).to(torch.int32)
+    return out, p
+
+
+def _track_h_row(r, a, t, col, st, st0, en, en0, new, Hs, trash, ez, qe,
+                 e2):
+    """One row of the extension twin's H tracking (ksw2.py:566-585) for
+    the a fills still this long: H[en0] from the previous row's
+    H[en0 - 1] + u (H[en0] + v when en0 == 0), H[st0:en0] += v, the row
+    maximum under row_max's lane ranking, mte, mqe, Z-drop and the score.
+    Fills that dropped earlier keep their state."""
+    i64 = torch.int64
+    alive = ~ez["dropped"][:a]
+    un, vn = new[:, :, 0].to(i64), new[:, :, 1].to(i64)
+    k_en0 = (en0 - st)[:, None]
+    Ha = Hs[:a]
+    if r == 0:
+        h = vn - qe
+        h_en0 = h[:, 0]
+    else:
+        h_en0 = torch.where(
+            en0 > 0, Ha.gather(1, en0[:, None])[:, 0]
+            + un.gather(1, k_en0)[:, 0],
+            Ha.gather(1, (en0 + 1)[:, None])[:, 0]
+            + vn.gather(1, k_en0)[:, 0])
+        h = torch.where(t == en0[:, None], h_en0[:, None],
+                        Ha.gather(1, col) + vn)
+    inw = (t >= st0[:, None]) & (t <= en0[:, None])
+    Ha.scatter_(1, torch.where(inw & alive[:, None], col, trash), h)
+    # the ranked row maximum (csrc/ksw2kit.cpp row_max): en0 first, the
+    # 4-lane blocks by ((t-st0)%4, (t-st0)/4), then the tail lanes
+    d = t - st0[:, None]
+    nb = ((en0 - st0) // 4)[:, None]
+    rank = torch.where(t == en0[:, None], 0,
+                       torch.where(d < 4 * nb, 1 + (d % 4) * nb + d // 4,
+                                   1 + d))
+    key = torch.where(inw, h * 2**32 + (0x7fffffff - rank),
+                      torch.iinfo(i64).min)
+    best = key.argmax(1)
+    max_h = h.gather(1, best[:, None])[:, 0]
+    mt = st + best
+    h_st0 = h.gather(1, (st0 - st)[:, None])[:, 0]
+    ql, tl = ez["ql"][:a], ez["tl"][:a]
+    mte, mqe = ez["mte"], ez["mqe"]
+    up = alive & (en0 == tl - 1) & (h_en0 > mte[:a])
+    mte[:a] = torch.where(up, h_en0, mte[:a])
+    ez["mte_q"][:a] = torch.where(up, r - en, ez["mte_q"][:a])
+    up = alive & (r - st0 == ql - 1) & (h_st0 > mqe[:a])
+    mqe[:a] = torch.where(up, h_st0, mqe[:a])
+    ez["mqe_t"][:a] = torch.where(up, st0, ez["mqe_t"][:a])
+    # apply_zdrop (ksw2.py:143-154) with e2
+    mx, max_t, max_q = ez["mx"], ez["max_t"], ez["max_q"]
+    gt = max_h > mx[:a]
+    near = ~gt & (mt >= max_t[:a]) & (r - mt >= max_q[:a])
+    ll = ((mt - max_t[:a]) - (r - mt - max_q[:a])).abs()
+    zd = ez["zd"][:a]
+    drop = alive & near & (zd >= 0) & (mx[:a] - max_h > zd + ll * e2)
+    up = alive & gt
+    mx[:a] = torch.where(up, max_h, mx[:a])
+    max_t[:a] = torch.where(up, mt, max_t[:a])
+    max_q[:a] = torch.where(up, r - mt, max_q[:a])
+    ez["dropped"][:a] |= drop
+    done = (alive & ~drop & (ez["n_rows"][:a] - 1 == r)
+            & (en0 == tl - 1))
+    ez["sc_out"][:a] = torch.where(done, h_en0, ez["sc_out"][:a])
 
 
 def _check_fill_operands(qblob, tblob, qoff, toff, qlen, tlen, w, p_off):
@@ -355,8 +499,15 @@ def _check_fill_operands(qblob, tblob, qoff, toff, qlen, tlen, w, p_off):
                              f"elements, expected {n}")
 
 
+def _record(events, i: int) -> None:
+    """Record events[i] on the current stream (a kernel wrapper's timing:
+    the pair sits right around the launch, after its host work)."""
+    if events is not None:
+        events[i].record()
+
+
 def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
-               p_total: int, prm: FillParams, right: bool):
+               p_total: int, prm: FillParams, right: bool, events=None):
     """The extd2 fill DP of n fills (APPROX_MAX, no Z-drop).
 
     qblob/tblob: uint8 base codes (0..4) of all queries and targets;
@@ -369,7 +520,8 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
 
     Returns (score int32 [n], p uint8 [p_total]).  CPU tensors take the
     plain twin; CUDA tensors launch the kernel (built on first use); a
-    build or launch failure raises."""
+    build or launch failure raises.  events: a (start, end) pair of CUDA
+    events recorded right around the launch, or None."""
     global fill_launches
     _check_fill_operands(qblob, tblob, qoff, toff, qlen, tlen, w, p_off)
     if prm.mat_gate:
@@ -387,10 +539,32 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     p = torch.zeros(p_total, dtype=torch.uint8, device=dev)
     if n == 0:
         return score, p
-    # shared memory per block: the largest state that fits; larger fills
-    # keep theirs in a global scratch region of their own
+    scr_off, scratch, smem, threads = _launch_shape(qlen, tlen, w,
+                                                    STATE_ROWS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _record(events, 0)
+    rc = lib.mm2_extd2_fill(
+        qblob.data_ptr(), tblob.data_ptr(), qoff.data_ptr(), toff.data_ptr(),
+        qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), p_off.data_ptr(),
+        scr_off.data_ptr(), n, scratch.data_ptr(), p.data_ptr(),
+        score.data_ptr(), prm.qq, prm.ee, prm.qq2, prm.ee2, prm.mat0,
+        prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff, int(bool(right)),
+        threads, smem, stream)
+    _record(events, 1)
+    kernels.check(rc, "extd2_fill")
+    fill_launches += 1
+    return score, p
+
+
+def _launch_shape(qlen, tlen, w, rows: int):
+    """(scr_off, scratch, smem bytes, threads) of a launch over fills of
+    `rows` x nbytes of state: shared memory per block holds the largest
+    state that fits; larger fills keep theirs in a global scratch region
+    of their own (scr_off >= 0)."""
+    dev = qlen.device
+    n = qlen.shape[0]
     tl = tlen.to(torch.int64)
-    need = STATE_ROWS * ((tl + 15) // 16 * 16)
+    need = rows * ((tl + 15) // 16 * 16)
     big = need > SMEM_STATE_MAX
     scr_off = torch.where(big, torch.cumsum(torch.where(big, need, 0), 0)
                           - need, -1)
@@ -401,17 +575,60 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     wv = torch.where(w < 0, torch.maximum(qlen, tlen), w).to(torch.int64)
     m = torch.minimum(torch.minimum(qlen.to(torch.int64), tl), wv + 1)
     threads = min(256, max(32, (int(m.max()) + 47) // 32 * 32))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mm2_extd2_fill(
+    return scr_off, scratch, smem, threads
+
+
+def extd2_ext(qblob, tblob, qoff, toff, qlen, tlen, w, zdrop, p_off,
+              p_total: int, prm: FillParams, right: bool, end_bonus: int,
+              events=None):
+    """The extd2 extension DP (KSW_EZ_EXTZ_ONLY) of n fills: operands as
+    extd2_fill's, with zdrop int32 [n] (< 0: no Z-drop) and the end
+    bonus of every fill.  Every fill must be non-empty and its band must
+    not collapse, and `prm.mat_gate` must be False.
+
+    Returns (ext int32 [n, 12]: score, max, max_t, max_q, mqe, mqe_t,
+    mte, mte_q, zdropped, reach_end, and the backtrack start i0, j0 (-1:
+    none) for ksw2_backtrack's `starts`; p uint8 [p_total], rows after a
+    Z-drop left 0).  CPU tensors take the plain twin; CUDA tensors launch
+    the kernel (built on first use); a build or launch failure raises.
+    events: a (start, end) pair of CUDA events recorded right around the
+    launch, or None."""
+    global ext_launches
+    _check_fill_operands(qblob, tblob, qoff, toff, qlen, tlen, w, p_off)
+    if (zdrop.dtype != torch.int32 or zdrop.shape != qlen.shape
+            or not zdrop.is_contiguous() or zdrop.device != qblob.device):
+        raise ValueError("extd2_ext: zdrop must be a contiguous int32 "
+                         f"tensor of {qlen.shape[0]} on {qblob.device}")
+    if prm.mat_gate:
+        raise ValueError("extd2_ext: this scoring matrix takes the host "
+                         "route (-mat.min() > 2*(q+e))")
+    if qblob.device.type == "cpu":
+        return extd2_ext_torch(qblob, tblob, qoff, toff, qlen, tlen, w,
+                               zdrop, p_off, p_total, prm, right, end_bonus)
+    if qblob.device.type != "cuda":
+        raise ValueError(f"extd2_ext: unsupported device {qblob.device}")
+    lib = kernels.library()
+    dev = qblob.device
+    n = qlen.shape[0]
+    ext = torch.full((n, 12), -1, dtype=torch.int32, device=dev)
+    p = torch.zeros(p_total, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return ext, p
+    scr_off, scratch, smem, threads = _launch_shape(qlen, tlen, w,
+                                                    EXT_STATE_ROWS)
+    _record(events, 0)
+    rc = lib.mm2_extd2_ext(
         qblob.data_ptr(), tblob.data_ptr(), qoff.data_ptr(), toff.data_ptr(),
-        qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), p_off.data_ptr(),
-        scr_off.data_ptr(), n, scratch.data_ptr(), p.data_ptr(),
-        score.data_ptr(), prm.qq, prm.ee, prm.qq2, prm.ee2, prm.mat0,
-        prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff, int(bool(right)),
-        threads, smem, stream)
-    kernels.check(rc, "extd2_fill")
-    fill_launches += 1
-    return score, p
+        qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), zdrop.data_ptr(),
+        p_off.data_ptr(), scr_off.data_ptr(), n, scratch.data_ptr(),
+        p.data_ptr(), ext.data_ptr(), prm.qq, prm.ee, prm.qq2, prm.ee2,
+        prm.mat0, prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff,
+        int(bool(right)), int(end_bonus), threads, smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _record(events, 1)
+    kernels.check(rc, "extd2_ext")
+    ext_launches += 1
+    return ext, p
 
 
 # --------------------------------------------------------------------------
@@ -428,9 +645,10 @@ def _row_widths(qlen, tlen, w, n_rows_max: int) -> torch.Tensor:
 
 
 def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
-                         min_intron_len: int = 0):
+                         min_intron_len: int = 0, starts=None):
     """Plain PyTorch backtrack (the twin of the ksw2_backtrack kernel):
-    every fill's walk from (tlen-1, qlen-1) advances in lockstep, one
+    every fill's walk from (tlen-1, qlen-1), or from starts[k] = (i0, j0)
+    when given (a start of -1 writes no word), advances in lockstep, one
     unit op per step, run-length encoded as it goes.  Returns (cig int32
     [cig_off[-1]] of uint32 words, n_cig int32 [n]): fill k's words are
     cig[cig_off[k]:cig_off[k] + n_cig[k]].  rev_cigar: a bool, or one
@@ -457,6 +675,10 @@ def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
     base = p_off.to(i64)
     co = cig_off[:-1].to(i64)
     i, j = tl - 1, ql - 1
+    if starts is not None:
+        i, j = starts[:, 0].to(i64), starts[:, 1].to(i64)
+        none = (i < 0) | (j < 0)
+        i, j = torch.where(none, -1, i), torch.where(none, -1, j)
     state = torch.zeros(n, dtype=i64, device=dev)
     run_op = torch.full((n,), -1, dtype=i64, device=dev)
     run_len = torch.zeros(n, dtype=i64, device=dev)
@@ -519,17 +741,22 @@ def ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
 
 
 def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
-                   min_intron_len: int = 0):
-    """Backtrack n filled fills (the p, p_off of extd2_fill, or of
-    ksw2s_gpu.exts2_fill with w = qlen + tlen; cig_off int64 [n + 1]
-    with at least qlen[k] + tlen[k] words per fill).
+                   min_intron_len: int = 0, starts=None, events=None):
+    """Backtrack n filled fills (the p, p_off of extd2_fill or extd2_ext,
+    or of ksw2s_gpu.exts2_fill with w = qlen + tlen; cig_off int64
+    [n + 1] with at least qlen[k] + tlen[k] words per fill), from
+    (tlen-1, qlen-1), or from starts[k] = (i0, j0) when given (int32
+    [n, 2] with unit column stride, such as extd2_ext's ext[:, 10:]; a
+    start of -1 writes no word).
 
     Returns (cig int32 [cig_off[-1]] holding uint32 CIGAR words, n_cig
     int32 [n]); reversed (KSW_EZ_REV_CIGAR order) where rev_cigar, a
     bool or a bool tensor [n].  min_intron_len > 0 is the splice fills'
     intron mode (N ops).  CPU tensors take the plain twin; CUDA tensors
-    launch the kernel; a build or launch failure raises."""
-    global backtrack_launches
+    launch the kernel; a build or launch failure raises.  events: a
+    (start, end) pair of CUDA events recorded right around the launch,
+    or None."""
+    global backtrack_launches, start_backtrack_launches
     for name, t, dt in (("p", p, torch.uint8), ("p_off", p_off, torch.int64),
                         ("qlen", qlen, torch.int32),
                         ("tlen", tlen, torch.int32), ("w", w, torch.int32),
@@ -554,9 +781,14 @@ def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
             raise ValueError("ksw2_backtrack: a per-fill rev_cigar must be "
                              f"a bool tensor of {n} on {p.device}")
         rev_fill = rev_cigar.to(torch.uint8)
+    if starts is not None and (
+            starts.dtype != torch.int32 or starts.shape != (n, 2)
+            or starts.stride(1) != 1 or starts.device != p.device):
+        raise ValueError("ksw2_backtrack: starts must be an int32 [n, 2] "
+                         f"tensor with unit column stride on {p.device}")
     if p.device.type == "cpu":
         return ksw2_backtrack_torch(p, p_off, qlen, tlen, w, cig_off,
-                                    rev_cigar, min_intron_len)
+                                    rev_cigar, min_intron_len, starts)
     if p.device.type != "cuda":
         raise ValueError(f"ksw2_backtrack: unsupported device {p.device}")
     lib = kernels.library()
@@ -565,15 +797,20 @@ def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
     n_cig = torch.zeros(n, dtype=torch.int32, device=p.device)
     if n == 0:
         return cig, n_cig
+    _record(events, 0)
     rc = lib.mm2_ksw2_backtrack(
         p.data_ptr(), p_off.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
         w.data_ptr(), cig_off.data_ptr(),
-        None if rev_fill is None else rev_fill.data_ptr(), n,
+        None if rev_fill is None else rev_fill.data_ptr(),
+        None if starts is None else starts.data_ptr(),
+        0 if starts is None else starts.stride(0), n,
         int(bool(rev_cigar)) if rev_fill is None else 0,
         int(min_intron_len), cig.data_ptr(), n_cig.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream)
+    _record(events, 1)
     kernels.check(rc, "ksw2_backtrack")
     backtrack_launches += 1
+    start_backtrack_launches += starts is not None
     return cig, n_cig
 
 
@@ -626,6 +863,153 @@ def assemble_cigars(n: int, n_cig: np.ndarray, dev_idx: np.ndarray,
     return cig_off, cig_blob
 
 
+def upload(blob: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint8 blob on the device, as it is."""
+    return torch.from_numpy(np.ascontiguousarray(blob, np.uint8)).to(device)
+
+
+def solve_chunks(dev_idx: np.ndarray, pb: np.ndarray, cap: np.ndarray,
+                 extra, cols64: list, cols32: list, device: torch.device,
+                 launch, backtrack):
+    """The chunk loop of the fill batches.
+
+    dev_idx: the device fills, longest first; pb: each one's direction
+    bytes (p_bound); cap: its CIGAR slot in words; extra: the scratch
+    bytes it takes beside them, or 0 (all in dev_idx order).  The fills
+    run in chunks whose bytes stay under `gpucfg.fill_chunk_bytes`; per
+    chunk the fills' cols64
+    and cols32 (per-fill columns over the whole batch) go to the device
+    as int64 and int32 in one copy each, then
+
+        launch(c64, c32, p_off, p_total, events) -> (res, p)
+        backtrack(p, p_off, c_off, c32, res, events) -> (cig, n_cig)
+
+    run the fill kernel and the backtrack (c64, c32: the chunk's
+    columns; events: a (start, end) pair of CUDA events the wrapper
+    records right around its launch, None off the card), and the CIGAR
+    words are compacted on the device before they come back.
+
+    Returns (res rows in dev_idx order, n_cig in dev_idx order, the word
+    pieces for assemble_cigars, kernel ms, backtrack ms, chunks)."""
+    from mm2_gb_tpu_torch.utils.gpucfg import fill_chunk_bytes
+    cuda = device.type == "cuda"
+    rows, n_cig, pieces = [], [], []
+    kms = bms = 0.0
+    spans = _chunks(pb + 4 * cap + extra, fill_chunk_bytes(device))
+    for c0, c1 in spans:
+        idx = dev_idx[c0:c1]
+        m = idx.shape[0]
+        p_off = np.zeros(m + 1, np.int64)
+        np.cumsum(pb[c0:c1], out=p_off[1:])
+        c_off = np.zeros(m + 1, np.int64)
+        np.cumsum(cap[c0:c1], out=c_off[1:])
+        i64 = torch.from_numpy(np.concatenate(
+            [c[idx] for c in cols64] + [p_off[:-1], c_off])).to(device)
+        i32 = torch.from_numpy(np.concatenate(
+            [c[idx] for c in cols32]).astype(np.int32)).to(device)
+        k = len(cols64)
+        c64 = [i64[j * m:(j + 1) * m] for j in range(k)]
+        po, co = i64[k * m:(k + 1) * m], i64[(k + 1) * m:]
+        c32 = [i32[j * m:(j + 1) * m] for j in range(len(cols32))]
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              if cuda else [None] * 4)
+        res, p = launch(c64, c32, po, int(p_off[-1]),
+                        ev[:2] if cuda else None)
+        cig, nc = backtrack(p, po, co, c32, res, ev[2:] if cuda else None)
+        del p
+        pieces.append(chunk_words(cig, nc, co))
+        rows.append(res.cpu().numpy())
+        n_cig.append(nc.cpu().numpy())
+        if cuda:
+            kms += ev[0].elapsed_time(ev[1])
+            bms += ev[2].elapsed_time(ev[3])
+    return (np.concatenate(rows), np.concatenate(n_cig), pieces, kms, bms,
+            len(spans))
+
+
+def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
+                 end_bonus: int, device, stats: FillStats, ext: bool):
+    """extd2_fill_batch (ext False: meta [qlen, tlen, w, zdrop], zdrop
+    unused) and extd2_ext_batch (meta [qlen, tlen, w, zdrop]): (scores
+    [n] or EXT_FIELDS [n, 10], cig_off, cig_blob); the counts go to the
+    gap-fill or the extension fields of stats."""
+    t_start = time.perf_counter()
+    device = torch.device(device)
+    n = meta.shape[0]
+    qlen, tlen, w, zdrop = meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3]
+    qoff = np.zeros(n + 1, np.int64)
+    toff = np.zeros(n + 1, np.int64)
+    np.cumsum(qlen, out=qoff[1:])
+    np.cumsum(tlen, out=toff[1:])
+    wv = np.where(w < 0, np.maximum(qlen, tlen), w)
+    right = bool(flag & ksw2.KSW_EZ_RIGHT)
+    rev = bool(flag & ksw2.KSW_EZ_REV_CIGAR)
+    host = (qlen <= 0) | (tlen <= 0) | band_collapses(qlen, tlen, wv)
+    if prm.mat_gate:
+        host[:] = True
+    res = (np.empty((n, len(EXT_FIELDS)), np.int32) if ext
+           else np.full(n, KSW_NEG_INF, np.int32))
+    n_cig = np.zeros(n, np.int64)
+    host_cig = {}
+    for k in np.nonzero(host)[0].tolist():
+        ez = ksw2.extd2(qblob[qoff[k]:qoff[k + 1]], tblob[toff[k]:toff[k + 1]],
+                        prm.mat, prm.q, prm.e, prm.q2, prm.e2, int(w[k]),
+                        int(zdrop[k]) if ext else -1,
+                        end_bonus if ext else 0, flag)
+        res[k] = ([int(getattr(ez, f)) for f in EXT_FIELDS] if ext
+                  else ez.score)
+        n_cig[k] = ez.cigar.shape[0]
+        host_cig[k] = ez.cigar
+
+    dev_idx = np.nonzero(~host)[0]
+    dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
+    pieces, kms, bms, chunks = [], 0.0, 0.0, 0
+    if dev_idx.shape[0]:
+        qb_d, tb_d = upload(qblob, device), upload(tblob, device)
+
+        def launch(c64, c32, po, p_total, events):
+            (qo, to), (ql, tl, wd, zd) = c64, c32
+            if ext:
+                return extd2_ext(qb_d, tb_d, qo, to, ql, tl, wd, zd, po,
+                                 p_total, prm, right, end_bonus,
+                                 events=events)
+            return extd2_fill(qb_d, tb_d, qo, to, ql, tl, wd, po, p_total,
+                              prm, right, events=events)
+
+        def backtrack(p, po, co, c32, out, events):
+            return ksw2_backtrack(p, po, *c32[:3], co, rev,
+                                  starts=out[:, 10:] if ext else None,
+                                  events=events)
+        out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
+            dev_idx, p_bound(qlen, tlen, wv)[dev_idx],
+            (qlen + tlen)[dev_idx], 0, [qoff, toff], [qlen, tlen, w, zdrop],
+            device, launch, backtrack)
+        res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
+        nb = (tlen[dev_idx] + 15) // 16 * 16
+        stats.scratch_fills += int(
+            ((EXT_STATE_ROWS if ext else STATE_ROWS) * nb
+             > SMEM_STATE_MAX).sum())
+    cells = int((qlen * tlen)[dev_idx].sum())
+    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
+    if ext:
+        stats.ext_fills += n
+        stats.ext_host_fills += len(host_cig)
+        stats.ext_chunks += chunks
+        stats.ext_cells += cells
+        stats.ext_ms += kms
+        stats.ext_backtrack_ms += bms
+    else:
+        stats.fills += n
+        stats.device_fills += int(dev_idx.shape[0])
+        stats.host_fills += len(host_cig)
+        stats.chunks += chunks
+        stats.cells += cells
+        stats.fill_ms += kms
+        stats.backtrack_ms += bms
+    stats.batch_s += time.perf_counter() - t_start
+    return res, cig_off, cig_blob
+
+
 def extd2_fill_batch(meta: np.ndarray, qblob: np.ndarray,
                      tblob: np.ndarray, prm: FillParams,
                      device: torch.device | str,
@@ -641,93 +1025,43 @@ def extd2_fill_batch(meta: np.ndarray, qblob: np.ndarray,
     cig_blob uint32), the layout `native.fill_table_bulk` loads.
 
     The blobs go to the device once, as they are; the fills run longest
-    first in chunks under `gpucfg.fill_chunk_bytes`, each one extd2_fill
-    launch and one ksw2_backtrack launch, and the CIGAR words are
-    compacted on the device before they come back.  Fills whose band
-    collapses, fills with an empty side and every fill under a matrix
-    that fails the mat gate take ksw2.extd2 on the host and are counted
-    in stats.host_fills."""
-    from mm2_gb_tpu_torch.utils.gpucfg import fill_chunk_bytes
+    first in chunks (solve_chunks), each one extd2_fill launch and one
+    ksw2_backtrack launch.  Fills whose band collapses, fills with an
+    empty side and every fill under a matrix that fails the mat gate
+    take ksw2.extd2 on the host and are counted in stats.host_fills."""
     if not flag & APPROX_MAX or flag & ~(APPROX_MAX | ksw2.KSW_EZ_RIGHT
                                          | ksw2.KSW_EZ_REV_CIGAR):
         raise ValueError(f"extd2_fill_batch: unsupported flag {flag:#x}")
-    t_start = time.perf_counter()
-    device = torch.device(device)
-    stats = stats if stats is not None else FillStats()
-    meta = np.asarray(meta, np.int64).reshape(-1, 4)
-    n = meta.shape[0]
-    qlen, tlen, w = meta[:, 0], meta[:, 1], meta[:, 2]
-    qoff = np.zeros(n + 1, np.int64)
-    toff = np.zeros(n + 1, np.int64)
-    np.cumsum(qlen, out=qoff[1:])
-    np.cumsum(tlen, out=toff[1:])
-    wv = np.where(w < 0, np.maximum(qlen, tlen), w)
-    right = bool(flag & ksw2.KSW_EZ_RIGHT)
-    rev = bool(flag & ksw2.KSW_EZ_REV_CIGAR)
-    host = (qlen <= 0) | (tlen <= 0) | band_collapses(qlen, tlen, wv)
-    if prm.mat_gate:
-        host[:] = True
-    scores = np.full(n, KSW_NEG_INF, np.int32)
-    n_cig = np.zeros(n, np.int64)
-    host_cig = {}
-    for k in np.nonzero(host)[0].tolist():
-        ez = ksw2.extd2(qblob[qoff[k]:qoff[k + 1]], tblob[toff[k]:toff[k + 1]],
-                        prm.mat, prm.q, prm.e, prm.q2, prm.e2, int(w[k]), -1,
-                        0, flag)
-        scores[k] = ez.score
-        n_cig[k] = ez.cigar.shape[0]
-        host_cig[k] = ez.cigar
+    return _extd2_batch(np.asarray(meta, np.int64).reshape(-1, 4), qblob,
+                        tblob, prm, flag, 0, device,
+                        stats if stats is not None else FillStats(), False)
 
-    dev_idx = np.nonzero(~host)[0]
-    dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
-    pieces = []
-    if dev_idx.shape[0]:
-        pb = p_bound(qlen, tlen, wv)[dev_idx]
-        cap = (qlen + tlen)[dev_idx]
-        qb_d = torch.from_numpy(np.ascontiguousarray(qblob, np.uint8)).to(
-            device)
-        tb_d = torch.from_numpy(np.ascontiguousarray(tblob, np.uint8)).to(
-            device)
-        cuda = device.type == "cuda"
-        for c0, c1 in _chunks(pb + 4 * cap, fill_chunk_bytes(device)):
-            idx = dev_idx[c0:c1]
-            m = idx.shape[0]
-            p_off = np.zeros(m + 1, np.int64)
-            np.cumsum(pb[c0:c1], out=p_off[1:])
-            c_off = np.zeros(m + 1, np.int64)
-            np.cumsum(cap[c0:c1], out=c_off[1:])
-            i64 = torch.from_numpy(np.concatenate(
-                [qoff[idx], toff[idx], p_off[:-1], c_off])).to(device)
-            i32 = torch.from_numpy(np.concatenate(
-                [qlen[idx], tlen[idx], w[idx]]).astype(np.int32)).to(device)
-            qo, to, po, co = (i64[:m], i64[m:2 * m], i64[2 * m:3 * m],
-                              i64[3 * m:])
-            ql, tl, wd = i32[:m], i32[m:2 * m], i32[2 * m:]
-            if cuda:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                ev[0].record()
-            sc, p = extd2_fill(qb_d, tb_d, qo, to, ql, tl, wd, po,
-                               int(p_off[-1]), prm, right)
-            if cuda:
-                ev[1].record()
-            cig, nc = ksw2_backtrack(p, po, ql, tl, wd, co, rev)
-            if cuda:
-                ev[2].record()
-            del p
-            pieces.append(chunk_words(cig, nc, co))
-            scores[idx] = sc.cpu().numpy()
-            n_cig[idx] = nc.cpu().numpy()
-            if cuda:
-                stats.fill_ms += ev[0].elapsed_time(ev[1])
-                stats.backtrack_ms += ev[1].elapsed_time(ev[2])
-            stats.chunks += 1
-        stats.cells += int((qlen * tlen)[dev_idx].sum())
-        nb = (tlen[dev_idx] + 15) // 16 * 16
-        stats.scratch_fills += int((STATE_ROWS * nb > SMEM_STATE_MAX).sum())
 
-    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
-    stats.fills += n
-    stats.device_fills += int(dev_idx.shape[0])
-    stats.host_fills += len(host_cig)
-    stats.batch_s += time.perf_counter() - t_start
-    return scores, cig_off, cig_blob
+def extd2_ext_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
+                    zdrop: np.ndarray, prm: FillParams, flag: int,
+                    end_bonus: int, device: torch.device | str,
+                    stats: FillStats | None = None
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Solve a batch of extensions (ext_batch_device's work,
+    ksw2_tpu.py:1672-1785).
+
+    meta: (n, 3) int64 [qlen, tlen, w]; the sequences lie back to back
+    in qblob/tblob in meta order; zdrop (n,) per fill.  flag:
+    KSW_EZ_EXTZ_ONLY, optionally with KSW_EZ_RIGHT and KSW_EZ_REV_CIGAR;
+    end_bonus for every fill.  Returns (fields int32 [n, 10], the
+    EXT_FIELDS of each fill; cig_off int64 [n + 1], cig_blob uint32).
+
+    As extd2_fill_batch, with one extd2_ext launch and one ksw2_backtrack
+    launch from the starts the kernel picked per chunk.  Fills whose
+    band collapses, fills with an empty side and every fill under a
+    matrix that fails the mat gate take ksw2.extd2 on the host and are
+    counted in stats.ext_host_fills."""
+    ext_only = ksw2.KSW_EZ_EXTZ_ONLY
+    if not flag & ext_only or flag & ~(ext_only | ksw2.KSW_EZ_RIGHT
+                                       | ksw2.KSW_EZ_REV_CIGAR):
+        raise ValueError(f"extd2_ext_batch: unsupported flag {flag:#x}")
+    meta = np.asarray(meta, np.int64).reshape(-1, 3)
+    zdrop = np.asarray(zdrop, np.int64).reshape(-1, 1)
+    return _extd2_batch(np.concatenate([meta, zdrop], 1), qblob, tblob, prm,
+                        flag, end_bonus, device,
+                        stats if stats is not None else FillStats(), True)

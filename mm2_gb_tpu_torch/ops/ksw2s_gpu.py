@@ -31,11 +31,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mm2_gb_tpu.ops import ksw2, ksw2_splice
+from mm2_gb_tpu_torch.ops import ksw2, ksw2_splice
 from mm2_gb_tpu_torch.ops.ksw2_gpu import (KSW_NEG_INF, FillStats, _c8,
-                                           _chunks, assemble_cigars,
-                                           chunk_words, ksw2_backtrack,
-                                           p_bound)
+                                           _record, assemble_cigars,
+                                           ksw2_backtrack, p_bound,
+                                           solve_chunks, upload)
 from mm2_gb_tpu_torch.utils import kernels
 
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
@@ -361,7 +361,7 @@ def _check_operands(named, ref):
 
 
 def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
-               p_off, p_total: int, prm: SpliceParams):
+               p_off, p_total: int, prm: SpliceParams, events=None):
     """The exts2 splice fill DP of n fills (APPROX_MAX, no Z-drop).
 
     qblob/tblob: uint8 base codes (0..4) of all queries and targets;
@@ -375,7 +375,8 @@ def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
 
     Returns (score int32 [n], p uint8 [p_total]).  CPU tensors take the
     plain twin; CUDA tensors launch the kernel (built on first use); a
-    build or launch failure raises."""
+    build or launch failure raises.  events: a (start, end) pair of CUDA
+    events recorded right around the launch, or None."""
     global fill_launches
     i64, i32, u8 = torch.int64, torch.int32, torch.uint8
     _check_operands((("qblob", qblob, u8), ("tblob", tblob, u8),
@@ -410,6 +411,7 @@ def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
     smem = int(need[~big].max()) if n_big < n else 16
     m = torch.minimum(qlen, tlen)
     threads = min(256, max(32, (int(m.max()) + 47) // 32 * 32))
+    _record(events, 0)
     rc = lib.mm2_exts2_fill(
         qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
         qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(), qlen.data_ptr(),
@@ -418,6 +420,7 @@ def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
         score.data_ptr(), prm.q, prm.e, prm.q2, prm.noncan, prm.junc_bonus,
         prm.mat0, prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff,
         threads, smem, torch.cuda.current_stream(dev).cuda_stream)
+    _record(events, 1)
     kernels.check(rc, "exts2_fill")
     fill_launches += 1
     return score, p
@@ -442,12 +445,11 @@ def exts2_fill_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
 
     The blobs go to the device once; the fills run longest first in
     chunks whose direction bytes, CIGAR slots and scratch rings stay
-    under `gpucfg.fill_chunk_bytes`, each one exts2_fill launch and one
-    intron-mode ksw2_backtrack launch, and the CIGAR words are compacted
-    on the device before they come back.  Fills with an empty side, and
-    every fill under options that fail the host_only gate, take
-    ksw2_splice.exts2 on the host and are counted in stats.host_fills."""
-    from mm2_gb_tpu_torch.utils.gpucfg import fill_chunk_bytes
+    under `gpucfg.fill_chunk_bytes` (ksw2_gpu.solve_chunks), each one
+    exts2_fill launch and one intron-mode ksw2_backtrack launch.  Fills
+    with an empty side, and every fill under options that fail the
+    host_only gate, take ksw2_splice.exts2 on the host and are counted
+    in stats.host_fills."""
     t_start = time.perf_counter()
     device = torch.device(device)
     stats = stats if stats is not None else FillStats()
@@ -487,50 +489,28 @@ def exts2_fill_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
     pieces = []
     if dev_idx.shape[0]:
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        pb = p_bound(ql, tl, ql + tl)
-        cap = ql + tl
         ring = RING_ROWS * ring_lanes(ql, tl)
         scr = np.where(ring > SMEM_RING_MAX, ring, 0)
-        up = (lambda a: torch.from_numpy(np.ascontiguousarray(a, np.uint8))
-              .to(device))
-        qb_d, tb_d, jb_d = up(qblob), up(tblob), up(jblob)
-        cuda = device.type == "cuda"
-        for c0, c1 in _chunks(pb + 4 * cap + scr, fill_chunk_bytes(device)):
-            idx = dev_idx[c0:c1]
-            m = idx.shape[0]
-            p_off = np.zeros(m + 1, np.int64)
-            np.cumsum(pb[c0:c1], out=p_off[1:])
-            c_off = np.zeros(m + 1, np.int64)
-            np.cumsum(cap[c0:c1], out=c_off[1:])
-            i64 = torch.from_numpy(np.concatenate(
-                [qoff[idx], toff[idx], np.where(jlen[idx] > 0, joff[idx], -1),
-                 p_off[:-1], c_off])).to(device)
-            i32 = torch.from_numpy(np.concatenate(
-                [qlen[idx], tlen[idx], flags[idx], (qlen + tlen)[idx]])
-                .astype(np.int32)).to(device)
-            qo, to, jo, po, co = (i64[:m], i64[m:2 * m], i64[2 * m:3 * m],
-                                  i64[3 * m:4 * m], i64[4 * m:])
-            q_, t_, f_, w_ = (i32[:m], i32[m:2 * m], i32[2 * m:3 * m],
-                              i32[3 * m:])
-            if cuda:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                ev[0].record()
-            sc, p = exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
-                               int(p_off[-1]), prm)
-            if cuda:
-                ev[1].record()
-            cig, nc = ksw2_backtrack(p, po, q_, t_, w_, co,
-                                     (f_ & REV_CIGAR) != 0, prm.long_thres)
-            if cuda:
-                ev[2].record()
-            del p
-            pieces.append(chunk_words(cig, nc, co))
-            scores[idx] = sc.cpu().numpy()
-            n_cig[idx] = nc.cpu().numpy()
-            if cuda:
-                stats.fill_ms += ev[0].elapsed_time(ev[1])
-                stats.backtrack_ms += ev[1].elapsed_time(ev[2])
-            stats.chunks += 1
+        qb_d, tb_d, jb_d = (upload(b, device) for b in (qblob, tblob, jblob))
+
+        def launch(c64, c32, po, p_total, events):
+            (qo, to, jo), (q_, t_, f_, _w) = c64, c32
+            return exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
+                              p_total, prm, events=events)
+
+        def backtrack(p, po, co, c32, _sc, events):
+            q_, t_, f_, w_ = c32
+            return ksw2_backtrack(p, po, q_, t_, w_, co,
+                                  (f_ & REV_CIGAR) != 0, prm.long_thres,
+                                  events=events)
+        (scores[dev_idx], n_cig[dev_idx], pieces, kms, bms,
+         chunks) = solve_chunks(
+            dev_idx, p_bound(ql, tl, ql + tl), ql + tl, scr,
+            [qoff, toff, np.where(jlen > 0, joff[:-1], -1)],
+            [qlen, tlen, flags, qlen + tlen], device, launch, backtrack)
+        stats.fill_ms += kms
+        stats.backtrack_ms += bms
+        stats.chunks += chunks
         stats.cells += int((ql * tl).sum())
         stats.scratch_fills += int((scr > 0).sum())
 

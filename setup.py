@@ -14,7 +14,8 @@ setup(
     packages=find_packages(include=["mm2_gb_tpu", "mm2_gb_tpu.*",
                                     "mm2_gb_tpu_torch",
                                     "mm2_gb_tpu_torch.*"]),
-    package_data={"mm2_gb_tpu_torch": ["csrc/*.cu"]},
+    package_data={"mm2_gb_tpu_torch": ["csrc/*.cu", "csrc/host/*.cpp",
+                                       "csrc/host/*.h"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={"torch": ["torch"]},

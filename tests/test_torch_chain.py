@@ -119,7 +119,7 @@ def test_multi_segment_workload_cuts():
 def test_compute_ranges_numpy_fallback(monkeypatch):
     """Without the native host-kit, compute_ranges takes its numpy form,
     which gives the native ranges (several reads, both strands)."""
-    from mm2_gb_tpu.utils import native
+    from mm2_gb_tpu_torch.utils import native
     r = np.random.default_rng(12)
     parts, bounds = [], [0]
     for i in range(6):

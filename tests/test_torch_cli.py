@@ -1,10 +1,12 @@
 """CLI of the PyTorch port (mm2_gb_tpu_torch.cli).
 
-Without --gpu-chain the port delegates to the JAX package's host path;
+Without --gpu-chain the port maps on its own copy of the host path;
 with it, `_run` maps through the GPU pipeline.  Here (no CUDA device)
 `_run` is driven with a CPU device, which takes the kernels' plain
 twins, so the port's own run path (with --gpu-align, its gap fills too)
-is held against the goldens.
+is held against the goldens.  The routes of the Python fill session
+(--qstrand, --print-aln-seq, no native kit) are held in
+tests/test_torch_session.py.
 """
 
 import gzip
@@ -16,10 +18,10 @@ import pytest
 import torch
 
 import mm2_gb_tpu
-from mm2_gb_tpu.utils import opts as O
 from mm2_gb_tpu_torch import cli
 from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
 from mm2_gb_tpu_torch.utils import gpucfg
+from mm2_gb_tpu_torch.utils import opts as O
 from tests.conftest import golden_path
 
 SKIP_INF = "--max-chain-skip=2147483647"
@@ -44,6 +46,14 @@ def _no_pg(s):
     return [line for line in s.splitlines() if not line.startswith("@PG")]
 
 
+def _run_host(argv):
+    """The host path of the port's `_run` (its copies of the JAX
+    package's host layer): argv without --gpu-chain."""
+    argv, args = cli.parse_args(argv)
+    io_, mo = O.set_preset(args.preset)
+    return cli._run(args, argv, io_, mo)
+
+
 def _run_on_cpu(argv):
     """The --gpu-chain run path (cli._run) on the CPU twins."""
     argv, args = cli.parse_args([SKIP_INF, "--gpu-chain", *argv])
@@ -52,8 +62,10 @@ def _run_on_cpu(argv):
 
 
 def test_host_path_matches_golden(capsys):
-    rc = cli.main([SKIP_INF, golden_path("simref.fa.gz"),
-                   golden_path("simreads.fa.gz")])
+    """The host path of the port's `_run` (its copies of the JAX
+    package's host layer) gives the golden bytes."""
+    rc = _run_host([SKIP_INF, golden_path("simref.fa.gz"),
+                    golden_path("simreads.fa.gz")])
     assert rc == 0
     assert capsys.readouterr().out == _gold("sim200.skipinf.paf.gz")
 
@@ -122,6 +134,18 @@ def test_gpu_run_multipart_routes(capsys, tmp_path):
     assert "not yet ported" in capsys.readouterr().err
 
 
+def test_main_takes_the_card_without_gpu_chain(monkeypatch, capsys):
+    """The entry point maps on the CUDA device with or without
+    --gpu-chain: with no card it exits 1 and maps nothing on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main([SKIP_INF, golden_path("simref.fa.gz"),
+                   golden_path("simreads.fa.gz")])
+    assert rc == 1
+    cap = capsys.readouterr()
+    assert "needs a CUDA device" in cap.err and "mm2_gb_tpu`" in cap.err
+    assert cap.out == ""
+
+
 def test_gpu_chain_without_cuda_exits_nonzero(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = cli.main(["--gpu-chain", SKIP_INF, golden_path("simref.fa.gz"),
@@ -147,17 +171,12 @@ def test_align_flag_is_accepted(flag, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-x", "splice", "-c", "--gpu-align", "--print-aln-seq"],
-    ["--qstrand", "-c", "--gpu-align"],
     ["--tpu-devices", "2"], ["--tpu-devices", "0"],
-    ["--tpu-nproc", "2"], ["--tpu-profile", "prof"],
-    ["--print-aln-seq", "-c", "--gpu-align"]],
-    ids=["splice_align", "qstrand_align", "devices2", "devices_all",
-         "nproc2", "profile", "print_aln_seq_align"])
+    ["--tpu-nproc", "2"], ["--tpu-profile", "prof"]],
+    ids=["devices2", "devices_all", "nproc2", "profile"])
 def test_unported_flags_exit_1(flags, capsys):
-    """What the port cannot carry yet exits 1 before mapping; -x splice
-    --gpu-align itself is ported, but not with --print-aln-seq (it needs
-    the device extensions)."""
+    """What the port cannot carry yet (several devices or processes, the
+    TPU profile) exits 1 before mapping."""
     rc = cli.main(["--gpu-chain", *flags, golden_path("simref.fa.gz"),
                    golden_path("simreads.fa.gz")])
     assert rc == 1
@@ -165,18 +184,21 @@ def test_unported_flags_exit_1(flags, capsys):
     assert "not yet ported" in cap.err and cap.out == ""
 
 
-@pytest.mark.parametrize("preset", [None, "splice"])
-def test_gpu_align_without_native_kit_exits_1(preset, monkeypatch, capsys):
-    """--gpu-align without the native kit (the JAX package's Python fill
-    session with device extensions) exits 1 before mapping."""
-    from mm2_gb_tpu_torch.models import pipeline as gp
-    monkeypatch.setattr(gp.native, "available", lambda: False)
-    rc = cli.main(["--gpu-chain", "--gpu-align", "-c",
-                   *(["-x", preset] if preset else []),
+@pytest.mark.parametrize("flags", [
+    ["-x", "splice", "-c", "--print-aln-seq"], ["--qstrand", "-c"],
+    ["--print-aln-seq", "-c"]],
+    ids=["splice_print_aln_seq", "qstrand", "print_aln_seq"])
+def test_python_session_routes_need_a_card(flags, monkeypatch, capsys):
+    """The routes of the Python fill session parse and reach the device
+    check: without a card `--gpu-chain --gpu-align` exits 1 there, with
+    no output and no fallback."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["--gpu-chain", "--gpu-align", *flags,
                    golden_path("simref.fa.gz"), golden_path("simreads.fa.gz")])
     assert rc == 1
     cap = capsys.readouterr()
-    assert "without the native kit" in cap.err and "not yet ported" in cap.err
+    assert "needs a CUDA device" in cap.err and "not yet ported" \
+        not in cap.err
     assert cap.out == ""
 
 
@@ -189,9 +211,9 @@ def test_gpu_cfg_json_is_read(tmp_path, capsys):
                                "lanes": 128, "tile": 128}))
     old_cfg = gpucfg._current
     try:
-        rc = cli.main(["--gpu-cfg", str(cfg), SKIP_INF,
-                       golden_path("simref.fa.gz"),
-                       golden_path("simreads.fa.gz")])
+        rc = _run_host(["--gpu-cfg", str(cfg), SKIP_INF,
+                        golden_path("simref.fa.gz"),
+                        golden_path("simreads.fa.gz")])
         assert rc == 0
         assert capsys.readouterr().out == _gold("sim200.skipinf.paf.gz")
         cur = gpucfg.current_config()

@@ -15,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (fill_oracle, fill_result_err, fill_workloads,
-                        hold_fill_calls, hold_splice_calls, kernel_operands,
-                        recording_fills, recording_splice, splice_oracle,
-                        splice_workloads, workloads)
-from mm2_gb_tpu.ops.chain import _chain_dp_scores
-from mm2_gb_tpu.utils.hashkit import mg_log2
+from chip_smoke import (ext_oracle, ext_result_err, ext_workloads,
+                        fill_oracle, fill_result_err, fill_workloads,
+                        hold_ext_calls, hold_fill_calls, hold_splice_calls,
+                        kernel_operands, recording_ext, recording_fills,
+                        recording_splice, splice_oracle, splice_workloads,
+                        workloads)
 from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
+from mm2_gb_tpu_torch.ops.chain import _chain_dp_scores
+from mm2_gb_tpu_torch.utils.hashkit import mg_log2
 
 pytestmark = pytest.mark.gpu
 
@@ -31,6 +33,7 @@ WORKLOADS = list(workloads())
 FILLS = list(fill_workloads(n_pairs=32, max_len=400, long_len=4800))
 SPLICE = list(splice_workloads(n_pairs=24, max_intron=1000,
                                long_intron=8000, n_long=3))
+EXTS = list(ext_workloads(n_pairs=32, max_len=400))
 
 
 @pytest.fixture
@@ -161,5 +164,42 @@ def test_gpu_align_splice_cli_matches_golden(cuda, flags, ref, query, golden,
     assert rc == 0
     assert ksw2s_gpu.fill_launches > before[0]
     assert ksw2_gpu.backtrack_launches > before[1]
+    with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
+        assert capsys.readouterr().out == f.read()
+
+
+@pytest.mark.parametrize("name,meta,qb,tb,zd,prm,flag,eb", EXTS,
+                         ids=[w[0] for w in EXTS])
+def test_ext_kernels_match_twins_and_oracle(cuda, name, meta, qb, tb, zd, prm,
+                                            flag, eb):
+    before = ksw2_gpu.ext_launches, ksw2_gpu.start_backtrack_launches
+    st = ksw2_gpu.FillStats()
+    with recording_ext() as calls:
+        got = ksw2_gpu.extd2_ext_batch(meta, qb, tb, zd, prm, flag, eb, cuda,
+                                       st)
+    assert ext_result_err(got, ext_oracle(meta, qb, tb, zd, prm, flag,
+                                          eb)) == 0
+    assert ksw2_gpu.ext_launches == before[0] + len(calls)
+    assert ksw2_gpu.start_backtrack_launches == before[1] + len(calls)
+    assert (len(calls) > 0) == (st.ext_fills > st.ext_host_fills)
+    assert hold_ext_calls(calls, name, verbose=False)[0] == 0
+
+
+@pytest.mark.parametrize("flags,golden", [
+    (["--qstrand", "-c"], "sim200.qstrand.c.paf.gz"),
+    (["--print-aln-seq", "--cs", "-c"], "sim200.skipinf.cs.paf.gz")],
+    ids=["qstrand", "print_aln_seq"])
+def test_gpu_align_python_session_matches_golden(cuda, flags, golden,
+                                                 capsys):
+    """The routes of the Python fill session: gap fills and extensions
+    on the card, the reference's bytes."""
+    from mm2_gb_tpu_torch.cli import main
+    before = ksw2_gpu.fill_launches, ksw2_gpu.ext_launches
+    rc = main(["--gpu-chain", "--gpu-align", "--max-chain-skip=2147483647",
+               *flags, os.path.join(GOLDEN, "simref.fa.gz"),
+               os.path.join(GOLDEN, "simreads.fa.gz")])
+    assert rc == 0
+    assert ksw2_gpu.fill_launches > before[0]
+    assert ksw2_gpu.ext_launches > before[1]
     with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
         assert capsys.readouterr().out == f.read()

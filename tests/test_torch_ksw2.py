@@ -3,7 +3,8 @@ CPU: the plain twins of the extd2_fill and ksw2_backtrack kernels, driven
 through extd2_fill_batch, against mm2_gb_tpu.ops.ksw2.extd2 (what the
 JAX package itself runs for these fills on the CPU: extd2_batch_device
 resolves to its host oracle there).  Score and CIGAR, tolerance 0.
-Every input is made from a numpy seed.
+Every input is made from a numpy seed; the port's side takes its options
+from the port's own copies.
 """
 
 import numpy as np
@@ -13,8 +14,8 @@ import torch
 from chip_smoke import (_pack_fills, fill_oracle, fill_result_err,
                         fill_workloads)
 from mm2_gb_tpu.ops import ksw2
-from mm2_gb_tpu.utils import opts as O
 from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+from mm2_gb_tpu_torch.utils import opts as O
 
 WORKLOADS = list(fill_workloads(n_pairs=16, max_len=160, long_len=400))
 
@@ -25,7 +26,8 @@ def test_twins_match_ksw2_extd2(name, meta, qb, tb, prm, flag):
     before = (K.fill_launches, K.backtrack_launches)
     st = K.FillStats()
     got = K.extd2_fill_batch(meta, qb, tb, prm, "cpu", flag, st)
-    assert fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag)) == 0
+    assert fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag,
+                                               ksw2.extd2)) == 0
     assert st.fills == meta.shape[0]
     assert st.device_fills + st.host_fills == st.fills
     if name == "mat_gate":
@@ -103,7 +105,8 @@ def test_host_route_is_counted():
     st = K.FillStats()
     got = K.extd2_fill_batch(meta, qb, tb, prm, "cpu", stats=st)
     assert fill_result_err(got, fill_oracle(meta, qb, tb, prm,
-                                            ksw2.KSW_EZ_APPROX_MAX)) == 0
+                                            ksw2.KSW_EZ_APPROX_MAX,
+                                            ksw2.extd2)) == 0
     assert (st.fills, st.device_fills, st.host_fills) == (4, 2, 2)
     assert st.cells == 280 * 300 + 100 * 90
     gate = K.fill_params_from(ksw2.gen_simple_mat(5, 2, 40, 1), 4, 2, 24, 1)
@@ -111,7 +114,8 @@ def test_host_route_is_counted():
     st = K.FillStats()
     got = K.extd2_fill_batch(meta, qb, tb, gate, "cpu", stats=st)
     assert fill_result_err(got, fill_oracle(meta, qb, tb, gate,
-                                            ksw2.KSW_EZ_APPROX_MAX)) == 0
+                                            ksw2.KSW_EZ_APPROX_MAX,
+                                            ksw2.extd2)) == 0
     assert (st.device_fills, st.host_fills) == (0, 4)
 
 
@@ -138,7 +142,7 @@ def test_chunks_split_by_budget(monkeypatch):
     the twins; the results do not change."""
     from mm2_gb_tpu_torch.utils import gpucfg
     name, meta, qb, tb, prm, flag = WORKLOADS[0]
-    want = fill_oracle(meta, qb, tb, prm, flag)
+    want = fill_oracle(meta, qb, tb, prm, flag, ksw2.extd2)
     monkeypatch.setattr(gpucfg, "CPU_FILL_CHUNK_BYTES", 40_000)
     st = K.FillStats()
     got = K.extd2_fill_batch(meta, qb, tb, prm, "cpu", flag, st)
@@ -149,9 +153,10 @@ def test_chunks_split_by_budget(monkeypatch):
 def _map_paf(tmp_path, align):
     """PAF lines of a small seeded read set through the port's pipeline
     on CPU tensors, -c, with or without --gpu-align."""
-    from mm2_gb_tpu.models.index import MinimizerIndex
-    from mm2_gb_tpu.utils.simulate import random_reference, simulate_readset
     from mm2_gb_tpu_torch.models import pipeline as gp
+    from mm2_gb_tpu_torch.models.index import MinimizerIndex
+    from mm2_gb_tpu_torch.utils.simulate import (random_reference,
+                                                 simulate_readset)
     ref = random_reference(40_000, seed=41)
     reads = simulate_readset(ref, 4, 1_500, 3_000, seed=42)
     path = tmp_path / "q.fa"

@@ -1,22 +1,26 @@
 """PyTorch pipeline port (mm2_gb_tpu_torch.models.pipeline) vs the JAX
 package's device pipeline and host mapper, on CPU tensors (the chain
-kernel's plain twin).  Outputs are compared as PAF bytes."""
+kernel's plain twin).  Outputs are compared as PAF bytes.  The port's
+inputs (index, options, records) come from the port's own copies of the
+host layer; where the JAX package runs too, its inputs come from its own
+modules."""
 
 import copy
 import gzip
 import io
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from mm2_gb_tpu.models.index import MinimizerIndex
-from mm2_gb_tpu.utils import opts as O
-from mm2_gb_tpu.utils.fastx import SeqRecord
-from mm2_gb_tpu.utils.paf import write_paf
-from mm2_gb_tpu.utils.simulate import random_reference, simulate_readset
 from mm2_gb_tpu_torch.models import pipeline as gp
+from mm2_gb_tpu_torch.models.index import MinimizerIndex
 from mm2_gb_tpu_torch.utils import gpucfg
+from mm2_gb_tpu_torch.utils import opts as O
+from mm2_gb_tpu_torch.utils.fastx import SeqRecord
+from mm2_gb_tpu_torch.utils.paf import write_paf
+from mm2_gb_tpu_torch.utils.simulate import random_reference, simulate_readset
 from tests.conftest import golden_path
 
 
@@ -45,22 +49,44 @@ def _paf(index, mo, sr, regs):
                       sr.rep_len) for r in regs]
 
 
+def _jax_setup(ref_len, n_reads, lo, hi, seed):
+    """_setup's index, options and reads, made by the JAX package."""
+    from mm2_gb_tpu.models.index import MinimizerIndex as JIndex
+    from mm2_gb_tpu.utils import opts as JO
+    from mm2_gb_tpu.utils.simulate import (random_reference as jref,
+                                           simulate_readset as jreads)
+    ref = jref(ref_len, seed=seed)
+    reads = jreads(ref, n_reads, lo, hi, seed=seed + 1)
+    io_, mo = JO.set_preset(None)
+    mo.max_chain_skip = 2**31 - 1
+    index = JIndex.from_strings([ref], io_, names=["c"])
+    JO.mapopt_update(mo, index)
+    return index, mo, reads
+
+
 def test_map_batch_gpu_matches_jax_pipeline_and_host():
     """seed -> chain (twin) -> backtrack -> post equals the JAX package's
-    map_batch_tpu (Pallas interpret mode) and the host mapper."""
+    map_batch_tpu (Pallas interpret mode) and its host mapper, each side
+    on inputs made by its own modules."""
     from mm2_gb_tpu.models.mapper import map_frag
     from mm2_gb_tpu.models.pipeline import map_batch_tpu
+    from mm2_gb_tpu.utils.fastx import SeqRecord as JRecord
+    from mm2_gb_tpu.utils.paf import write_paf as jpaf
     index, mo, reads = _setup(60_000, 6, 1_000, 4_000, 7)
+    jindex, jmo, jreads = _jax_setup(60_000, 6, 1_000, 4_000, 7)
+    assert jreads == reads
     recs = [SeqRecord(i, n, s) for i, (n, s) in enumerate(reads)]
+    jrecs = [JRecord(i, n, s) for i, (n, s) in enumerate(reads)]
     port = gp.map_batch_gpu(index, mo, recs, device="cpu")
-    jx = map_batch_tpu(index, mo, recs)
+    jx = map_batch_tpu(jindex, jmo, jrecs)
     n_hits = 0
-    for rec, (sr, regs), (sj, rj) in zip(recs, port, jx):
-        host = map_frag(index, mo, [rec.seq], rec.name)
+    for rec, (sr, regs), (sj, rj) in zip(jrecs, port, jx):
+        host = map_frag(jindex, jmo, [rec.seq], rec.name)
         got = _paf(index, mo, sr, regs)
-        assert got == _paf(index, mo, sj, rj)
-        assert got == [write_paf(r, rec.name, rec.length, index, mo.flag,
-                                 host.rep_len) for r in host.regs]
+        assert got == [jpaf(r, sj.rec.name, sj.rec.length, jindex, jmo.flag,
+                            sj.rep_len) for r in rj]
+        assert got == [jpaf(r, rec.name, rec.length, jindex, jmo.flag,
+                            host.rep_len) for r in host.regs]
         n_hits += len(got)
     assert n_hits >= len(recs)
 
@@ -121,7 +147,7 @@ def test_threads_give_identical_records(tmp_path):
 def test_slice_matches_golden(preset, flags, query, ref, golden):
     """The slice on CPU tensors: map_file_gpu_records output equals the
     reference binary's goldens byte for byte (splice: is_cdna chaining)."""
-    from mm2_gb_tpu.cli import res_regs_out
+    from mm2_gb_tpu_torch.cli import res_regs_out
     io_, mo = O.set_preset(preset)
     mo.max_chain_skip = 2**31 - 1
     mo.flag |= flags
@@ -218,7 +244,7 @@ def test_splice_real_pass_reads_the_fill_cache(tmp_path, monkeypatch):
     batch once each, and the real pass takes their results from the fill
     cache (adding 1 to every device score changes the PAF) and does not
     recompute them; the cache is gone after the run."""
-    from mm2_gb_tpu.ops import align as align_ops
+    from mm2_gb_tpu_torch.ops import align as align_ops
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     index, mo, align, qpath = _splice_subset(tmp_path)
     base = list(gp.map_file_gpu(index, mo, [qpath], device="cpu"))
@@ -243,7 +269,7 @@ def test_real_pass_exception_clears_the_fill_cache(tmp_path, monkeypatch):
     results are in the Python fill cache, leaves no cache behind: a later
     host run's alignment does not answer from that (here poisoned)
     cache, and its PAF is unchanged."""
-    from mm2_gb_tpu.ops import align as align_ops
+    from mm2_gb_tpu_torch.ops import align as align_ops
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     index, mo, align, qpath = _splice_subset(tmp_path)
     base = list(gp.map_file_gpu(index, mo, [qpath], device="cpu"))
@@ -307,30 +333,71 @@ def test_print_seeds_once_with_splice_align(tmp_path, capsys):
     assert runs[0][1] and runs[1] == runs[0]
 
 
-def test_unported_align_routes():
-    """The --gpu-align routes that need the JAX package's device
-    extensions are named; -x sr and single gap costs align on the host,
-    and so do splice options whose q2 is no intron open."""
+def test_align_routes(monkeypatch):
+    """--gpu-align's routes: the C++ aligner's session for plain genomic
+    runs, the Python session for splice, --qstrand, --print-aln-seq and
+    no native kit (the JAX pipeline's _prefill_native declines those);
+    -x sr and single gap costs align on the host, and so do splice
+    options whose q2 is no intron open."""
     def opt(preset=None, flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN, **kw):
         _io, mo = O.set_preset(preset)
         mo.flag |= flag
         for k, v in kw.items():
             setattr(mo, k, v)
         return mo
-    assert gp.use_device_align(opt()) and gp.unported_align_route(opt()) \
-        is None
-    # -x splice is ported (exts2 fills); with --print-aln-seq it is
-    # refused like the genomic presets
-    assert gp.use_device_align(opt("splice"))
-    assert gp.unported_align_route(opt("splice")) is None
-    assert "print-aln-seq" in gp.unported_align_route(
-        opt("splice", dbg_print_aln_seq=True))
+    assert gp.use_device_align(opt()) and gp._native_session(opt())
+    for mo in (opt("splice"), opt("splice", dbg_print_aln_seq=True),
+               opt(flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN | O.MM_F_QSTRAND),
+               opt(dbg_print_aln_seq=True)):
+        assert gp.use_device_align(mo) and not gp._native_session(mo)
     assert not gp.use_device_align(opt("splice", q2=3))
-    assert "qstrand" in gp.unported_align_route(
-        opt(flag=O.MM_F_CIGAR | O.MM_F_TPU_ALIGN | O.MM_F_QSTRAND))
-    assert "print-aln-seq" in gp.unported_align_route(
-        opt(dbg_print_aln_seq=True))
     for mo in (opt("sr"), opt(q2=4, e2=2), opt(flag=O.MM_F_TPU_ALIGN),
                opt(flag=O.MM_F_CIGAR)):
         assert not gp.use_device_align(mo)
-        assert gp.unported_align_route(mo) is None
+    monkeypatch.setattr(gp.native, "available", lambda: False)
+    assert gp.use_device_align(opt()) and not gp._native_session(opt())
+
+
+def test_fill_cache_counts_misses_by_kind(capsys):
+    """The Python fill session's cache counts the real pass's misses (a
+    fill or extension it then aligns on the host) by kind, and the
+    fills: line reports them."""
+    from mm2_gb_tpu_torch.ops import align as align_ops
+    from mm2_gb_tpu_torch.ops import ksw2
+    met = gp.GpuMetrics()
+    q, t = np.array([0, 1, 2], np.uint8), np.array([0, 1, 3], np.uint8)
+    hit = ksw2.Extz()
+    cache = gp._FillCache(met.fills.misses, False)
+    key = align_ops._fill_key(q, t, 10, ksw2.KSW_EZ_APPROX_MAX, 400, 0)
+    cache[key] = hit
+    assert cache.get(key) is hit
+    for flag in (ksw2.KSW_EZ_APPROX_MAX, ksw2.KSW_EZ_EXTZ_ONLY,
+                 ksw2.KSW_EZ_EXTZ_ONLY | ksw2.KSW_EZ_RIGHT
+                 | ksw2.KSW_EZ_REV_CIGAR):
+        assert cache.get(align_ops._fill_key(t, q, 10, flag, 400, 0)) is None
+    splice = gp._FillCache(met.fills.misses, True)
+    assert splice.get(key) is None
+    assert met.fills.misses == {"fill": 1, "ext": 2, "splice": 1}
+    met.fills.ext_fills = 3
+    met.report(3)
+    assert capsys.readouterr().err.rstrip("\n").endswith(
+        "real-pass misses (aligned on the host): 1 fill, 2 ext, 1 splice")
+
+
+def test_host_kit_build_failure_is_reported(tmp_path, monkeypatch, capsys):
+    """A host kit that cannot be built (no g++, or g++ fails) is said on
+    stderr, with g++'s messages, and leaves no library behind."""
+    from mm2_gb_tpu_torch.utils import native
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_SOURCES", ("missing.cpp",))
+    path = str(tmp_path / "libhostkit-test.so")
+    native._build(path)
+    err = capsys.readouterr().err
+    assert "host kit: g++ failed" in err and "missing.cpp" in err
+    assert "NumPy host layer runs instead" in err
+    assert sorted(os.listdir(tmp_path)) == ["lock"]
+    monkeypatch.setattr("shutil.which", lambda _name: None)
+    native._build(path)
+    assert "host kit: no g++ to build it" in capsys.readouterr().err
+    assert not os.path.exists(path)
+

@@ -17,12 +17,12 @@ import torch
 
 from chip_smoke import (_pack_splice, fill_result_err, splice_oracle,
                         splice_workloads)
-from mm2_gb_tpu.models.index import MinimizerIndex
 from mm2_gb_tpu.ops import ksw2
 from mm2_gb_tpu.ops import ksw2_splice as S
-from mm2_gb_tpu.utils import opts as O
+from mm2_gb_tpu_torch.models.index import MinimizerIndex
 from mm2_gb_tpu_torch.ops import ksw2_gpu as K
 from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+from mm2_gb_tpu_torch.utils import opts as O
 from tests.conftest import golden_path
 
 AM = ksw2.KSW_EZ_APPROX_MAX
@@ -83,8 +83,8 @@ def test_twins_match_ksw2_splice_exts2(name, meta, qb, tb, jb, fl, prm):
     before = (KS.fill_launches, K.backtrack_launches)
     st = K.FillStats()
     got = KS.exts2_fill_batch(meta, qb, tb, jb, fl, prm, "cpu", st)
-    assert fill_result_err(got, splice_oracle(meta, qb, tb, jb, fl,
-                                              prm)) == 0
+    assert fill_result_err(got, splice_oracle(meta, qb, tb, jb, fl, prm,
+                                              S.exts2)) == 0
     assert st.fills == meta.shape[0]
     assert st.device_fills + st.host_fills == st.fills
     if name == "mat_gate":
@@ -258,7 +258,8 @@ def test_host_route_is_counted():
                             5, 1, 40, 1), 2, 1, 32, 9, 9), 4)):
         st = K.FillStats()
         got = KS.exts2_fill_batch(*packed, prm, "cpu", st)
-        assert fill_result_err(got, splice_oracle(*packed, prm)) == 0
+        assert fill_result_err(got, splice_oracle(*packed, prm,
+                                                  S.exts2)) == 0
         assert (st.fills, st.host_fills) == (4, n_host)
         assert st.device_fills == 4 - n_host
     assert st.cells == 0
@@ -300,7 +301,7 @@ def test_chunks_split_by_budget(monkeypatch):
     twins; the results do not change."""
     from mm2_gb_tpu_torch.utils import gpucfg
     _name, meta, qb, tb, jb, fl, prm = WORKLOADS[0]
-    want = splice_oracle(meta, qb, tb, jb, fl, prm)
+    want = splice_oracle(meta, qb, tb, jb, fl, prm, S.exts2)
     monkeypatch.setattr(gpucfg, "CPU_FILL_CHUNK_BYTES", 1_200_000)
     st = K.FillStats()
     got = KS.exts2_fill_batch(meta, qb, tb, jb, fl, prm, "cpu", st)
@@ -330,7 +331,7 @@ def test_slice_matches_splice40_golden():
     map_file_gpu_records (is_cdna chain twin, collect pass, exts2 and
     intron backtrack twins, the fill cache) equals the reference's
     splice40 golden byte for byte."""
-    from mm2_gb_tpu.cli import res_regs_out
+    from mm2_gb_tpu_torch.cli import res_regs_out
     from mm2_gb_tpu_torch.models import pipeline as gp
     io_, mo = O.set_preset("splice")
     mo.max_chain_skip = 2**31 - 1
