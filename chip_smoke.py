@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke, below
     python3 chip_smoke.py --walls    # --qstrand walls: port vs host path
+    python3 chip_smoke.py --scale-walls  # two devices, two ranks vs one
 
 Run from the root of a checkout, on a machine with a CUDA GPU, nvcc and
 a CUDA build of PyTorch.  Phases (any failure exits non-zero):
@@ -48,15 +49,37 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    identical to the host path, with extension launches > 0 and no
    real-pass miss.  The genomic -c runs need the port's host
    kit: the smoke fails if it did not build;
+   Then the splice extensions (the exts2 kernel's extension mode, the
+   JAX package's track_h branch, and the intron backtrack from its
+   per-fill starts) against their twins and ksw2_splice.exts2 on seeded
+   read ends across introns (both strands, FLANK, BED junctions,
+   EXTZ_ONLY with and without RIGHT|REV_CIGAR, Z-drop hits, N bases,
+   unrelated pairs, tlen to a few kb, the global-scratch ring), and on
+   every splice extension the cDNA run's align driver ran on the host
+   (at least 100), in one exts2_ext_batch;
+   Then the scale-out paths on the flowcell draw: two devices
+   [cuda:0, cuda:0] (one stream each) at --gpu-chain and --gpu-align -c
+   byte-identical to one device; two --tpu-nproc ranks merged by the
+   port's mergeshards byte-identical to one process (PAF; SAM but @PG);
+   per-part device mapping of multi-part indexes against the sim200 and
+   multi3 goldens; a --tpu-profile trace that names the chain kernel;
 4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
-   the inputs it was given, against its twin, exact, and both timed
-   (CUDA events; a kernel's are the pair its wrapper records right
-   around the launch).  A fill launch is re-run on its recorded operands and
+   the inputs it was given, re-run and held against its recorded result
+   and against its twin, exact, and both timed (CUDA events; a kernel's
+   are the pair its wrapper records right around the launch).  For the
+   time limit the twins skip the longest inputs: of the chain launches
+   they take the first and the last, of the splice launches those whose
+   fills have at most SPLICE_TWIN_ROWS rows, and of the seeded
+   workloads' launches (whose results are also held against the
+   oracles) those with at most TWIN_ROWS; of the seeded gap-fill
+   workloads, those of the map-ont penalties and the q/e swap.  A fill
+   launch is re-run on its recorded operands and
    must reproduce the recorded direction bytes (by fingerprint) before
    the twins are held against it; the cDNA run's splice launches (with
    the splice workloads' launches under the same options) and the
-   --qstrand run's extension launches are each held against one twin
-   run over all of their fills.
+   --qstrand run's extension launches and the cDNA run's splice
+   extensions are each held against one twin run over all of their
+   fills.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the twin, both times and the least time the
@@ -83,10 +106,20 @@ WORK = os.path.join(REPO, "build", "smoke")
 N_READS = 600       # bench flowcell: 4 Mbp reference, 10-100 kb reads
                     # (at half the bench's 1200 reads, for the time limit)
 N_CDNA = 1000       # cDNA set: 10 Mbp reference, spliced reads
-N_QSTRAND = 600     # the bench flowcell's draw for the --qstrand run
+N_QSTRAND = 600     # the bench flowcell's draw for the --qstrand walls
                     # (half the bench's 1200 reads, as N_READS)
+N_QSTRAND_CHECK = 200   # the smoke's --qstrand run (the time limit)
+# the main-path splice launches whose longest fill has more rows than
+# this are held against their recorded results, not the twins (a twin
+# row costs ~7 ms of Python dispatch; the cDNA set's fills reach 25,000);
+# the seeded workloads' launches past TWIN_ROWS likewise (their results
+# are held against the oracle as well)
+SPLICE_TWIN_ROWS = 6000
+TWIN_ROWS = 3000
 THREADS = 8
 SKIP_INF = "--max-chain-skip=2147483647"
+# the port's CLI as a subprocess (after the interpreter)
+PORT = ["-m", "mm2_gb_tpu_torch", SKIP_INF, "-t", str(THREADS)]
 KERNEL_REPS = 3
 
 
@@ -455,10 +488,15 @@ def phase2_fills():
         with recording_fills() as calls:
             got = K.extd2_fill_batch(meta, qb, tb, prm, dev, flag, st)
         e_or = fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag))
-        e_tw = hold_fill_calls(calls, name, verbose=False)[0]
+        # for the time limit the twins re-check the map-ont penalties and
+        # the q/e swap (every main-path launch meets them too); every
+        # workload meets ksw2.extd2
+        twin = name.startswith(("map-ont/", "qe_swap/"))
+        e_tw = hold_fill_calls(calls, name, verbose=False)[0] if twin else 0
         log(f"fill {name}: {st.fills} fills ({st.host_fills} host-routed), "
-            f"{len(calls)} launches; kernel==twin max_abs_err={e_tw}, "
-            f"batch==ksw2.extd2 max_abs_err={e_or}")
+            f"{len(calls)} launches; kernel==twin max_abs_err="
+            f"{e_tw if twin else 'not run'}, batch==ksw2.extd2 "
+            f"max_abs_err={e_or}")
         if e_or or e_tw:
             fail(f"fill workload {name} disagrees")
         if name == "mat_gate" and st.host_fills != st.fills:
@@ -482,7 +520,7 @@ def _pack_ext(pairs, ws):
     return meta[:, :3].copy(), qb, tb
 
 
-def ext_workloads(n_pairs=96, max_len=600, long_len=3400):
+def ext_workloads(n_pairs=96, max_len=400, long_len=3400):
     """(name, meta, qblob, tblob, zdrop, params, flag, end_bonus) of the
     extension checks: fill_pairs's pairs (related, indel-rich, N bases,
     unrelated, band-collapse shapes) under five presets' penalties in
@@ -608,14 +646,16 @@ def _merge_ext_calls(calls):
             (m["po"], m["ql"], m["tl"], m["w"], co, calls[0][3][5]), bases)
 
 
-def hold_ext_calls(calls, label, verbose=True):
+def hold_ext_calls(calls, label, verbose=True, max_rows=None):
     """Recorded extd2_ext + backtrack launches of one option set against
     the twins: one run of each twin over the fills of all launches with
     the same KSW_EZ_RIGHT flag and end bonus (per-fill results do not
     depend on the company a fill keeps), then each launch re-run on its
     recorded operands: its p must match the recorded fingerprint and its
     slice of the twin's p, its ext rows the recorded and the twin's, and
-    both backtracks from its starts the recorded words.  Returns
+    both backtracks from its starts the recorded words.  With max_rows,
+    launches whose longest fill has more rows (qlen + tlen) are re-run
+    and held against their recorded results alone.  Returns
     (max_abs_err, ext ms and backtrack ms summed over the launches, the
     twins' ms summed over their runs: ext ms, ext twin ms, backtrack ms,
     backtrack twin ms)."""
@@ -624,7 +664,8 @@ def hold_ext_calls(calls, label, verbose=True):
         return 0, 0.0, 0.0, 0.0, 0.0
     groups = {}
     for i, c in enumerate(calls):
-        groups.setdefault((bool(c[0][11]), int(c[0][12])), []).append(i)
+        if max_rows is None or int((c[0][4] + c[0][5]).max()) <= max_rows:
+            groups.setdefault((bool(c[0][11]), int(c[0][12])), []).append(i)
     twin, fpl, bpl = {}, 0.0, 0.0
     for idx in groups.values():
         fa_all, ba_all, bases = _merge_ext_calls([calls[i] for i in idx])
@@ -640,14 +681,15 @@ def hold_ext_calls(calls, label, verbose=True):
                        cg_t[c0:c0 + cig.shape[0]], nc_t[f0:f0 + n])
     err, fms, bms = 0, 0.0, 0.0
     for i, (fa, ek0, fp, ba, cig, nc) in enumerate(calls):
-        e_t, p_t, cg_t, nc_t = twin[i]
         (ek, pk), tk = _timed_launch(K.extd2_ext, *fa)
-        e = max(_max_err(ek, ek0), _max_err(e_t, ek0), _max_err(p_t, pk),
-                0 if _fingerprint(pk) == fp else 2**31)
+        e = max(_max_err(ek, ek0), 0 if _fingerprint(pk) == fp else 2**31)
         (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba,
                                        starts=ek[:, 10:])
-        e = max(e, _max_err(cgk, cig), _max_err(nck, nc),
-                _max_err(cg_t, cig), _max_err(nc_t, nc))
+        e = max(e, _max_err(cgk, cig), _max_err(nck, nc))
+        if i in twin:
+            e_t, p_t, cg_t, nc_t = twin[i]
+            e = max(e, _max_err(e_t, ek0), _max_err(p_t, pk),
+                    _max_err(cg_t, cig), _max_err(nc_t, nc))
         del pk
         if verbose:
             log(f"{label} launch {i}: {fa[4].shape[0]} extensions, "
@@ -706,7 +748,8 @@ def phase2_ext():
         groups.setdefault(_prm_key(prm), []).extend(calls)
     out = [0, 0.0, 0.0, 0.0, 0.0]
     for calls in groups.values():
-        r = hold_ext_calls(calls, "ext workloads", verbose=False)
+        r = hold_ext_calls(calls, "ext workloads", verbose=False,
+                           max_rows=TWIN_ROWS)
         out = [max(out[0], r[0])] + [a + b for a, b in zip(out[1:], r[1:])]
     err = out[0]
     log(f"ext workloads: kernel==twin max_abs_err={err}; ext "
@@ -897,10 +940,11 @@ def recording_splice():
         KS.exts2_fill, KS.ksw2_backtrack = fill, bt
 
 
-def _merge_splice_calls(calls):
+def _merge_splice_calls(calls, ext=False):
     """One operand set holding every recorded launch's fills (blobs
     concatenated, offsets shifted): (fill args, backtrack args without p,
-    per-launch (fill, p, word) bases)."""
+    per-launch (fill, p, word) bases).  ext: exts2_ext calls, whose
+    operands carry the per-fill Z-drop."""
     import torch
 
     def blob(i):
@@ -915,11 +959,16 @@ def _merge_splice_calls(calls):
         return torch.cat(parts), [base[(c[0][i].data_ptr(), c[0][i].numel())]
                                   for c in calls]
     (qb, qbase), (tb, tbase), (jb, jbase) = blob(0), blob(1), blob(2)
-    cols = {k: [] for k in ("qo", "to", "jo", "ql", "tl", "fl", "po", "w",
-                            "co", "rev")}
+    cols = {k: [] for k in ("qo", "to", "jo", "ql", "tl", "fl", "zd", "po",
+                            "w", "co", "rev")}
     bases, fbase, pbase, cbase = [], 0, 0, 0
     for c, qb0, tb0, jb0 in zip(calls, qbase, tbase, jbase):
-        (_q, _t, _j, qo, to, jo, ql, tl, fl, po, p_total, _prm) = c[0]
+        if ext:
+            (_q, _t, _j, qo, to, jo, ql, tl, fl, zd, po, p_total,
+             _prm) = c[0]
+            cols["zd"].append(zd)
+        else:
+            (_q, _t, _j, qo, to, jo, ql, tl, fl, po, p_total, _prm) = c[0]
         _po, _ql, _tl, w, co, rev, _mil = c[3]
         cols["qo"].append(qo + qb0)
         cols["to"].append(to + tb0)
@@ -932,16 +981,16 @@ def _merge_splice_calls(calls):
         bases.append((fbase, pbase, cbase))
         fbase, pbase, cbase = (fbase + ql.shape[0], pbase + p_total,
                                cbase + int(co[-1]))
-    m = {k: torch.cat(v) for k, v in cols.items()}
+    m = {k: torch.cat(v) for k, v in cols.items() if v}
     co = torch.cat([m["co"], m["co"].new_tensor([cbase])])
     prm = calls[0][0][-1]
     return ((qb, tb, jb, m["qo"], m["to"], m["jo"], m["ql"], m["tl"],
-             m["fl"], m["po"], pbase, prm),
+             m["fl"], *([m["zd"]] if ext else []), m["po"], pbase, prm),
             (m["po"], m["ql"], m["tl"], m["w"], co, m["rev"],
              prm.long_thres), bases)
 
 
-def hold_splice_calls(calls, label, verbose=True, extra=()):
+def hold_splice_calls(calls, label, verbose=True, extra=(), max_rows=None):
     """Each recorded exts2_fill + intron backtrack launch (of calls, then
     of extra, launches made under the same options) against the twins.
     The twins step one row of the longest fill at a time, so the fills of
@@ -949,44 +998,60 @@ def hold_splice_calls(calls, label, verbose=True, extra=()):
     depend on the company a fill keeps); then each launch's kernel is
     re-run on its recorded operands, its p must match the recorded
     fingerprint and its slice of the twin's p, its scores the twin's, and
-    both backtracks on it the recorded words.  Returns (max_abs_err, fill
-    ms and backtrack ms summed over calls' launches, and the twins' ms of
-    the one run: fill ms, fill twin ms, backtrack ms, backtrack twin
-    ms)."""
+    both backtracks on it the recorded words.  With max_rows, only the
+    launches whose longest fill has at most that many rows (qlen + tlen)
+    go through the twins (their cost is that fill's rows); the others are
+    re-run and held against their recorded results alone.  Returns
+    (max_abs_err, fill ms and backtrack ms summed over calls' launches,
+    and the twins' ms of the one run: fill ms, fill twin ms, backtrack
+    ms, backtrack twin ms)."""
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     n_timed = len(calls)
     calls = list(calls) + list(extra)
     if not calls:
         return 0, 0.0, 0.0, 0.0, 0.0
-    fa_all, ba_all, bases = _merge_splice_calls(calls)
-    (sc_t, p_t), fpl = _timed(KS.exts2_fill_torch, *fa_all)
-    (cg_t, nc_t), bpl = _timed(K.ksw2_backtrack_torch, p_t, *ba_all)
+    held = [i for i, c in enumerate(calls)
+            if max_rows is None or int((c[0][6] + c[0][7]).max()) <= max_rows]
+    twin = {}
+    fpl = bpl = 0.0
+    if held:
+        fa_all, ba_all, bases = _merge_splice_calls([calls[i] for i in held])
+        (sc_t, p_t), fpl = _timed(KS.exts2_fill_torch, *fa_all)
+        (cg_t, nc_t), bpl = _timed(K.ksw2_backtrack_torch, p_t, *ba_all)
+        for i, (f0, p0, c0) in zip(held, bases):
+            fa, cig = calls[i][0], calls[i][4]
+            n = fa[6].shape[0]
+            twin[i] = (sc_t[f0:f0 + n], p_t[p0:p0 + fa[10]],
+                       cg_t[c0:c0 + cig.shape[0]], nc_t[f0:f0 + n])
     err, fms, bms = 0, 0.0, 0.0
-    for i, ((fa, sc, fp, ba, cig, nc), (f0, p0, c0)) in enumerate(
-            zip(calls, bases)):
-        n, p_total, n_words = fa[6].shape[0], fa[10], cig.shape[0]
+    for i, (fa, sc, fp, ba, cig, nc) in enumerate(calls):
+        n = fa[6].shape[0]
         (sck, pk), tk = _timed_launch(KS.exts2_fill, *fa)
-        e = max(_max_err(sck, sc), _max_err(sc_t[f0:f0 + n], sc),
-                _max_err(p_t[p0:p0 + p_total], pk),
-                0 if _fingerprint(pk) == fp else 2**31)
+        e = max(_max_err(sck, sc), 0 if _fingerprint(pk) == fp else 2**31)
         (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba)
-        e = max(e, _max_err(cgk, cig), _max_err(nck, nc),
-                _max_err(cg_t[c0:c0 + n_words], cig),
-                _max_err(nc_t[f0:f0 + n], nc))
+        e = max(e, _max_err(cgk, cig), _max_err(nck, nc))
+        if i in twin:
+            sc_t, p_t, cg_t, nc_t = twin[i]
+            e = max(e, _max_err(sc_t, sc), _max_err(p_t, pk),
+                    _max_err(cg_t, cig), _max_err(nc_t, nc))
         del pk
         if verbose and i < n_timed:
             log(f"{label} launch {i}: {n} fills, "
                 f"{int((fa[6].long() * fa[7].long()).sum())} cells; fill "
-                f"{tk:.3f} ms, backtrack {tb:.3f} ms; max_abs_err {e}")
+                f"{tk:.3f} ms, backtrack {tb:.3f} ms; max_abs_err {e}"
+                + ("" if i in twin else " (against its recorded results)"))
         err = max(err, e)
         if i < n_timed:
             fms, bms = fms + tk, bms + tb
     if verbose:
+        n_twin = sum(calls[i][0][6].shape[0] for i in held)
         log(f"{label}: {n_timed} launches ({len(calls) - n_timed} more of "
-            f"the splice workloads held with them, max_abs_err {err}), "
-            f"{sc_t.shape[0]} fills; twins (one run over all of them) fill "
-            f"{fpl:.3f} ms, backtrack {bpl:.3f} ms")
+            f"the splice workloads held with them, max_abs_err {err}); "
+            f"twins (one run over the {n_twin} fills of the {len(held)} "
+            f"launches" + ("" if max_rows is None else
+                           f" whose fills have at most {max_rows} rows")
+            + f") fill {fpl:.3f} ms, backtrack {bpl:.3f} ms")
     return err, fms, fpl, bms, bpl
 
 
@@ -1030,7 +1095,8 @@ def phase2_splice():
     out = [0, 0.0, 0.0, 0.0, 0.0]
     for key, calls in groups.items():
         if key != later:
-            r = hold_splice_calls(calls, "splice workloads", verbose=False)
+            r = hold_splice_calls(calls, "splice workloads", verbose=False,
+                                  max_rows=TWIN_ROWS)
             out = [max(out[0], r[0])] + [a + b for a, b in zip(out[1:],
                                                                 r[1:])]
             err = max(err, r[0])
@@ -1040,6 +1106,261 @@ def phase2_splice():
     if err:
         fail("a splice workload launch differs from the twins")
     return err, groups.get(later, [])
+
+
+# splice extension flags: the fills' splice variants (RIGHT and REV_CIGAR
+# among them) without APPROX_MAX, KSW_EZ_EXTZ_ONLY on two in three
+SPLICE_EXT_ZDROP = (200, 100, 40, -1)
+
+
+def splice_ext_pairs(rng, n, max_intron, min_intron=60, q_min=20):
+    """Seeded splice extensions (q, t, flag, junc, zdrop): a read end
+    that runs from an exon across 1-2 introns (GT..AG, or GA..TG under
+    KSW_EZ_REV_CIGAR) into the next exon, against the target from the
+    anchor on, which goes on past the read's last base.  Extension k
+    takes splice variant k % 8, KSW_EZ_EXTZ_ONLY unless k % 3 == 2, a
+    Z-drop from SPLICE_EXT_ZDROP and kind (k // 8) % 6: spliced; with N
+    bases; an unrelated query; a query whose tail is unrelated (a Z-drop
+    hit at the tight Z-drops); indel-rich; one exon, no intron.  Odd
+    extensions carry random BED junction bytes."""
+    import numpy as np
+    out = []
+    for k in range(n):
+        flag = SPLICE_VARIANTS[k % len(SPLICE_VARIANTS)] | (
+            0x40 if k % 3 != 2 else 0)
+        kind = (k // len(SPLICE_VARIANTS)) % 6
+        rc = bool(flag & 0x80)
+        exons = [rng.integers(0, 4, int(rng.integers(q_min, 300)))
+                 .astype(np.uint8)
+                 for _ in range(1 if kind == 5 else int(rng.integers(2, 4)))]
+        parts = []
+        for i, ex in enumerate(exons):
+            parts.append(ex)
+            if i + 1 < len(exons):
+                ln = int(np.exp(rng.uniform(np.log(min_intron),
+                                            np.log(max_intron))))
+                intr = rng.integers(0, 4, max(ln, 4)).astype(np.uint8)
+                intr[:2] = (2, 0) if rc else (2, 3)
+                intr[-2:] = (3, 2) if rc else (0, 2)
+                parts.append(intr)
+        parts.append(rng.integers(0, 4, int(rng.integers(1, 300)))
+                     .astype(np.uint8))       # the target past the read
+        t = np.concatenate(parts)
+        q = np.concatenate(exons)
+        # the read ends inside its last exon
+        q = q[:max(1, q.shape[0] - int(rng.integers(0, exons[-1].shape[0])))]
+        if kind == 2:
+            q = rng.integers(0, 4, q.shape[0]).astype(np.uint8)
+        else:
+            q = _mutate_splice(rng, q, 0.03 if kind == 4 else 0.05,
+                               0.08 if kind == 4 else 0.01)
+        if kind == 3:
+            h = min(exons[0].shape[0] // 2, q.shape[0])
+            q[h:] = rng.integers(0, 4, q.shape[0] - h)
+        if kind == 1:
+            q[rng.random(q.shape[0]) < 0.03] = 4
+            t[rng.random(t.shape[0]) < 0.03] = 4
+        junc = (rng.integers(0, 16, t.shape[0]).astype(np.uint8) if k % 2
+                else None)
+        out.append((q, t, flag, junc,
+                    SPLICE_EXT_ZDROP[(k // 3) % len(SPLICE_EXT_ZDROP)]))
+    return out
+
+
+def _pack_splice_ext(exts):
+    """(meta, qblob, tblob, jblob, flags, zdrop) of (q, t, flag, junc,
+    zdrop) extensions."""
+    import numpy as np
+    return (*_pack_splice([e[:4] for e in exts]),
+            np.array([e[4] for e in exts], np.int64))
+
+
+def splice_ext_workloads(n_pairs=24, max_intron=1000, long_intron=1000,
+                         scratch=True):
+    """(name, meta, qblob, tblob, jblob, flags, zdrop, params) of the
+    splice extension checks: splice_ext_pairs under the splice and
+    splice:hq presets; a junction bonus of 130, which wraps int8; targets
+    past long_intron (tlen to a few kb); with `scratch`, a 1 kb read end
+    across an intron (its state ring past the shared-memory cap, in global
+    scratch); a matrix that fails the mat gate."""
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    from mm2_gb_tpu_torch.utils import opts as O
+    rng = np.random.default_rng(4242)
+    _io, mo = O.set_preset("splice")
+    prm = KS.splice_params(mo)
+    yield ("splice", *_pack_splice_ext(splice_ext_pairs(rng, n_pairs,
+                                                        max_intron)), prm)
+    _io, hq = O.set_preset("splice:hq")
+    yield ("splice:hq", *_pack_splice_ext(splice_ext_pairs(
+        rng, n_pairs, max_intron // 2)), KS.splice_params(hq))
+    mat = ksw2.gen_simple_mat(5, mo.a, mo.b, mo.sc_ambi)
+    yield ("junc_wrap", *_pack_splice_ext(splice_ext_pairs(
+        rng, n_pairs // 2, max_intron // 2)),
+        KS.splice_params_from(mat, 2, 1, 32, 9, 130))
+    exts = splice_ext_pairs(rng, 8, long_intron, long_intron // 2)
+    if scratch:
+        ex = rng.integers(0, 4, (2, 520)).astype(np.uint8)
+        intron = rng.integers(0, 4, 300).astype(np.uint8)
+        intron[:2], intron[-2:] = (2, 3), (0, 2)
+        t = np.concatenate([ex[0], intron, ex[1], ex[0][:100]])
+        exts.append((_mutate_splice(rng, ex.reshape(-1), 0.05, 0.01),
+                     t, 0x40 | 0x100, None, 200))
+    yield "long", *_pack_splice_ext(exts), prm
+    yield ("mat_gate", *_pack_splice_ext(splice_ext_pairs(rng, 8, 300)),
+           KS.splice_params_from(ksw2.gen_simple_mat(5, 1, 40, 1), 2, 1, 32,
+                                 9, 9))
+
+
+def splice_ext_oracle(meta, qblob, tblob, jblob, flags, zdrop, prm,
+                      exts2=None):
+    """exts2 (the port's ksw2_splice.exts2 unless given) of every
+    extension: (fields [n, 10], cig_off, cig_blob)."""
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2_splice
+    exts2 = exts2 or ksw2_splice.exts2
+    n = meta.shape[0]
+    qo, to, jo = (np.concatenate([[0], np.cumsum(meta[:, c])])
+                  for c in range(3))
+    fields, cigs = np.zeros((n, len(K.EXT_FIELDS)), np.int32), []
+    for k in range(n):
+        ez = exts2(
+            qblob[qo[k]:qo[k + 1]], tblob[to[k]:to[k + 1]], prm.mat, prm.q,
+            prm.e, prm.q2, prm.noncan, int(zdrop[k]), prm.junc_bonus,
+            int(flags[k]), jblob[jo[k]:jo[k + 1]] if meta[k, 2] else None)
+        fields[k] = [int(getattr(ez, f)) for f in K.EXT_FIELDS]
+        cigs.append(ez.cigar)
+    off = np.concatenate([[0], np.cumsum([c.shape[0] for c in cigs])])
+    return fields, off, (np.concatenate(cigs).astype(np.uint32) if cigs
+                         else np.empty(0, np.uint32))
+
+
+@contextlib.contextmanager
+def recording_splice_ext():
+    """Record every exts2_ext call made by exts2_ext_batch inside and the
+    backtrack from its starts (the wrappers still count their launches):
+    a list of [ext args, ext, fingerprint of p, backtrack args without p,
+    cig, n_cig]."""
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    calls, ext, bt = [], KS.exts2_ext, KS.ksw2_backtrack
+
+    def rec_ext(*a, **kw):
+        e, p = ext(*a, **kw)
+        calls.append([a, e, _fingerprint(p)])
+        return e, p
+
+    def rec_bt(*a, **kw):
+        cig, nc = bt(*a, **kw)
+        calls[-1] += [a[1:], cig, nc]
+        return cig, nc
+    KS.exts2_ext, KS.ksw2_backtrack = rec_ext, rec_bt
+    try:
+        yield calls
+    finally:
+        KS.exts2_ext, KS.ksw2_backtrack = ext, bt
+
+
+def hold_splice_ext_calls(calls, label, verbose=True, max_rows=None):
+    """Recorded exts2_ext + backtrack launches of one option set against
+    the twins: one run of each twin over the extensions of all launches
+    (the twins take per-fill flags and Z-drops), then each launch re-run
+    on its recorded operands: its p must match the recorded fingerprint
+    and its slice of the twin's p, its ext rows the recorded and the
+    twin's, and both backtracks from its starts the recorded words.  With
+    max_rows, launches whose longest extension has more rows are re-run
+    and held against their recorded results alone.  Returns (max_abs_err,
+    ext ms and backtrack ms summed over the launches, the twins' ms: ext
+    ms, ext twin ms, backtrack ms, backtrack twin ms)."""
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    if not calls:
+        return 0, 0.0, 0.0, 0.0, 0.0
+    held = [i for i, c in enumerate(calls)
+            if max_rows is None or int((c[0][6] + c[0][7]).max()) <= max_rows]
+    twin, fpl, bpl = {}, 0.0, 0.0
+    if held:
+        fa_all, ba_all, bases = _merge_splice_calls([calls[i] for i in held],
+                                                    ext=True)
+        (e_t, p_t), fpl = _timed(KS.exts2_ext_torch, *fa_all)
+        (cg_t, nc_t), bpl = _timed(
+            lambda *a: K.ksw2_backtrack_torch(*a, starts=e_t[:, 10:]), p_t,
+            *ba_all)
+        for i, (f0, p0, c0) in zip(held, bases):
+            fa, cig = calls[i][0], calls[i][4]
+            n = fa[6].shape[0]
+            twin[i] = (e_t[f0:f0 + n], p_t[p0:p0 + fa[11]],
+                       cg_t[c0:c0 + cig.shape[0]], nc_t[f0:f0 + n])
+    err, fms, bms = 0, 0.0, 0.0
+    for i, (fa, ek0, fp, ba, cig, nc) in enumerate(calls):
+        n = fa[6].shape[0]
+        (ek, pk), tk = _timed_launch(KS.exts2_ext, *fa)
+        e = max(_max_err(ek, ek0), 0 if _fingerprint(pk) == fp else 2**31)
+        (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba,
+                                       starts=ek[:, 10:])
+        e = max(e, _max_err(cgk, cig), _max_err(nck, nc))
+        if i in twin:
+            e_t, p_t, cg_t, nc_t = twin[i]
+            e = max(e, _max_err(e_t, ek0), _max_err(p_t, pk),
+                    _max_err(cg_t, cig), _max_err(nc_t, nc))
+        del pk
+        if verbose:
+            log(f"{label} launch {i}: {n} extensions, "
+                f"{int((fa[6].long() * fa[7].long()).sum())} cells; ext "
+                f"{tk:.3f} ms, backtrack {tb:.3f} ms; max_abs_err {e}")
+        err = max(err, e)
+        fms, bms = fms + tk, bms + tb
+    if verbose:
+        log(f"{label}: {len(calls)} launches, "
+            f"{sum(calls[i][0][6].shape[0] for i in held)} extensions through "
+            f"the twins (one run) ext {fpl:.3f} ms, backtrack {bpl:.3f} ms")
+    return err, fms, fpl, bms, bpl
+
+
+def phase2_splice_ext():
+    """The exts2 kernel's extension mode and the intron backtrack from its
+    starts against their twins and ksw2_splice.exts2 (the native kit
+    here) on the splice extension workloads; exact.  The launches of one
+    option set go through one twin run."""
+    import torch
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    dev = torch.device("cuda")
+    groups = {}
+    for name, meta, qb, tb, jb, fl, zd, prm in splice_ext_workloads():
+        st = KS.FillStats()
+        with recording_splice_ext() as calls:
+            got = KS.exts2_ext_batch(meta, qb, tb, jb, fl, zd, prm, dev, st)
+        e_or = ext_result_err(got, splice_ext_oracle(meta, qb, tb, jb, fl,
+                                                     zd, prm))
+        log(f"splice ext {name}: {st.ext_fills} extensions "
+            f"({st.ext_host_fills} host-routed, {st.scratch_fills} with the "
+            f"ring in global scratch), {int(got[0][:, 8].sum())} Z-dropped, "
+            f"longest tlen {int(meta[:, 1].max())}, {len(calls)} launches; "
+            f"batch==ksw2_splice.exts2 max_abs_err={e_or}")
+        if e_or:
+            fail(f"splice ext workload {name} disagrees with the oracle")
+        if name == "mat_gate" and st.ext_host_fills != st.ext_fills:
+            fail("the mat gate did not route every splice extension to the "
+                 "host")
+        if name != "mat_gate" and st.ext_host_fills:
+            fail(f"splice ext workload {name}: extensions on the host")
+        if name == "long" and not st.scratch_fills:
+            fail("no splice extension took the global-scratch ring")
+        if name == "splice" and not got[0][:, 8].any():
+            fail("no splice extension hit its Z-drop")
+        groups.setdefault(_params_key(prm), []).extend(calls)
+    out = [0, 0.0, 0.0, 0.0, 0.0]
+    for calls in groups.values():
+        r = hold_splice_ext_calls(calls, "splice ext workloads",
+                                  verbose=False, max_rows=TWIN_ROWS)
+        out = [max(out[0], r[0])] + [a + b for a, b in zip(out[1:], r[1:])]
+    log(f"splice ext workloads: kernel==twin max_abs_err={out[0]}; ext "
+        f"{out[1]:.3f} ms (twin {out[2]:.3f} ms), backtrack {out[3]:.3f} ms "
+        f"(twin {out[4]:.3f} ms)")
+    if out[0]:
+        fail("a splice ext workload launch differs from the twins")
+    return out[0]
 
 
 def _cli(main, argv):
@@ -1052,7 +1373,8 @@ def _cli(main, argv):
 
 
 def _host(args, what):
-    """Run the JAX package's host side in a subprocess: stdout."""
+    """Run Python with args in a subprocess (the JAX package's host path,
+    or a module of the port): stdout."""
     p = subprocess.run([sys.executable, *args], cwd=REPO, text=True,
                        capture_output=True, timeout=600)
     if p.returncode != 0:
@@ -1072,7 +1394,8 @@ def phase3():
     """End to end; returns the chain-only flowcell run's launches and the
     chain kernel calls it made, as (args, kwargs, f, p), then the
     --gpu-align flowcell run's fill and backtrack launches and its
-    recorded fill calls."""
+    recorded fill calls, and the two runs' outputs (equal to the host
+    path's) and walls."""
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
@@ -1162,7 +1485,8 @@ def phase3():
         f"to host path {same}")
     if not same or min(align_launches) == 0:
         fail("flowcell --gpu-align run")
-    return launches, calls, align_launches, fcalls
+    return (launches, calls, align_launches, fcalls,
+            {"chain": (host_out, gpu_wall), "align": (host_c, wall)})
 
 
 def cdna_set(n_reads=N_CDNA, genome_len=10_000_000, max_intron=20_000,
@@ -1229,7 +1553,8 @@ def phase3_splice():
     identical to the host path (`python -m mm2_gb_tpu`, a subprocess; all
     but the @PG line, which holds each side's command), with exts2 and
     intron backtrack launches > 0 and no fill on the host.  Returns the
-    cDNA run's (fill, backtrack) launches and its recorded splice calls."""
+    cDNA run's (fill, backtrack) launches, its recorded splice calls and
+    the splice extensions its align driver ran on the host."""
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
@@ -1263,7 +1588,7 @@ def phase3_splice():
                       str(THREADS), ref, reads], "host path on the cDNA set")
     log(f"cDNA host path -ax splice (-t {THREADS}, subprocess): "
         f"{time.perf_counter() - t0:.3f} s, {host_sam.count(chr(10))} lines")
-    with recording_splice() as calls:
+    with recording_splice() as calls, recording_splice_exts() as exts:
         G.launches = KS.fill_launches = K.backtrack_launches = 0
         rc, out, err, wall = _cli(cli.main, [
             "--gpu-chain", "--gpu-align", SKIP_INF, "-ax", "splice", "-t",
@@ -1281,7 +1606,233 @@ def phase3_splice():
         f"path but @PG {same}")
     if not same or min(launches) == 0 or int(m.group(3)) != 0:
         fail("cDNA --gpu-align -ax splice run")
-    return launches, calls
+    return launches, calls, exts
+
+
+@contextlib.contextmanager
+def recording_splice_exts():
+    """Record every call of the port's ksw2_splice.exts2 without
+    KSW_EZ_APPROX_MAX made inside (the Python align driver's splice
+    extensions, which it runs on the host with the native kit): a list of
+    (q, t, flag, junc, zdrop, options, Extz)."""
+    from mm2_gb_tpu_torch.ops import ksw2_splice
+    calls, exts2 = [], ksw2_splice.exts2
+
+    def rec(qseq, tseq, mat, q, e, q2, noncan, zdrop, junc_bonus, flag,
+            junc=None, m=5):
+        ez = exts2(qseq, tseq, mat, q, e, q2, noncan, zdrop, junc_bonus,
+                   flag, junc, m)
+        if not flag & 0x08:
+            calls.append((qseq.copy(), tseq.copy(), flag,
+                          None if junc is None else junc.copy(), zdrop,
+                          (bytes(mat), q, e, q2, noncan, junc_bonus), ez))
+        return ez
+    ksw2_splice.exts2 = rec
+    try:
+        yield calls
+    finally:
+        ksw2_splice.exts2 = exts2
+
+
+def phase3_splice_ext(exts):
+    """The cDNA run's splice extensions (recorded by phase3_splice) in one
+    exts2_ext_batch on the card: every Extz field and the CIGAR equal the
+    native exts2's results the align driver got; then every launch
+    against the twins (one run over all of them).  Fails on fewer than
+    100 extensions.  Returns (max_abs_err, (ext, backtrack) launches, the
+    recorded launches, ext ms, twin ms, backtrack ms, twin ms)."""
+    import numpy as np
+    import torch
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    from mm2_gb_tpu_torch.utils import opts as O
+    prm = KS.splice_params(O.set_preset("splice")[1])
+    if len(exts) < 100:
+        fail(f"only {len(exts)} splice extensions recorded from the cDNA run")
+    if {c[5] for c in exts} != {(prm.mat.tobytes(), prm.q, prm.e, prm.q2,
+                                 prm.noncan, prm.junc_bonus)}:
+        fail("the cDNA run's splice extensions ran under other options")
+    meta, qb, tb, jb, fl, zd = _pack_splice_ext([c[:5] for c in exts])
+    want_f = np.array([[int(getattr(c[6], f)) for f in K.EXT_FIELDS]
+                       for c in exts], np.int32)
+    cigs = [c[6].cigar for c in exts]
+    want = (want_f, np.concatenate([[0], np.cumsum([len(c) for c in cigs])]),
+            np.concatenate(cigs).astype(np.uint32))
+    st = KS.FillStats()
+    with recording_splice_ext() as calls:
+        KS.ext_launches = K.start_backtrack_launches = 0
+        t0 = time.perf_counter()
+        got = KS.exts2_ext_batch(meta, qb, tb, jb, fl, zd, prm,
+                                 torch.device("cuda"), st)
+        wall = time.perf_counter() - t0
+        launches = (KS.ext_launches, K.start_backtrack_launches)
+    e_or = ext_result_err(got, want)
+    log(f"cDNA splice extensions: {meta.shape[0]} ({st.ext_host_fills} "
+        f"host-routed), {int((meta[:, 0] * meta[:, 1]).sum())} cells, "
+        f"longest qlen {int(meta[:, 0].max())} tlen {int(meta[:, 1].max())}, "
+        f"flags {sorted({int(f) for f in fl})}, "
+        f"{int(got[0][:, 8].sum())} Z-dropped; one exts2_ext_batch "
+        f"{wall:.3f} s, {launches[0]} ext launches, {launches[1]} backtrack "
+        f"launches; ==native exts2 max_abs_err={e_or}")
+    if e_or or st.ext_host_fills or min(launches) == 0:
+        fail("the cDNA run's splice extensions on the card")
+    r = hold_splice_ext_calls(calls, "cDNA splice ext")
+    if r[0]:
+        fail("a cDNA splice extension launch differs from the twins")
+    return max(e_or, r[0]), launches, calls, *r[1:]
+
+
+def splice_ext_bound(calls):
+    """Bound of exts2_ext launches [(args, ext, ...)]: each base and
+    junction byte read once, one direction byte per cell of the rows the
+    kernel ran (to the row of the maximum where a fill Z-dropped, a lower
+    bound of its drop row) written once, 48 bytes of results per fill;
+    OPS_PER["splice_ext"] operations per cell."""
+    import numpy as np
+    nbytes = ops = 0
+    for c in calls:
+        ql, tl = c[0][6].cpu().numpy(), c[0][7].cpu().numpy()
+        ext = c[1].cpu().numpy()
+        rows = np.where(ext[:, 8] > 0, ext[:, 2] + ext[:, 3] + 1, ql + tl - 1)
+        cells = 0
+        for q, t, n in zip(ql.tolist(), tl.tolist(), rows.tolist()):
+            r = np.arange(n)
+            cells += int((np.minimum(t - 1, r) - np.maximum(0, r - q + 1)
+                          + 1).sum())
+        nbytes += int(ql.sum()) + 2 * int(tl.sum()) + cells + 48 * ql.shape[0]
+        ops += cells * OPS_PER["splice_ext"]
+    return _bound(nbytes, ops)
+
+
+def _two_ranks(flags, ref, reads, name):
+    """Two concurrent `--tpu-nproc 2` rank subprocesses of the port into
+    WORK/name, then its mergeshards: (merged output, wall of both)."""
+    pre = os.path.join(WORK, name)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, *PORT, *flags, "--tpu-nproc", "2", "--tpu-rank",
+         str(r), "-o", pre, ref, reads], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        sys.stderr.write("".join(e[-2000:] for e in errs))
+        fail(f"a rank of the {name} run")
+    merged = _host(["-m", "mm2_gb_tpu_torch.tools.mergeshards", pre, "2"],
+                   f"mergeshards of the {name} ranks")
+    return merged, time.perf_counter() - t0
+
+
+def phase3_scale(single):
+    """The scale-out paths on the card, on the N_READS-read flowcell draw
+    (single: phase3's {"chain": (output, wall), "align": ...}, each equal
+    to the host path's):
+    - several devices: `--gpu-chain --tpu-devices 2` (and with
+      `--gpu-align -c`) with the devices [cuda:0, cuda:0] (this machine
+      has one card): byte-identical, chain launches on two streams;
+    - ranks: two concurrent `--tpu-nproc 2 --tpu-rank r -o PRE`
+      subprocesses of the port, then its mergeshards: byte-identical to a
+      single-process subprocess (PAF), and at -a to the single-process SAM
+      but @PG, with the header once;
+    - per-part device mapping: the sim200 -I 120k --split-prefix golden
+      (with and without --gpu-align) and the multi3 -I 20k goldens (with
+      and without --split-prefix), chain launches > 0;
+    - --tpu-profile: a trace file that names the chain kernel."""
+    import torch
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    ref, reads = flowcell()
+    chain_segments, run_devices = G.chain_segments, cli.run_devices
+    for name, flags in (("chain", []), ("align", ["--gpu-align", "-c"])):
+        streams = set()
+
+        def on_stream(*a, **kw):
+            streams.add(torch.cuda.current_stream().cuda_stream)
+            return chain_segments(*a, **kw)
+        G.chain_segments = on_stream
+        cli.run_devices = lambda n, d: [torch.device("cuda", 0)] * 2
+        try:
+            G.launches = K.fill_launches = 0
+            rc, out, err, wall = _cli(cli.main, [
+                "--gpu-chain", SKIP_INF, "--tpu-devices", "2", *flags, "-t",
+                str(THREADS), "-v", "3", ref, reads])
+        finally:
+            G.chain_segments, cli.run_devices = chain_segments, run_devices
+        same = out == single[name][0]
+        log(f"flowcell --tpu-devices 2 on [cuda:0, cuda:0] {' '.join(flags)} "
+            f"(-t {THREADS}, in process): {wall:.3f} s (one device "
+            f"{single[name][1]:.3f} s), chain launches {G.launches} on "
+            f"{len(streams)} streams, fill launches {K.fill_launches}, "
+            f"byte-identical to one device {same}")
+        if (rc != 0 or not same or len(streams) < 2
+                or "devices: 2 (cuda:0, cuda:0)" not in err):
+            sys.stderr.write(err[-3000:])
+            fail(f"flowcell multi-device run {name}")
+
+    t0 = time.perf_counter()
+    single_p = _host([*PORT, ref, reads], "single-process port run")
+    w1 = time.perf_counter() - t0
+    if single_p != single["chain"][0]:
+        fail("the single-process subprocess differs from the in-process run")
+    rc_, sam, err, sam_wall = _cli(cli.main, ["--gpu-chain", SKIP_INF, "-a",
+                                              "-t", str(THREADS), ref, reads])
+    if rc_ != 0:
+        fail("the single-process -a run")
+    for name, flags, want in (("PAF", [], single_p), ("SAM", ["-a"], sam)):
+        merged, w2 = _two_ranks(flags, ref, reads, f"ranks_{name}")
+        same = (merged == want if name == "PAF" else
+                _no_pg(merged) == _no_pg(want)
+                and merged.count("\n@PG\t") == 1 and merged.startswith("@"))
+        log(f"flowcell two ranks {name} (-t {THREADS} each, concurrent "
+            f"subprocesses): {w2:.3f} s (single process "
+            f"{w1 if name == 'PAF' else sam_wall:.3f} s, "
+            f"{'subprocess' if name == 'PAF' else 'in process'}), merged "
+            f"byte-identical to the single process {same}")
+        if not same:
+            fail(f"the merged {name} ranks differ from the single process")
+
+    gold = os.path.join(REPO, "tests", "golden")
+    for flags, ref_, query, golden in (
+            (["-c", "-I", "120k", "--split-prefix", "SP"], "simref.fa.gz",
+             "simreads.fa.gz", "sim200.split120k.c.paf.gz"),
+            (["--gpu-align", "-c", "-I", "120k", "--split-prefix", "SP"],
+             "simref.fa.gz", "simreads.fa.gz", "sim200.split120k.c.paf.gz"),
+            (["-c", "-I", "20k"], "multi3.fa.gz", "multi3_q.fa.gz",
+             "multi3.noI.c.paf.gz"),
+            (["-c", "-I", "20k", "--split-prefix", "SP"], "multi3.fa.gz",
+             "multi3_q.fa.gz", "multi3.split.c.paf.gz")):
+        flags = [os.path.join(WORK, "sp") if f == "SP" else f for f in flags]
+        G.launches = K.fill_launches = 0
+        rc, out, err, wall = _cli(cli.main, [
+            "--gpu-chain", SKIP_INF, *flags, os.path.join(gold, ref_),
+            os.path.join(gold, query)])
+        with gzip.open(os.path.join(gold, golden), "rt") as f:
+            same = out == f.read()
+        log(f"per-part {golden} {' '.join(flags)}: rc {rc}, {wall:.2f} s, chain launches {G.launches}, fill "
+            f"launches {K.fill_launches}, byte-identical {same}")
+        if (rc != 0 or not same or G.launches == 0 or "falling back" in err
+                or "--gpu-align" in flags and K.fill_launches == 0):
+            sys.stderr.write(err[-3000:])
+            fail(f"per-part device mapping {golden}")
+
+    prof = os.path.join(WORK, "profile")
+    rc, out, err, wall = _cli(cli.main, [
+        "--gpu-chain", SKIP_INF, "--tpu-profile", prof,
+        os.path.join(gold, "simref.fa.gz"),
+        os.path.join(gold, "simreads.fa.gz")])
+    trace = os.path.join(prof, "trace.json")
+    named = (os.path.exists(trace)
+             and "chain_segments_kernel" in open(trace).read())
+    log(f"sim200 --tpu-profile: rc {rc}, {wall:.2f} s, trace "
+        f"{os.path.getsize(trace) if os.path.exists(trace) else 0} bytes, "
+        f"names the chain kernel {named}")
+    with gzip.open(os.path.join(gold, "sim200.skipinf.paf.gz"), "rt") as f:
+        if rc != 0 or not named or out != f.read():
+            fail("--tpu-profile")
 
 
 def _fills_line(err, what):
@@ -1347,11 +1898,11 @@ def phase3_qstrand():
     if rc != 0 or not same or K.ext_launches == 0:
         fail("the no-native-kit route")
 
-    ref, reads = flowcell(N_QSTRAND)
+    ref, reads = flowcell(N_QSTRAND_CHECK)
     t0 = time.perf_counter()
     host_q = _host(["-m", "mm2_gb_tpu", SKIP_INF, "--qstrand", "-c", "-t",
                     str(THREADS), ref, reads], "host path --qstrand -c")
-    log(f"flowcell ({N_QSTRAND} reads) host path --qstrand -c (-t "
+    log(f"flowcell ({N_QSTRAND_CHECK} reads) host path --qstrand -c (-t "
         f"{THREADS}, subprocess): {time.perf_counter() - t0:.3f} s, "
         f"{host_q.count(chr(10))} lines")
     with recording_ext() as calls:
@@ -1379,8 +1930,11 @@ def phase3_qstrand():
 
 
 def phase4(calls):
-    """Each main-path kernel call against the twin on its own inputs;
-    (max_abs_err, kernel ms, twin ms) summed over the calls."""
+    """Each main-path kernel call re-run on its own inputs and held
+    against its recorded (f, p); the first and the last also against the
+    twin (a twin run costs ~20 s, the longest segment's ~10,000 steps).
+    (max_abs_err, kernel ms summed over the calls, twin ms summed over
+    the twin runs)."""
     import torch
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     torch.cuda.synchronize()
@@ -1393,22 +1947,30 @@ def phase4(calls):
         torch.cuda.synchronize()
         return out, t0.elapsed_time(t1)
 
+    twin = {0, len(calls) - 1}
     err, ms, plain_ms = 0, 0.0, 0.0
     for i, (args, kw, f, p) in enumerate(calls):
-        (ft, pt), t_plain = timed(G.chain_segments_torch, args, kw)
-        e = max(_max_err(f, ft), _max_err(p, pt))
-        t_kern = sorted(timed(G.chain_segments, args, kw)[1]
-                        for _ in range(KERNEL_REPS))[KERNEL_REPS // 2]
+        runs = [timed(G.chain_segments, args, kw) for _ in range(KERNEL_REPS)]
+        t_kern = sorted(t for _out, t in runs)[KERNEL_REPS // 2]
+        e = max(max(_max_err(fk, f), _max_err(pk, p))
+                for (fk, pk), _t in runs)
+        msg = ""
+        if i in twin:
+            (ft, pt), t_plain = timed(G.chain_segments_torch, args, kw)
+            e = max(e, _max_err(f, ft), _max_err(p, pt))
+            plain_ms += t_plain
+            msg = f", twin {t_plain:.3f} ms"
         pairs = int(args[2].sum(dtype=torch.int64))
         lens = args[4] - args[3]
         log(f"main-path launch {i}: {args[0].shape[0]} anchors, "
             f"{lens.shape[0]} work segments (longest "
             f"{int(lens.max()) if lens.numel() else 0}), {pairs} pairs; "
-            f"kernel {t_kern:.3f} ms (median of {KERNEL_REPS}), twin "
-            f"{t_plain:.3f} ms; max_abs_err {e}")
+            f"kernel {t_kern:.3f} ms (median of {KERNEL_REPS}){msg}; "
+            f"max_abs_err {e}")
         if e:
-            fail(f"main-path launch {i}: kernel differs from the twin")
-        err, ms, plain_ms = max(err, e), ms + t_kern, plain_ms + t_plain
+            fail(f"main-path launch {i}: kernel differs from the twin or its "
+                 "recorded result")
+        err, ms = max(err, e), ms + t_kern
     return err, ms, plain_ms
 
 
@@ -1420,9 +1982,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 # scalar operations per unit of work, counted from the kernels' inner
 # loops: a chain pair (pair_total and the reduction), a DP cell of the
-# fill, the extension (plus the H row and its key) and the splice fill
-# (plus the site scores), a backtrack step
-OPS_PER = {"chain": 40, "fill": 50, "ext": 56, "splice": 56, "step": 20}
+# fill, the extension (plus the H row and its key), the splice fill
+# (plus the site scores) and the splice extension (plus the H row and
+# its key), a backtrack step
+OPS_PER = {"chain": 40, "fill": 50, "ext": 56, "splice": 56,
+           "splice_ext": 62, "step": 20}
 
 
 def _bound(nbytes, ops):
@@ -1547,6 +2111,61 @@ def walls():
         fail("the --qstrand walls' outputs differ")
 
 
+def scale_walls():
+    """`python3 chip_smoke.py --scale-walls`: the scale-out walls on the
+    N_READS-read flowcell draw, each pair in turns A, B, B, A after one
+    untimed in-process run (the process's first mapping run pays one-time
+    costs), every output byte-compared:
+    - in process, `--gpu-chain` and `--gpu-chain --gpu-align -c` on one
+      device against `--tpu-devices 2` over [cuda:0, cuda:0];
+    - one `--gpu-chain` subprocess against two concurrent `--tpu-nproc 2`
+      rank subprocesses and the port's mergeshards (each subprocess pays
+      its interpreter start, imports, CUDA start and index build)."""
+    import torch
+    from mm2_gb_tpu_torch import cli
+    phase1()
+    require_host_kit()
+    ref, reads = flowcell()
+    base = ["--gpu-chain", SKIP_INF, "-t", str(THREADS), ref, reads]
+    if _cli(cli.main, base)[0] != 0:
+        fail("the untimed first run")
+    run_devices = cli.run_devices
+    for flags in ([], ["--gpu-align", "-c"]):
+        outs = []
+        for n_dev in (1, 2, 2, 1):
+            cli.run_devices = lambda n, d: [torch.device("cuda", 0)] * 2
+            try:
+                rc, out, err, wall = _cli(cli.main, [
+                    "--tpu-devices", str(n_dev), *flags, *base])
+            finally:
+                cli.run_devices = run_devices
+            if rc != 0:
+                sys.stderr.write(err[-3000:])
+                fail(f"the {n_dev}-device run")
+            outs.append(out)
+            log(f"flowcell --gpu-chain {' '.join(flags)} on {n_dev} "
+                f"device{'s' if n_dev > 1 else ''} (-t {THREADS}, in "
+                f"process): wall {wall:.3f} s")
+        if any(o != outs[0] for o in outs):
+            fail("the device walls' outputs differ")
+    outs = []
+    for mode in ("one process", "two ranks", "two ranks", "one process"):
+        t0 = time.perf_counter()
+        if mode == "one process":
+            out = _host([*PORT, ref, reads], "the single-process run")
+            wall = time.perf_counter() - t0
+        else:
+            out, wall = _two_ranks([], ref, reads, "walls_ranks")
+        outs.append(out)
+        log(f"flowcell --gpu-chain, {mode} (-t {THREADS} each, "
+            f"subprocesses): wall {wall:.3f} s")
+    same = all(o == outs[0] for o in outs)
+    log(f"{N_READS}-read flowcell: every scale-out wall's output "
+        f"byte-identical {same}")
+    if not same:
+        fail("the rank walls' outputs differ")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "mm2_gb_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1565,26 +2184,42 @@ def main() -> int:
     if sys.argv[1:] == ["--walls"]:
         walls()
         return 0
-    phase1()
-    err = phase2()
-    fill_err = phase2_fills()
-    splice_err, splice_later = phase2_splice()
-    ext_err = phase2_ext()
+    if sys.argv[1:] == ["--scale-walls"]:
+        scale_walls()
+        return 0
+    t_start = time.perf_counter()
+
+    def timed(fn, *args, **kw):   # each phase's wall, for the time limit
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s (smoke "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        return out
+    timed(phase1)
+    err = timed(phase2)
+    fill_err = timed(phase2_fills)
+    splice_err, splice_later = timed(phase2_splice)
+    ext_err = timed(phase2_ext)
+    sext_err = timed(phase2_splice_ext)
     require_host_kit()
-    launches, calls, (n_fill, n_bt), fcalls = phase3()
-    (n_sfill, n_sbt), scalls = phase3_splice()
-    (n_ext, n_ebt), ecalls = phase3_qstrand()
-    e, ms, plain_ms = phase4(calls)
-    fe, fms, fpl, bms, bpl = hold_fill_calls(fcalls, "main-path fill")
+    launches, calls, (n_fill, n_bt), fcalls, single = timed(phase3)
+    (n_sfill, n_sbt), scalls, sexts = timed(phase3_splice)
+    ce, (n_sx, n_sxb), ccalls, cms, cpl, cbms, cbpl = timed(
+        phase3_splice_ext, sexts)
+    (n_ext, n_ebt), ecalls = timed(phase3_qstrand)
+    timed(phase3_scale, single)
+    e, ms, plain_ms = timed(phase4, calls)
+    fe, fms, fpl, bms, bpl = timed(hold_fill_calls, fcalls, "main-path fill")
     if fe:
         fail("a main-path fill or backtrack launch differs from its twin")
     if _params_key(scalls[0][0][-1]) != _params_key(splice_later[0][0][-1]):
         fail("the cDNA run's options differ from the splice preset's")
-    se, sfms, sfpl, sbms, sbpl = hold_splice_calls(
-        scalls, "main-path splice", extra=splice_later)
+    se, sfms, sfpl, sbms, sbpl = timed(
+        hold_splice_calls, scalls, "main-path splice", extra=splice_later,
+        max_rows=SPLICE_TWIN_ROWS)
     if se:
         fail("a main-path or splice workload launch differs from its twins")
-    xe, xms, xpl, xbms, xbpl = hold_ext_calls(ecalls, "main-path ext")
+    xe, xms, xpl, xbms, xbpl = timed(hold_ext_calls, ecalls, "main-path ext")
     if xe:
         fail("a main-path extension launch differs from its twins")
     if "jax" in sys.modules:
@@ -1623,7 +2258,14 @@ def main() -> int:
                   [c[0][4:7] for c in ecalls], OPS_PER["ext"], 48)),
         entry("ksw2_backtrack_ext", src, "mm2_gb_tpu/ops/ksw2_tpu.py:1552",
               n_ebt, max(ext_err, xe), xbms, xbpl,
-              walk_bound([c[4:6] for c in ecalls]))]}), flush=True)
+              walk_bound([c[4:6] for c in ecalls])),
+        entry("exts2_ext", "mm2_gb_tpu_torch/csrc/exts2_kernel.cu",
+              "mm2_gb_tpu/ops/ksw2_tpu.py:1133", n_sx, max(sext_err, ce),
+              cms, cpl, splice_ext_bound(ccalls)),
+        entry("ksw2_backtrack_splice_ext", src,
+              "mm2_gb_tpu/ops/ksw2_tpu.py:1552", n_sxb, max(sext_err, ce),
+              cbms, cbpl, walk_bound([c[4:6] for c in ccalls]))]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -52,7 +52,8 @@
 //   - the row maximum ranks lanes as row_max (ksw2kit.cpp:94-110) does:
 //     en0 first, then the 4-lane blocks by ((t-st0)%4, (t-st0)/4), then
 //     the tail lanes by position.  Each thread packs (H, inverted rank)
-//     into one 64-bit key, a warp shuffle reduces the keys, and each
+//     into one 64-bit key (ksw2_row_max.cuh), a warp shuffle reduces the
+//     keys, and each
 //     warp's best goes to a parity slot; after the barrier every thread
 //     reduces those slots and so holds the same max, H[st0], H[en0] and
 //     Z-drop decision, and a drop ends the row loop for the whole block;
@@ -87,6 +88,8 @@
 
 namespace {
 
+#include "ksw2_row_max.cuh"
+
 constexpr int kNegInf = -0x40000000;
 constexpr int kMaxWarps = 8;   // blocks of at most 256 threads
 
@@ -110,30 +113,6 @@ __device__ __forceinline__ int row_width(int r, int qlen, int tlen, int w) {
   int st0, en0;
   row_window(r, qlen, tlen, w, st0, en0);
   return (en0 | 15) - (st0 & ~15) + 1;
-}
-
-// the row-maximum key of lane t of [st0, en0]: H in the high word, the
-// lane's rank under row_max's tie rules inverted in the low word
-__device__ __forceinline__ long long row_key(int h, int t, int st0,
-                                             int en0) {
-  int rank = 0;
-  if (t != en0) {
-    const int nb = (en0 - st0) / 4, d = t - st0;
-    rank = d < 4 * nb ? 1 + (d % 4) * nb + d / 4 : 1 + d;
-  }
-  return (long long)h * 4294967296LL + (long long)(0x7fffffff - rank);
-}
-
-// lane of the rank a row_key holds
-__device__ __forceinline__ int key_lane(long long key, int st0, int en0) {
-  const int rank = 0x7fffffff - (int)(key & 0xffffffffLL);
-  if (rank == 0) return en0;
-  const int nb = (en0 - st0) / 4;
-  if (rank <= 4 * nb) {
-    const int k = rank - 1;
-    return st0 + 4 * (k % nb) + k / nb;
-  }
-  return st0 + rank - 1;
 }
 
 template <bool RIGHT, bool TRACK_H>

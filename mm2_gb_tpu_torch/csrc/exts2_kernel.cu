@@ -1,8 +1,9 @@
 // Splice gap-fill DP (ksw2 exts2, APPROX_MAX) for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel mm2_gb_tpu/ops/ksw2_tpu.py::_exts2_kernel in
-// fill mode (track_h=False), with prep_fill_operands, prep_splice_bands
-// and the host's per-fill _splice_sites folded in.  Semantics are the
+// fill mode (track_h=False) and in its track_h=True branch, with
+// prep_fill_operands, prep_splice_bands and the host's per-fill
+// _splice_sites folded in.  Semantics are the
 // oracle's, mm2_gb_tpu/ops/ksw2_splice.py::exts2 (ksw2_exts2_sse.c), as
 // csrc/ksw2kit.cpp::mmt_ksw_exts2 writes them in scalar int8 C++:
 //   - the DP is unbanded: anti-diagonal r spans [st0, en0] =
@@ -43,9 +44,29 @@
 // fill is 20,200 dependent rows of ~210 lanes; many blocks per SM hide
 // the latency of each.
 //
+// Extension mode (TRACK_H: splice extensions and the non-approx splice
+// DP, no KSW_EZ_APPROX_MAX) is the oracle's non-approx branch
+// (ksw2_splice.py:239-258, 284-291), as extd2_kernel.cu's extension mode
+// with these differences:
+//   - the int32 H row lives in the ring too (4 R bytes more, so 15 R in
+//     all); a lane entering the ring starts at KSW_NEG_INF;
+//   - the previous row's H[en0 - 1], which another thread updates in
+//     place in this row, comes through a parity slot its owner filled in
+//     the previous row (when that row did not hold the lane, it is read in
+//     place);
+//   - the row maximum takes the ranked keys of ksw2_row_max.cuh, made
+//     from the absolute lane, so a ring that wraps inside the window
+//     reorders no tie;
+//   - Z-drop takes gap extension 0 (ksw2_splice.py:255);
+//   - the backtrack start is picked in the kernel: (tlen-1, qlen-1) when
+//     nothing dropped and the fill has no KSW_EZ_EXTZ_ONLY, else
+//     (max_t, max_q) when both are >= 0, else none.  No end bonus, no
+//     reach_end.
+//
 // The backtrack is extd2_kernel.cu's ksw2_backtrack in intron mode
 // (min_intron_len > 0) with a window w = qlen + tlen, which makes its
-// row windows the unbanded ones.
+// row windows the unbanded ones; for extensions it starts from the
+// kernel's per-fill (i0, j0) with the per-fill REV_CIGAR byte.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper
 // mm2_gb_tpu_torch/ops/ksw2s_gpu.py::exts2_fill passes raw device
@@ -53,12 +74,16 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
+#include "ksw2_row_max.cuh"
+
 constexpr int kNegInf = -0x40000000;
-constexpr int kRight = 0x02, kRevCigar = 0x80;
+constexpr int kMaxWarps = 8;   // blocks of at most 256 threads
+constexpr int kRight = 0x02, kExtzOnly = 0x40, kRevCigar = 0x80;
 constexpr int kSpliceFor = 0x100, kSpliceRev = 0x200, kSpliceFlank = 0x400;
 
 struct SpliceConsts {
@@ -131,6 +156,7 @@ __device__ __forceinline__ int row_last(int r, int qlen, int tlen,
   return en > hi - 1 ? en : hi - 1;
 }
 
+template <bool TRACK_H>
 __global__ void __launch_bounds__(256) exts2_fill_kernel(
     const uint8_t* __restrict__ qblob, const uint8_t* __restrict__ tblob,
     const uint8_t* __restrict__ jblob, const long long* __restrict__ qoff,
@@ -138,9 +164,14 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     const int* __restrict__ flags, const long long* __restrict__ p_off,
     const long long* __restrict__ scr_off, int8_t* __restrict__ scratch,
-    uint8_t* __restrict__ p, int* __restrict__ score, SpliceConsts c) {
+    uint8_t* __restrict__ p, int* __restrict__ score, SpliceConsts c,
+    const int* __restrict__ zdrops, int* __restrict__ ext) {
   extern __shared__ int8_t smem[];
   __shared__ int slot_v[2], slot_u[2];
+  // extension mode: H[en0 - 1] of the previous row, H[en0] and H[st0] of
+  // this row, and each warp's best row key, by row parity
+  __shared__ int slot_hp[2], slot_hen0[2], slot_hst0[2];
+  __shared__ long long slot_key[2][kMaxWarps];
   const int f = blockIdx.x;
   const int qlen = qlens[f], tlen = tlens[f], flag = flags[f];
   const bool right = flag & kRight;
@@ -161,6 +192,7 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
   int8_t* X21 = X20 + R;
   int8_t* DN = X21 + R;
   int8_t* AC = DN + R;
+  int* H = (int*)(AC + R);   // extension mode: 4 R bytes more
   const uint8_t* qs = qblob + qoff[f];
   const uint8_t* ts = tblob + toff[f];
   const uint8_t* jc = joff[f] >= 0 ? jblob + joff[f] : nullptr;
@@ -179,6 +211,7 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
     X20[t] = X21[t] = nq2;
     S[t] = 0;
     site_scores(t, ts, jc, tlen, flag, c, DN[t], AC[t]);
+    if (TRACK_H) H[t] = kNegInf;
   }
   int exposed = R - 1;  // lanes up to here hold their initial values
   __syncthreads();
@@ -187,6 +220,11 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
   int last_st = -1, last_en = -1;
   long long row_off = 0;
   const int n_rows = qlen + tlen - 1;
+  // extension mode: the oracle's Extz fields, the same in every thread
+  const int zdrop = TRACK_H ? zdrops[f] : -1;
+  int mx = 0, max_t = -1, max_q = -1, mqe = kNegInf, mqe_t = -1;
+  int mte = kNegInf, mte_q = -1, dropped = 0;
+  int prev_st0 = -1, prev_en0 = -1;
   for (int r = 0; r < n_rows; ++r) {
     const int par = r & 1;
     int8_t* xc = par ? X1 : X0;
@@ -220,6 +258,15 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
       v1 = bv;
     }
     const bool reset = en >= r;
+    // extension mode: the previous row's H[en0 - 1], and the lane whose
+    // H the next row reads so (the next row's en0 - 1)
+    int h_prev = 0;
+    const int next_en0 = r + 1 < tlen - 1 ? r + 1 : tlen - 1;
+    if (TRACK_H && r > 0 && en0 > 0)
+      h_prev = en0 - 1 >= prev_st0 && en0 - 1 <= prev_en0
+                   ? slot_hp[par]
+                   : H[(en0 - 1) & mask];
+    long long key = LLONG_MIN;
     int hi = st0 + 16 * ((en0 - st0) / 16 + 1);
     if (hi > nbytes) hi = nbytes;
     const int last = en > hi - 1 ? en : hi - 1;
@@ -280,8 +327,26 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
       x2c[s] = (int8_t)((ta2 ? a2 : dn) - q28);
       d |= (ta ? 0x08 : 0) | (tb ? 0x10 : 0) | (ta2 ? 0x20 : 0);
       prow[t - st] = d;
-      if (t == lh) slot_v[par] = vn;
-      if (t == lh + 1) slot_u[par] = un;
+      if (TRACK_H) {
+        if (t >= st0 && t <= en0) {   // the H row (ksw2_splice.py:240-250)
+          int h;
+          if (r == 0)
+            h = vn - (c.q + c.e);
+          else if (t < en0)
+            h = H[s] + vn;
+          else
+            h = en0 > 0 ? h_prev + un : H[s] + vn;
+          H[s] = h;
+          const long long k = row_key(h, t, st0, en0);
+          key = k > key ? k : key;
+          if (t == st0) slot_hst0[par] = h;
+          if (t == en0) slot_hen0[par] = h;
+          if (t == next_en0 - 1) slot_hp[par ^ 1] = h;
+        }
+      } else {
+        if (t == lh) slot_v[par] = vn;
+        if (t == lh + 1) slot_u[par] = un;
+      }
     }
     // lanes the next row reaches for the first time: their slots held
     // lanes below this row's st - 1, which no later row reads
@@ -293,10 +358,53 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
         X20[s] = X21[s] = nq2;
         S[s] = 0;
         site_scores(t, ts, jc, tlen, flag, c, DN[s], AC[s]);
+        if (TRACK_H) H[s] = kNegInf;
       }
       if (nl > exposed) exposed = nl;
     }
+    if (TRACK_H) {
+      for (int o = 16; o > 0; o >>= 1) {
+        const long long k = __shfl_xor_sync(0xffffffffu, key, o);
+        key = k > key ? k : key;
+      }
+      if ((tid & 31) == 0) slot_key[par][tid >> 5] = key;
+    }
     __syncthreads();
+    if (TRACK_H) {
+      // the row maximum, mte, mqe, Z-drop and the score
+      // (ksw2_splice.py:247-258), the same in every thread
+      for (int k = 0; k < (nt >> 5); ++k)
+        key = slot_key[par][k] > key ? slot_key[par][k] : key;
+      const int max_h = (int)(key >> 32);
+      const int mt = key_lane(key, st0, en0);
+      const int h_en0 = slot_hen0[par], h_st0 = slot_hst0[par];
+      if (en0 == tlen - 1 && h_en0 > mte) {
+        mte = h_en0;
+        mte_q = r - en;
+      }
+      if (r - st0 == qlen - 1 && h_st0 > mqe) {
+        mqe = h_st0;
+        mqe_t = st0;
+      }
+      // apply_zdrop with gap extension 0 (ksw2_splice.py:255)
+      if (max_h > mx) {
+        mx = max_h;
+        max_t = mt;
+        max_q = r - mt;
+      } else if (mt >= max_t && r - mt >= max_q) {
+        if (zdrop >= 0 && mx - max_h > zdrop) {
+          dropped = 1;
+          break;
+        }
+      }
+      if (r == n_rows - 1 && en0 == tlen - 1) sc_final = h_en0;
+      prev_st0 = st0;
+      prev_en0 = en0;
+      last_st = st;
+      last_en = en;
+      row_off += en - st + 1;
+      continue;
+    }
     // the approx-max H0 walk (ksw2_splice.py:259-281); lh stays in
     // [st0, en0] of the row, so the lanes it reads were written just now
     const int vl = slot_v[par], ul = slot_u[par];
@@ -325,7 +433,33 @@ __global__ void __launch_bounds__(256) exts2_fill_kernel(
     last_en = en;
     row_off += en - st + 1;
   }
-  if (tid == 0) score[f] = sc_final;
+  if (tid != 0) return;
+  if (!TRACK_H) {
+    score[f] = sc_final;
+    return;
+  }
+  // the backtrack start (ksw2_splice.py:284-291)
+  int i0 = -1, j0 = -1;
+  if (!dropped && !(flag & kExtzOnly)) {
+    i0 = tlen - 1;
+    j0 = qlen - 1;
+  } else if (max_t >= 0 && max_q >= 0) {
+    i0 = max_t;
+    j0 = max_q;
+  }
+  int* o = ext + 12LL * f;
+  o[0] = sc_final;
+  o[1] = mx;
+  o[2] = max_t;
+  o[3] = max_q;
+  o[4] = mqe;
+  o[5] = mqe_t;
+  o[6] = mte;
+  o[7] = mte_q;
+  o[8] = dropped;
+  o[9] = 0;   // reach_end: exts2 has no end bonus
+  o[10] = i0;
+  o[11] = j0;
 }
 
 }  // namespace
@@ -351,13 +485,42 @@ int mm2_exts2_fill(const void* qblob, const void* tblob, const void* jblob,
   if (n <= 0) return 0;
   SpliceConsts c{q, e, q2, noncan, junc_bonus, mat0, mat1, sc_n,
                  long_thres, long_diff};
-  exts2_fill_kernel<<<n, threads, smem_bytes, (cudaStream_t)stream>>>(
+  exts2_fill_kernel<false><<<n, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const uint8_t*)qblob, (const uint8_t*)tblob, (const uint8_t*)jblob,
       (const long long*)qoff, (const long long*)toff,
       (const long long*)joff, (const int*)qlen, (const int*)tlen,
       (const int*)flags, (const long long*)p_off,
       (const long long*)scr_off, (int8_t*)scratch, (uint8_t*)p, (int*)score,
-      c);
+      c, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// Extension mode (no KSW_EZ_APPROX_MAX; KSW_EZ_EXTZ_ONLY per fill) of the
+// n splice fills: as mm2_exts2_fill, with Z-drop zdrop[k] (< 0: none);
+// fill k's [score, max, max_t, max_q, mqe, mqe_t, mte, mte_q, zdropped,
+// reach_end (0), i0, j0] into ext[12k ...], (i0, j0) the backtrack start
+// (-1: none).  The ring takes 15 x its lanes (the int32 H row after the
+// 11 int8 rows).  threads is a multiple of 32, at most 256.
+int mm2_exts2_ext(const void* qblob, const void* tblob, const void* jblob,
+                  const void* qoff, const void* toff, const void* joff,
+                  const void* qlen, const void* tlen, const void* flags,
+                  const void* zdrop, const void* p_off, const void* scr_off,
+                  int n, void* scratch, void* p, void* ext, int q, int e,
+                  int q2, int noncan, int junc_bonus, int mat0, int mat1,
+                  int sc_n, int long_thres, int long_diff, int threads,
+                  int smem_bytes, void* stream) {
+  if (n <= 0) return 0;
+  if (threads <= 0 || threads > 32 * kMaxWarps || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  SpliceConsts c{q, e, q2, noncan, junc_bonus, mat0, mat1, sc_n,
+                 long_thres, long_diff};
+  exts2_fill_kernel<true><<<n, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const uint8_t*)qblob, (const uint8_t*)tblob, (const uint8_t*)jblob,
+      (const long long*)qoff, (const long long*)toff,
+      (const long long*)joff, (const int*)qlen, (const int*)tlen,
+      (const int*)flags, (const long long*)p_off,
+      (const long long*)scr_off, (int8_t*)scratch, (uint8_t*)p, nullptr, c,
+      (const int*)zdrop, (int*)ext);
   return (int)cudaGetLastError();
 }
 

@@ -183,6 +183,8 @@ class GpuMetrics:
     n_batches: int = 0
     n_spills: int = 0        # batches cut by anchor/read caps
     n_host_hpc: int = 0      # batches chained on the host: non-uniform span
+    n_scanned: int = 0       # input records seen (incl. other ranks' in
+    #                          a sharded run): multi-process completeness
     # --gpu-align gap fills (_prefill_native, _prefill_device)
     fills: ksw2_gpu.FillStats = None
     t_collect: float = 0.0   # the align driver's collect pass
@@ -234,7 +236,8 @@ class GpuMetrics:
 
 
 def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
-                 metrics: GpuMetrics, pool=None):
+                 metrics: GpuMetrics, pool=None,
+                 shard: tuple[int, int] | None = None):
     """Seed reads and yield accumulation batches bounded by the device
     capacity caps (mm_trbuf accumulate + overflow spill, map.c:886-922,
     943-995).  Caps come from GpuConfig; mini-batch boundaries flush like
@@ -242,19 +245,29 @@ def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
 
     `pool` fans seeding out in 64-read chunks with ordered results (the
     kt_for analog for the seed stage; the native sketch/lookup kernels
-    release the GIL)."""
+    release the GIL).
+
+    `shard=(rank, nproc)` keeps only the reads whose global index is
+    owned by this process (round-robin), the multi-process split; each
+    SeededRead carries its global index in rec.rid for the merge, and
+    metrics.n_scanned counts every record seen."""
     cfg = current_config()
     acc: list[SeededRead] = []
     n_anch = 0
     gidx = -1
     for batch in read_batches(paths, opt.mini_batch_size):
+        mine = []
         for rec in batch:
             gidx += 1
             rec.rid = gidx
+            metrics.n_scanned += 1
+            if shard is not None and gidx % shard[1] != shard[0]:
+                continue
             if opt.dbg_print_qname:  # QR dump (map.c:938-941)
                 sys.stderr.write(f"QR\t{rec.name}\t0\t{rec.length}\n")
-        for c0 in range(0, len(batch), 64):
-            chunk = batch[c0:c0 + 64]
+            mine.append(rec)
+        for c0 in range(0, len(mine), 64):
+            chunk = mine[c0:c0 + 64]
             t0 = time.perf_counter()
             if pool is not None and len(chunk) > 1:
                 seeded = list(pool.map(
@@ -552,7 +565,8 @@ def map_file_gpu_records(index: MinimizerIndex, opt: MapOptions,
                          paths: list[str],
                          metrics: GpuMetrics | None = None,
                          n_threads: int = 1,
-                         device: torch.device | str = "cuda"):
+                         device: torch.device | str = "cuda",
+                         shard: tuple[int, int] | None = None):
     """Stream (SeededRead, regions) for query files, chaining on the GPU.
 
     Software-pipelined double buffering (the trbuf/stream analog,
@@ -562,20 +576,34 @@ def map_file_gpu_records(index: MinimizerIndex, opt: MapOptions,
     keeps range selection and the upload off the main thread; every
     batch's upload, kernel and readback go on one side stream.
     n_threads > 1 also fans the per-read host seed and finish out over
-    a thread pool (kt_for analog; ordered emit)."""
-    from concurrent.futures import ThreadPoolExecutor
+    a thread pool (kt_for analog; ordered emit).  `shard=(rank, nproc)`
+    maps only this process's round-robin share of the reads
+    (_acc_batches)."""
     metrics = metrics or GpuMetrics()
     device = torch.device(device)
     stream = (torch.cuda.Stream(device=device) if device.type == "cuda"
               else None)
+    yield from stream_batches(
+        index, opt, paths, metrics, n_threads, device, shard,
+        lambda acc: _dispatch_batch(index, opt, acc, metrics, device,
+                                    stream))
+
+
+def stream_batches(index: MinimizerIndex, opt: MapOptions,
+                   paths: list[str], metrics: GpuMetrics, n_threads: int,
+                   device: torch.device, shard, dispatch):
+    """The double-buffered batch loop of map_file_gpu_records and
+    parallel.mesh.map_file_multichip: dispatch(acc) on one worker thread
+    returns a batch's (acc, bounds, pending scores); the host finishes
+    batch N-1 (gap fills on `device`) while batch N is in flight."""
+    from concurrent.futures import ThreadPoolExecutor
     ex = ThreadPoolExecutor(max_workers=1)
     pool = (ThreadPoolExecutor(max_workers=n_threads)
             if n_threads > 1 else None)
     try:
         pending = None
-        for acc in _acc_batches(index, opt, paths, metrics, pool):
-            fut = ex.submit(_dispatch_batch, index, opt, acc, metrics,
-                            device, stream)
+        for acc in _acc_batches(index, opt, paths, metrics, pool, shard):
+            fut = ex.submit(dispatch, acc)
             if pending is not None:
                 yield from _finish_batch(index, opt, pending.result(),
                                          metrics, pool, device)

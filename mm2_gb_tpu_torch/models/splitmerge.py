@@ -35,7 +35,10 @@ def _zero_region(with_extra: bool) -> hitmod.Region:
 def map_multipart(target: str, paths: list[str], io, mo, out,
                   batch_size: int, split_prefix: str | None,
                   rg: str | None, cli_args, verbose: int = 1,
-                  threads: int = 3) -> int:
+                  threads: int = 3, device="cuda") -> int:
+    """Map against every part of the index.  With MM_F_TPU_CHAIN (one
+    single-segment query file; the callers clear it otherwise) each part
+    maps through the device pipeline on `device`."""
     from mm2_gb_tpu_torch.cli import res_regs_out
     from mm2_gb_tpu_torch.ops import align as align_ops
 
@@ -64,7 +67,16 @@ def map_multipart(target: str, paths: list[str], io, mo, out,
                     sys.stderr.write(
                         "[WARNING] For a multi-part index, no @SQ lines "
                         "will be outputted. Please use --split-prefix.\n")
-            map_file_stream(index, mo, paths, out, threads, rg_id)
+            if (mo.flag & O.MM_F_TPU_CHAIN) and len(paths) == 1 \
+                    and not (mo.flag & O.MM_F_FRAG_MODE):
+                from mm2_gb_tpu_torch.models.pipeline import \
+                    map_file_gpu_records
+                for sr, regs in map_file_gpu_records(index, mo, paths,
+                                                     device=device):
+                    res_regs_out(out, index, mo, sr.rec, regs, sr.rep_len,
+                                 is_sam, rg_id, 0, 1, [regs])
+            else:
+                map_file_stream(index, mo, paths, out, threads, rg_id)
             n_parts += 1
         return 0 if n_parts else 1
 
@@ -91,14 +103,24 @@ def map_multipart(target: str, paths: list[str], io, mo, out,
             sys.stderr.write(f"[M::split] mapping against part {n_parts} "
                              f"({index.n_seq} sequences)\n")
         results = []
-        # the callers clear MM_F_TPU_CHAIN first: every part maps on the
-        # host (per-part device mapping is not ported)
-        for batch in read_frag_batches(map_paths, mo,
-                                       mo.mini_batch_size, Metrics()):
-            for frag in batch:
-                seg_regs, rep_lens, frag_gap = _map_one(index, mo, frag)
-                for s in range(len(frag)):
-                    results.append((seg_regs[s], rep_lens[s], frag_gap))
+        if (mo.flag & O.MM_F_TPU_CHAIN) and len(map_paths) == 1 \
+                and not (mo.flag & O.MM_F_FRAG_MODE):
+            # per-part device mapping (beyond the reference GPU path,
+            # which is single-index only, plchain.cu:499): each part runs
+            # the full device pipeline; the merge pass is unchanged
+            from mm2_gb_tpu_torch.models.mapper import _chain_gaps
+            from mm2_gb_tpu_torch.models.pipeline import map_file_gpu_records
+            for sr, regs in map_file_gpu_records(index, mo, map_paths,
+                                                 device=device):
+                frag_gap = _chain_gaps(mo, sr.rec.length)[1]
+                results.append((regs, sr.rep_len, frag_gap))
+        else:
+            for batch in read_frag_batches(map_paths, mo,
+                                           mo.mini_batch_size, Metrics()):
+                for frag in batch:
+                    seg_regs, rep_lens, frag_gap = _map_one(index, mo, frag)
+                    for s in range(len(frag)):
+                        results.append((seg_regs[s], rep_lens[s], frag_gap))
         parts_meta.append((index.names, index.lens))
         if split_prefix:
             fn = f"{split_prefix}.{n_parts:04d}.tmp"

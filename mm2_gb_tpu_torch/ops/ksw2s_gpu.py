@@ -1,4 +1,5 @@
-"""Splice gap fills on the GPU: the exts2 fill DP and its intron backtrack.
+"""Splice gap fills and splice extensions on the GPU: the exts2 DP and its
+intron backtrack.
 
 Port of the host half of mm2_gb_tpu/ops/ksw2_tpu.py::exts2_batch_device
 for the gap fills of `-x splice --gpu-align` (cigar + KSW_EZ_APPROX_MAX
@@ -16,11 +17,20 @@ hand-written CUDA kernels do the work:
   mode: min_intron_len = long_thres, and w = qlen + tlen, under which its
   row windows are the unbanded ones.
 
-`splice_sites_torch` and `exts2_fill_torch` are the plain PyTorch
-versions; the wrapper takes the twin only for CPU tensors.  There is no
-size cap: the TPU sent every fill longer than 4096 to the host.  Host
-route (ksw2_splice.exts2, counted): an empty side, q2 <= q + e, and the
-`-mat.min() > 2*(q+e)` gate.
+The same kernel's extension mode, `exts2_ext` (the JAX package's
+`exts2_fwd_tpu(track_h=True)`), runs the splice DP without
+KSW_EZ_APPROX_MAX: the H row, the ranked row maximum, mqe, mte, Z-drop
+with gap extension 0, and the backtrack start picked on the card;
+`exts2_ext_batch` solves a batch of such calls (splice extensions, with
+or without KSW_EZ_EXTZ_ONLY) with the backtrack from per-fill starts in
+intron mode.  No JAX path calls that branch, and neither does the CLI:
+the align driver runs splice extensions on the host.
+
+`splice_sites_torch`, `exts2_fill_torch` and `exts2_ext_torch` are the
+plain PyTorch versions; the wrappers take the twins only for CPU
+tensors.  There is no size cap: the TPU sent every fill longer than 4096
+to the host.  Host route (ksw2_splice.exts2, counted): an empty side,
+q2 <= q + e, and the `-mat.min() > 2*(q+e)` gate.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ import numpy as np
 import torch
 
 from mm2_gb_tpu_torch.ops import ksw2, ksw2_splice
-from mm2_gb_tpu_torch.ops.ksw2_gpu import (KSW_NEG_INF, FillStats, _c8,
-                                           _record, assemble_cigars,
+from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, KSW_NEG_INF,
+                                           FillStats, _c8, _record,
+                                           _track_h_row, assemble_cigars,
                                            ksw2_backtrack, p_bound,
                                            solve_chunks, upload)
 from mm2_gb_tpu_torch.utils import kernels
@@ -43,9 +54,11 @@ RIGHT = ksw2.KSW_EZ_RIGHT
 REV_CIGAR = ksw2.KSW_EZ_REV_CIGAR
 S_FOR, S_REV = ksw2.KSW_EZ_SPLICE_FOR, ksw2.KSW_EZ_SPLICE_REV
 S_FLANK = ksw2.KSW_EZ_SPLICE_FLANK
+EXTZ_ONLY = ksw2.KSW_EZ_EXTZ_ONLY
 FLAG_BITS = S_FOR | S_REV | S_FLANK | RIGHT | REV_CIGAR   # beside APPROX_MAX
 
 fill_launches = 0   # exts2_fill kernel launches (CUDA tensors)
+ext_launches = 0    # exts2_ext kernel launches (CUDA tensors)
 
 # the kernel's ring rows: u, y, the score row, x, v, x2 twice (by row
 # parity), donor and acceptor; a fill whose ring (RING_ROWS x ring_lanes
@@ -53,6 +66,8 @@ fill_launches = 0   # exts2_fill kernel launches (CUDA tensors)
 # (it stays under the 48 KB a block gets without an opt-in)
 RING_ROWS = 11
 SMEM_RING_MAX = 24 * 1024
+# extension mode adds the int32 H row to the ring
+EXT_RING_ROWS = RING_ROWS + 4
 
 
 @dataclass
@@ -196,12 +211,35 @@ def exts2_fill_torch(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
     holds lane c - 1), not the kernel's ring.  Returns (score int32 [n],
     p uint8 [p_total]): fill k's row r lies at p_off[k] + (sum of its
     earlier rows' widths), over [st, en]."""
+    return _exts2_rows(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
+                       flags, p_off, p_total, prm)
+
+
+def exts2_ext_torch(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
+                    flags, zdrop, p_off, p_total: int, prm: SpliceParams):
+    """Plain PyTorch exts2 extension (the twin of the exts2_ext kernel):
+    the fill twin's row loop with the H row, the ranked row maximum, mqe,
+    mte and Z-drop with gap extension 0 (ksw2_splice.py:239-258), and
+    the backtrack start of ksw2_splice.py:284-291.  Returns (ext int32
+    [n, 12]: the EXT_FIELDS (reach_end 0), then the backtrack start i0,
+    j0 (-1: none); p uint8 [p_total], rows after a Z-drop left 0)."""
+    return _exts2_rows(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
+                       flags, p_off, p_total, prm, zdrop)
+
+
+def _exts2_rows(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
+                p_off, p_total: int, prm: SpliceParams, zdrop=None):
+    """The row loop of both twins; extension mode when zdrop is given."""
     dev = qblob.device
     n = qlen.shape[0]
-    score = torch.full((n,), KSW_NEG_INF, dtype=torch.int32, device=dev)
+    track_h = zdrop is not None
+    if track_h:
+        out = torch.full((n, 12), -1, dtype=torch.int32, device=dev)
+    else:
+        out = torch.full((n,), KSW_NEG_INF, dtype=torch.int32, device=dev)
     p = torch.zeros(p_total + 1, dtype=torch.uint8, device=dev)  # + trash
     if n == 0:
-        return score, p[:p_total]
+        return out, p[:p_total]
     i64, i8 = torch.int64, torch.int8
     ql0, tl0 = qlen.to(i64), tlen.to(i64)
     order = torch.argsort(ql0 + tl0, descending=True, stable=True)
@@ -248,6 +286,16 @@ def exts2_fill_torch(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
     row_off = torch.zeros(n, dtype=i64, device=dev)
     sc_out = torch.full((n,), KSW_NEG_INF, dtype=i64, device=dev)
     zero = torch.zeros((), dtype=i8, device=dev)
+    if track_h:   # the H row and the oracle's Extz fields
+        Hs = torch.full((n, width), KSW_NEG_INF, dtype=i64, device=dev)
+        ez = dict(ql=ql, tl=tl, n_rows=n_rows, sc_out=sc_out,
+                  zd=zdrop.to(dev, i64)[order],
+                  mx=torch.zeros(n, dtype=i64, device=dev),
+                  mqe=torch.full((n,), KSW_NEG_INF, dtype=i64, device=dev),
+                  mte=torch.full((n,), KSW_NEG_INF, dtype=i64, device=dev),
+                  dropped=torch.zeros(n, dtype=torch.bool, device=dev),
+                  **{k: torch.full((n,), -1, dtype=i64, device=dev)
+                     for k in ("max_t", "max_q", "mqe_t", "mte_q")})
 
     def bound_v(r):
         if r == 0:
@@ -260,6 +308,8 @@ def exts2_fill_torch(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
 
     for r in range(int(rows_h[0])):
         a = int(np.searchsorted(-rows_h, -r, side="left"))  # n_rows > r
+        if track_h and r % 64 == 63 and bool(ez["dropped"][:a].all()):
+            break   # every fill still this long has dropped
         qla, tla = ql[:a], tl[:a]
         st0 = torch.clamp(r - qla + 1, min=0)
         en0 = torch.clamp(tla - 1, max=r)
@@ -324,9 +374,15 @@ def exts2_fill_torch(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
                     .expand(a, J, 8), cur)
         d = (d | ta * 0x08 | tb * 0x10 | ta2 * 0x20).to(torch.uint8)
         dst = po[:a, None] + row_off[:a, None] + (t - st[:, None])
-        p.scatter_(0, torch.where(dp, dst, p_total).reshape(-1),
+        wr = dp & ~ez["dropped"][:a, None] if track_h else dp
+        p.scatter_(0, torch.where(wr, dst, p_total).reshape(-1),
                    d.reshape(-1))
         row_off[:a] += en - st + 1
+        if track_h:
+            _track_h_row(r, a, t, col, st, st0, en, en0, new, Hs, trash, ez,
+                         q + e, 0)
+            last_st[:a], last_en[:a] = st, en
+            continue
         # the approx-max H0 walk (ksw2_splice.py:259-281)
         lha = lh[:a]
         vl = Za[:, :, V].gather(1, (lha + 1)[:, None])[:, 0].to(i64)
@@ -342,22 +398,21 @@ def exts2_fill_torch(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
         done = (n_rows[:a] - 1 == r) & (en0 == tla - 1)
         sc_out[:a] = torch.where(done, H0[:a], sc_out[:a])
         last_st[:a], last_en[:a] = st, en
-    score[order] = sc_out.to(torch.int32)
-    return score, p[:p_total]
-
-
-def _check_operands(named, ref):
-    n = named[6][1].shape[0]   # qlen
-    for name, t, dt in named:
-        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"exts2_fill: {name} must be a contiguous 1-D "
-                             f"{dt} tensor")
-        if t.device != ref.device:
-            raise ValueError(f"exts2_fill: {name} is on {t.device}, qblob "
-                             f"on {ref.device}")
-        if name not in ("qblob", "tblob", "jblob") and t.shape[0] != n:
-            raise ValueError(f"exts2_fill: {name} has {t.shape[0]} "
-                             f"elements, expected {n}")
+    if not track_h:
+        out[order] = sc_out.to(torch.int32)
+        return out, p[:p_total]
+    # the backtrack start (ksw2_splice.py:284-291)
+    mx, max_t, max_q = ez["mx"], ez["max_t"], ez["max_q"]
+    dropped = ez["dropped"]
+    whole = ~dropped & ((fl & EXTZ_ONLY) == 0)
+    has_max = (max_t >= 0) & (max_q >= 0)
+    i0 = torch.where(whole, tl - 1, torch.where(has_max, max_t, -1))
+    j0 = torch.where(whole, ql - 1, torch.where(has_max, max_q, -1))
+    out[order] = torch.stack([sc_out, mx, max_t, max_q, ez["mqe"],
+                              ez["mqe_t"], ez["mte"], ez["mte_q"],
+                              dropped.to(i64), torch.zeros_like(sc_out), i0,
+                              j0], 1).to(torch.int32)
+    return out, p[:p_total]
 
 
 def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
@@ -377,31 +432,107 @@ def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
     plain twin; CUDA tensors launch the kernel (built on first use); a
     build or launch failure raises.  events: a (start, end) pair of CUDA
     events recorded right around the launch, or None."""
-    global fill_launches
+    return _exts2_launch("exts2_fill", qblob, tblob, jblob, qoff, toff, joff,
+                         qlen, tlen, flags, None, p_off, p_total, prm, events)
+
+
+def exts2_ext(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
+              zdrop, p_off, p_total: int, prm: SpliceParams, events=None):
+    """The exts2 splice DP of n fills in extension mode (no
+    KSW_EZ_APPROX_MAX; KSW_EZ_EXTZ_ONLY, RIGHT, REV_CIGAR and the splice
+    bits per fill in flags): operands as exts2_fill's, with zdrop int32
+    [n] (< 0: no Z-drop).  Every fill must be non-empty and
+    `prm.host_only` False.
+
+    Returns (ext int32 [n, 12]: score, max, max_t, max_q, mqe, mqe_t,
+    mte, mte_q, zdropped, reach_end (0), and the backtrack start i0, j0
+    (-1: none) for ksw2_backtrack's `starts`; p uint8 [p_total], rows
+    after a Z-drop left 0).  CPU tensors take the plain twin; CUDA
+    tensors launch the kernel (built on first use); a build or launch
+    failure raises.  events: a (start, end) pair of CUDA events recorded
+    right around the launch, or None."""
+    return _exts2_launch("exts2_ext", qblob, tblob, jblob, qoff, toff, joff,
+                         qlen, tlen, flags, zdrop, p_off, p_total, prm, events)
+
+
+def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
+                  flags, zdrop, p_off, p_total: int, prm: SpliceParams,
+                  events):
+    """exts2_fill (zdrop None) and exts2_ext: the operand checks, the twin
+    for CPU tensors, else one launch of the kernel in its mode."""
+    global fill_launches, ext_launches
     i64, i32, u8 = torch.int64, torch.int32, torch.uint8
-    _check_operands((("qblob", qblob, u8), ("tblob", tblob, u8),
-                     ("jblob", jblob, u8), ("qoff", qoff, i64),
-                     ("toff", toff, i64), ("joff", joff, i64),
-                     ("qlen", qlen, i32), ("tlen", tlen, i32),
-                     ("flags", flags, i32), ("p_off", p_off, i64)), qblob)
+    ext = zdrop is not None
+    named = [("qblob", qblob, u8), ("tblob", tblob, u8), ("jblob", jblob, u8),
+             ("qoff", qoff, i64), ("toff", toff, i64), ("joff", joff, i64),
+             ("qlen", qlen, i32), ("tlen", tlen, i32), ("flags", flags, i32),
+             ("p_off", p_off, i64)] + ([("zdrop", zdrop, i32)] if ext else [])
+    n = qlen.shape[0]
+    for name, t, dt in named:
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous 1-D "
+                             f"{dt} tensor")
+        if t.device != qblob.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, qblob "
+                             f"on {qblob.device}")
+        if name not in ("qblob", "tblob", "jblob") and t.shape[0] != n:
+            raise ValueError(f"{what}: {name} has {t.shape[0]} "
+                             f"elements, expected {n}")
     if prm.host_only:
-        raise ValueError("exts2_fill: these options take the host route "
+        raise ValueError(f"{what}: these options take the host route "
                          "(q2 <= q+e or -mat.min() > 2*(q+e))")
     if qblob.device.type == "cpu":
-        return exts2_fill_torch(qblob, tblob, jblob, qoff, toff, joff, qlen,
-                                tlen, flags, p_off, p_total, prm)
+        return _exts2_rows(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
+                           flags, p_off, p_total, prm, zdrop)
     if qblob.device.type != "cuda":
-        raise ValueError(f"exts2_fill: unsupported device {qblob.device}")
+        raise ValueError(f"{what}: unsupported device {qblob.device}")
     lib = kernels.library()
     dev = qblob.device
-    n = qlen.shape[0]
-    score = torch.full((n,), KSW_NEG_INF, dtype=i32, device=dev)
+    out = (torch.full((n, 12), -1, dtype=i32, device=dev) if ext
+           else torch.full((n,), KSW_NEG_INF, dtype=i32, device=dev))
     p = torch.zeros(p_total, dtype=u8, device=dev)
     if n == 0:
-        return score, p
-    # shared memory per block: the largest ring that fits; larger rings
-    # live in a global scratch region of their own
-    need = RING_ROWS * ring_lanes(qlen.to(i64), tlen.to(i64))
+        return out, p
+    scr_off, scratch, smem, threads = _ring_launch(
+        qlen, tlen, EXT_RING_ROWS if ext else RING_ROWS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _record(events, 0)
+    if ext:
+        rc = lib.mm2_exts2_ext(
+            qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
+            qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(),
+            qlen.data_ptr(), tlen.data_ptr(), flags.data_ptr(),
+            zdrop.data_ptr(), p_off.data_ptr(), scr_off.data_ptr(), n,
+            scratch.data_ptr(), p.data_ptr(), out.data_ptr(), prm.q, prm.e,
+            prm.q2, prm.noncan, prm.junc_bonus, prm.mat0, prm.mat1,
+            prm.sc_n, prm.long_thres, prm.long_diff, threads, smem, stream)
+    else:
+        rc = lib.mm2_exts2_fill(
+            qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
+            qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(),
+            qlen.data_ptr(), tlen.data_ptr(), flags.data_ptr(),
+            p_off.data_ptr(), scr_off.data_ptr(), n, scratch.data_ptr(),
+            p.data_ptr(), out.data_ptr(), prm.q, prm.e, prm.q2, prm.noncan,
+            prm.junc_bonus, prm.mat0, prm.mat1, prm.sc_n, prm.long_thres,
+            prm.long_diff, threads, smem, stream)
+    _record(events, 1)
+    kernels.check(rc, what)
+    if ext:
+        ext_launches += 1
+    else:
+        fill_launches += 1
+    return out, p
+
+
+def _ring_launch(qlen, tlen, rows: int):
+    """(scr_off, scratch, smem bytes, threads) of a launch over fills of
+    `rows` x ring_lanes bytes of state: shared memory per block holds the
+    largest ring that fits; larger rings live in a global scratch region
+    of their own (scr_off >= 0)."""
+    i64 = torch.int64
+    dev = qlen.device
+    n = qlen.shape[0]
+    need = rows * ring_lanes(qlen.to(i64), tlen.to(i64))
     big = need > SMEM_RING_MAX
     scr_off = torch.where(big, torch.cumsum(torch.where(big, need, 0), 0)
                           - need, -1)
@@ -411,19 +542,7 @@ def exts2_fill(qblob, tblob, jblob, qoff, toff, joff, qlen, tlen, flags,
     smem = int(need[~big].max()) if n_big < n else 16
     m = torch.minimum(qlen, tlen)
     threads = min(256, max(32, (int(m.max()) + 47) // 32 * 32))
-    _record(events, 0)
-    rc = lib.mm2_exts2_fill(
-        qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
-        qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(), qlen.data_ptr(),
-        tlen.data_ptr(), flags.data_ptr(), p_off.data_ptr(),
-        scr_off.data_ptr(), n, scratch.data_ptr(), p.data_ptr(),
-        score.data_ptr(), prm.q, prm.e, prm.q2, prm.noncan, prm.junc_bonus,
-        prm.mat0, prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff,
-        threads, smem, torch.cuda.current_stream(dev).cuda_stream)
-    _record(events, 1)
-    kernels.check(rc, "exts2_fill")
-    fill_launches += 1
-    return score, p
+    return scr_off, scratch, smem, threads
 
 
 # --------------------------------------------------------------------------
@@ -450,21 +569,58 @@ def exts2_fill_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
     with an empty side, and every fill under options that fail the
     host_only gate, take ksw2_splice.exts2 on the host and are counted
     in stats.host_fills."""
+    return _exts2_batch(meta, qblob, tblob, jblob, flags, None, prm, device,
+                        stats)
+
+
+def exts2_ext_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
+                    jblob: np.ndarray, flags: np.ndarray, zdrop: np.ndarray,
+                    prm: SpliceParams, device: torch.device | str,
+                    stats: FillStats | None = None
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Solve a batch of splice extensions (the work of
+    exts2_fwd_tpu(track_h=True)): ksw2_splice.exts2 without
+    KSW_EZ_APPROX_MAX.
+
+    meta, blobs: as exts2_fill_batch; flags: (n,) any of the splice,
+    RIGHT, REV_CIGAR and KSW_EZ_EXTZ_ONLY bits, per fill; zdrop (n,) per
+    fill (< 0: none).  Returns (fields int32 [n, 10], the EXT_FIELDS of
+    each fill as ksw2_splice.exts2 sets them (reach_end False); cig_off
+    int64 [n + 1], cig_blob uint32).
+
+    As exts2_fill_batch, with one exts2_ext launch and one intron-mode
+    ksw2_backtrack launch from the starts the kernel picked per chunk.
+    Fills with an empty side, and every fill under options that fail the
+    host_only gate, take ksw2_splice.exts2 on the host; the counts go to
+    the extension fields of stats (ext_fills, ext_host_fills, ...)."""
+    return _exts2_batch(meta, qblob, tblob, jblob, flags,
+                        np.asarray(zdrop, np.int64).reshape(-1), prm, device,
+                        stats)
+
+
+def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
+                 device, stats: FillStats | None):
+    """exts2_fill_batch (zdrop None) and exts2_ext_batch."""
     t_start = time.perf_counter()
     device = torch.device(device)
     stats = stats if stats is not None else FillStats()
+    ext = zdrop is not None
+    what = "exts2_ext_batch" if ext else "exts2_fill_batch"
     meta = np.asarray(meta, np.int64).reshape(-1, 3)
     flags = np.asarray(flags, np.int64).reshape(-1)
     n = meta.shape[0]
     qlen, tlen, jlen = meta[:, 0], meta[:, 1], meta[:, 2]
-    bad = ((flags & APPROX_MAX) == 0) | ((flags & ~(APPROX_MAX | FLAG_BITS))
-                                         != 0)
-    if flags.shape[0] != n or bad.any():
-        raise ValueError("exts2_fill_batch: unsupported flags "
+    if ext:
+        bad = (flags & ~(EXTZ_ONLY | FLAG_BITS)) != 0
+    else:
+        bad = (((flags & APPROX_MAX) == 0)
+               | ((flags & ~(APPROX_MAX | FLAG_BITS)) != 0))
+    if flags.shape[0] != n or bad.any() or ext and zdrop.shape[0] != n:
+        raise ValueError(f"{what}: unsupported flags "
                          f"{sorted({int(f) for f in flags[bad]})}")
     if ((jlen != 0) & (jlen != tlen)).any():
-        raise ValueError("exts2_fill_batch: junction bytes must cover the "
-                         "target (jlen 0 or tlen)")
+        raise ValueError(f"{what}: junction bytes must cover the target "
+                         "(jlen 0 or tlen)")
     qoff, toff, joff = (np.zeros(n + 1, np.int64) for _ in range(3))
     np.cumsum(qlen, out=qoff[1:])
     np.cumsum(tlen, out=toff[1:])
@@ -472,51 +628,69 @@ def exts2_fill_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
     host = (qlen <= 0) | (tlen <= 0)
     if prm.host_only:
         host[:] = True
-    scores = np.full(n, KSW_NEG_INF, np.int32)
+    res = (np.empty((n, len(EXT_FIELDS)), np.int32) if ext
+           else np.full(n, KSW_NEG_INF, np.int32))
     n_cig = np.zeros(n, np.int64)
     host_cig = {}
     for k in np.nonzero(host)[0].tolist():
         ez = ksw2_splice.exts2(
             qblob[qoff[k]:qoff[k + 1]], tblob[toff[k]:toff[k + 1]], prm.mat,
-            prm.q, prm.e, prm.q2, prm.noncan, -1, prm.junc_bonus,
-            int(flags[k]), jblob[joff[k]:joff[k + 1]] if jlen[k] else None)
-        scores[k] = ez.score
+            prm.q, prm.e, prm.q2, prm.noncan, int(zdrop[k]) if ext else -1,
+            prm.junc_bonus, int(flags[k]),
+            jblob[joff[k]:joff[k + 1]] if jlen[k] else None)
+        res[k] = ([int(getattr(ez, f)) for f in EXT_FIELDS] if ext
+                  else ez.score)
         n_cig[k] = ez.cigar.shape[0]
         host_cig[k] = ez.cigar
 
     dev_idx = np.nonzero(~host)[0]
     dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
-    pieces = []
+    pieces, kms, bms, chunks, n_scr = [], 0.0, 0.0, 0, 0
     if dev_idx.shape[0]:
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        ring = RING_ROWS * ring_lanes(ql, tl)
+        ring = (EXT_RING_ROWS if ext else RING_ROWS) * ring_lanes(ql, tl)
         scr = np.where(ring > SMEM_RING_MAX, ring, 0)
+        n_scr = int((scr > 0).sum())
         qb_d, tb_d, jb_d = (upload(b, device) for b in (qblob, tblob, jblob))
 
         def launch(c64, c32, po, p_total, events):
-            (qo, to, jo), (q_, t_, f_, _w) = c64, c32
+            (qo, to, jo), (q_, t_, f_, _w, zd) = c64, c32
+            if ext:
+                return exts2_ext(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, zd,
+                                 po, p_total, prm, events=events)
             return exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
                               p_total, prm, events=events)
 
-        def backtrack(p, po, co, c32, _sc, events):
-            q_, t_, f_, w_ = c32
+        def backtrack(p, po, co, c32, out, events):
+            q_, t_, f_, w_, _zd = c32
             return ksw2_backtrack(p, po, q_, t_, w_, co,
                                   (f_ & REV_CIGAR) != 0, prm.long_thres,
+                                  starts=out[:, 10:] if ext else None,
                                   events=events)
-        (scores[dev_idx], n_cig[dev_idx], pieces, kms, bms,
-         chunks) = solve_chunks(
+        out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
             dev_idx, p_bound(ql, tl, ql + tl), ql + tl, scr,
             [qoff, toff, np.where(jlen > 0, joff[:-1], -1)],
-            [qlen, tlen, flags, qlen + tlen], device, launch, backtrack)
+            [qlen, tlen, flags, qlen + tlen,
+             zdrop if ext else np.zeros(n, np.int64)],
+            device, launch, backtrack)
+        res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
+    cells = int((qlen * tlen)[dev_idx].sum())
+    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
+    stats.scratch_fills += n_scr
+    if ext:
+        stats.ext_fills += n
+        stats.ext_host_fills += len(host_cig)
+        stats.ext_chunks += chunks
+        stats.ext_cells += cells
+        stats.ext_ms += kms
+        stats.ext_backtrack_ms += bms
+    else:
+        stats.fills += n
+        stats.device_fills += int(dev_idx.shape[0])
+        stats.host_fills += len(host_cig)
+        stats.chunks += chunks
+        stats.cells += cells
         stats.fill_ms += kms
         stats.backtrack_ms += bms
-        stats.chunks += chunks
-        stats.cells += int((ql * tl).sum())
-        stats.scratch_fills += int((scr > 0).sum())
-
-    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
-    stats.fills += n
-    stats.device_fills += int(dev_idx.shape[0])
-    stats.host_fills += len(host_cig)
     stats.batch_s += time.perf_counter() - t_start
-    return scores, cig_off, cig_blob
+    return res, cig_off, cig_blob

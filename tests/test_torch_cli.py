@@ -98,6 +98,7 @@ def test_gpu_run_path_matches_golden(flags, ref, query, golden, capsys):
                   cap.err)
     if "--gpu-align" in flags:
         assert int(m.group(1)) > 0 and int(m.group(2)) > 0
+        assert m.group(3) == "0"   # no fill routed to the host
     else:
         assert m is None
     # CPU tensors: no kernel launch
@@ -118,7 +119,7 @@ def test_gpu_run_frag_mode_falls_back_to_host(capsys):
 
 def test_gpu_run_multipart_routes(capsys, tmp_path):
     """-I with several query files keeps the host route (warning, same
-    bytes); per-part device mapping of one file is not ported yet."""
+    bytes); one query file maps part by part on the device."""
     rc = _run_on_cpu(["-I", "100k", "-c", "--split-prefix",
                       str(tmp_path / "sp"), golden_path("splitq_ref.fa.gz"),
                       golden_path("splitq_q1.fa.gz"),
@@ -130,8 +131,10 @@ def test_gpu_run_multipart_routes(capsys, tmp_path):
     assert out == _gold("splitq.I100k.c.paf.gz")
     rc = _run_on_cpu(["-c", "-I", "20k", golden_path("multi3.fa.gz"),
                       golden_path("multi3_q.fa.gz")])
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
+    assert rc == 0
+    cap = capsys.readouterr()
+    assert cap.out == _gold("multi3.noI.c.paf.gz")
+    assert "falling back" not in cap.err and "not yet ported" not in cap.err
 
 
 def test_main_takes_the_card_without_gpu_chain(monkeypatch, capsys):
@@ -174,14 +177,31 @@ def test_align_flag_is_accepted(flag, monkeypatch, capsys):
     ["--tpu-devices", "2"], ["--tpu-devices", "0"],
     ["--tpu-nproc", "2"], ["--tpu-profile", "prof"]],
     ids=["devices2", "devices_all", "nproc2", "profile"])
-def test_unported_flags_exit_1(flags, capsys):
-    """What the port cannot carry yet (several devices or processes, the
-    TPU profile) exits 1 before mapping."""
+def test_unported_flags_exit_1(flags, monkeypatch, capsys):
+    """The scale-out flags the port once refused (several devices or
+    processes, the profile) parse and reach the device check: without a
+    card they exit 1 there, with no output, no fallback and no "not yet
+    ported" (tests/test_torch_mesh.py runs them on CPU devices)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = cli.main(["--gpu-chain", *flags, golden_path("simref.fa.gz"),
                    golden_path("simreads.fa.gz")])
     assert rc == 1
     cap = capsys.readouterr()
-    assert "not yet ported" in cap.err and cap.out == ""
+    assert "needs a CUDA device" in cap.err and cap.out == ""
+    assert "not yet ported" not in cap.err
+
+
+def test_gpu_spellings_of_the_scale_out_flags():
+    """--gpu-devices, --gpu-nproc, --gpu-rank, --gpu-coord and
+    --gpu-profile (also in their =VALUE form) are the parser's --tpu-*
+    flags."""
+    argv, args = cli.parse_args([
+        "--gpu-devices", "2", "--gpu-nproc=4", "--gpu-rank", "3",
+        "--gpu-coord", "127.0.0.1:1234", "--gpu-profile=prof", "--gpu-align",
+        "r.fa", "q.fa"])
+    assert (args.tpu_devices, args.tpu_nproc, args.tpu_rank) == (2, 4, 3)
+    assert args.tpu_coord == "127.0.0.1:1234" and args.tpu_profile == "prof"
+    assert args.tpu_align and "--tpu-nproc=4" in argv
 
 
 @pytest.mark.parametrize("flags", [

@@ -18,8 +18,10 @@ import torch
 from chip_smoke import (ext_oracle, ext_result_err, ext_workloads,
                         fill_oracle, fill_result_err, fill_workloads,
                         hold_ext_calls, hold_fill_calls, hold_splice_calls,
-                        kernel_operands, recording_ext, recording_fills,
-                        recording_splice, splice_oracle, splice_workloads,
+                        hold_splice_ext_calls, kernel_operands,
+                        recording_ext, recording_fills, recording_splice,
+                        recording_splice_ext, splice_ext_oracle,
+                        splice_ext_workloads, splice_oracle, splice_workloads,
                         workloads)
 from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu, ksw2s_gpu
 from mm2_gb_tpu_torch.ops.chain import _chain_dp_scores
@@ -34,6 +36,7 @@ FILLS = list(fill_workloads(n_pairs=32, max_len=400, long_len=4800))
 SPLICE = list(splice_workloads(n_pairs=24, max_intron=1000,
                                long_intron=8000, n_long=3))
 EXTS = list(ext_workloads(n_pairs=32, max_len=400))
+SPLICE_EXTS = list(splice_ext_workloads(n_pairs=24, max_intron=600))
 
 
 @pytest.fixture
@@ -203,3 +206,57 @@ def test_gpu_align_python_session_matches_golden(cuda, flags, golden,
     assert ksw2_gpu.ext_launches > before[1]
     with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
         assert capsys.readouterr().out == f.read()
+
+
+@pytest.mark.parametrize("name,meta,qb,tb,jb,fl,zd,prm", SPLICE_EXTS,
+                         ids=[w[0] for w in SPLICE_EXTS])
+def test_splice_ext_kernels_match_twins_and_oracle(cuda, name, meta, qb, tb,
+                                                   jb, fl, zd, prm):
+    """The exts2 kernel's extension mode and the intron backtrack from its
+    starts: equal to the twins and ksw2_splice.exts2 (every Extz field,
+    the CIGAR), the global-scratch ring among them."""
+    before = ksw2s_gpu.ext_launches, ksw2_gpu.start_backtrack_launches
+    st = ksw2_gpu.FillStats()
+    with recording_splice_ext() as calls:
+        got = ksw2s_gpu.exts2_ext_batch(meta, qb, tb, jb, fl, zd, prm, cuda,
+                                        st)
+    assert ext_result_err(got, splice_ext_oracle(meta, qb, tb, jb, fl, zd,
+                                                 prm)) == 0
+    assert ksw2s_gpu.ext_launches == before[0] + len(calls)
+    assert ksw2_gpu.start_backtrack_launches == before[1] + len(calls)
+    assert (len(calls) > 0) == (st.ext_fills > st.ext_host_fills)
+    assert (st.scratch_fills > 0) == (name == "long")
+    assert hold_splice_ext_calls(calls, name, verbose=False)[0] == 0
+
+
+@pytest.mark.parametrize("flags,golden", [
+    ([], "sim200.skipinf.paf.gz"),
+    (["--gpu-align", "--cs", "-c"], "sim200.skipinf.cs.paf.gz")],
+    ids=["chain", "align"])
+def test_two_devices_on_one_card(cuda, flags, golden):
+    """parallel.mesh.map_file_multichip over [cuda:0, cuda:0]: two shards
+    on two streams of one card give the golden bytes of one device."""
+    import io
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.models.index import MinimizerIndex
+    from mm2_gb_tpu_torch.models.pipeline import GpuMetrics
+    from mm2_gb_tpu_torch.parallel.mesh import map_file_multichip
+    from mm2_gb_tpu_torch.utils import opts as O
+    argv, args = cli.parse_args(["--max-chain-skip=2147483647", *flags,
+                                 "r.fa", "q.fa"])
+    io_, mo = O.set_preset(None)
+    cli.apply_overrides(args, io_, mo)
+    index = MinimizerIndex.from_fasta(os.path.join(GOLDEN, "simref.fa.gz"),
+                                      io_)
+    O.mapopt_update(mo, index)
+    met, out = GpuMetrics(), io.StringIO()
+    before = chain_gpu.launches
+    for sr, regs in map_file_multichip(
+            index, mo, [os.path.join(GOLDEN, "simreads.fa.gz")],
+            [cuda, cuda], met, 2):
+        cli.res_regs_out(out, index, mo, sr.rec, regs, sr.rep_len, False,
+                         None, 0, 1, [regs])
+    assert chain_gpu.launches == before + met.n_dispatch
+    assert met.n_dispatch == 2 * met.n_batches
+    with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
+        assert out.getvalue() == f.read()

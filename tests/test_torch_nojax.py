@@ -8,8 +8,10 @@ mm2_gb_tpu_torch, maps reads through the GPU pipeline on CPU tensors,
 through the CLI's host path and through the CLI's `--gpu-chain
 --gpu-align -c` run path on CPU tensors, for the default preset, for
 `-x splice` (the exts2 fills) and for `--qstrand` (the Python fill
-session's gap fills and extensions).  A static check reads every import
-of the port's sources and of chip_smoke.py.  A last check holds the
+session's gap fills and extensions), and runs the two ranks of a
+`--tpu-nproc 2` run and the port's mergeshards.  A static check reads
+every import of the port's sources (the parallel/ and tools/
+subpackages among them) and of chip_smoke.py.  A last check holds the
 port's host path against the JAX package's on the same seeded input.
 """
 
@@ -44,6 +46,8 @@ for mod in pkgutil.walk_packages(mm2_gb_tpu_torch.__path__,
                                  "mm2_gb_tpu_torch."):
     if mod.name != "mm2_gb_tpu_torch.__main__":   # that one runs the CLI
         importlib.import_module(mod.name)
+assert {"mm2_gb_tpu_torch.parallel.mesh",
+        "mm2_gb_tpu_torch.tools.mergeshards"} <= set(sys.modules)
 
 from mm2_gb_tpu_torch.models.index import MinimizerIndex
 from mm2_gb_tpu_torch.utils import opts as O
@@ -85,6 +89,7 @@ with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
     assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
 assert buf.getvalue().count("\tcg:Z:") >= 3
 assert "fills: " in err.getvalue()
+single_c = buf.getvalue()
 
 import gzip
 with gzip.open(sys.argv[3], "rt") as f:
@@ -112,6 +117,21 @@ with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
     assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
 assert buf.getvalue().count("\tcg:Z:") >= 3
 assert "; extensions: 0 " not in err.getvalue()
+
+pre = os.path.join(tmp, "rk")
+for rank in ("0", "1"):
+    argv, args = cli.parse_args(["--max-chain-skip=2147483647", "--gpu-chain",
+                                 "--gpu-align", "-c", "--tpu-nproc", "2",
+                                 "--tpu-rank", rank, "-o", pre,
+                                 os.path.join(tmp, "r.fa"),
+                                 os.path.join(tmp, "q.fa")])
+    io_, mo = O.set_preset(args.preset)
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
+from mm2_gb_tpu_torch.tools import mergeshards
+merged = io.StringIO()
+assert mergeshards.merge(pre, 2, merged) == 0
+assert merged.getvalue() == single_c
 
 from mm2_gb_tpu_torch.utils import native
 assert native.available()
