@@ -467,10 +467,14 @@ def hold_fill_calls(calls, label, verbose=True):
         e = max(e, _max_err(cgk, cig), _max_err(nck, nc), _max_err(cgt, cig),
                 _max_err(nct, nc))
         if verbose:
+            rows, steps = _longest(calls[i])
             log(f"{label} launch {i}: {fa[4].shape[0]} fills, "
                 f"{int((fa[4].long() * fa[5].long()).sum())} cells; fill "
-                f"{tk:.3f} ms (twin {tt:.3f} ms), backtrack {tb:.3f} ms "
-                f"(twin {tbt:.3f} ms); max_abs_err {e}")
+                f"{tk:.3f} ms (twin {tt:.3f} ms), {rows} rows of the "
+                f"longest fill, {tk * 1e3 / rows:.4f} µs per row; backtrack "
+                f"{tb:.3f} ms (twin {tbt:.3f} ms), {steps} steps of the "
+                f"longest walk, {tb * 1e3 / max(steps, 1):.4f} µs per step; "
+                f"max_abs_err {e}")
         err = max(err, e)
         fms, fpl, bms, bpl = fms + tk, fpl + tt, bms + tb, bpl + tbt
     return err, fms, fpl, bms, bpl
@@ -990,6 +994,30 @@ def _merge_splice_calls(calls, ext=False):
              prm.long_thres), bases)
 
 
+def _splice_suffix(c, k0):
+    """The recorded exts2_fill + backtrack launch c cut to its fills k0
+    and after (fill args and backtrack args, p regions and CIGAR slots
+    re-based), as _merge_splice_calls takes it; the fills of a launch lie
+    longest first, so those of at most n rows are such a suffix."""
+    (qb, tb, jb, qo, to, jo, ql, tl, fl, po, p_total, prm) = c[0]
+    _po, _ql, _tl, w, co, rev, mil = c[3]
+    p0 = int(po[k0]) if k0 < po.shape[0] else p_total
+    po_s = po[k0:] - p0
+    return [(qb, tb, jb, qo[k0:], to[k0:], jo[k0:], ql[k0:], tl[k0:],
+             fl[k0:], po_s, p_total - p0, prm), None, None,
+            (po_s, ql[k0:], tl[k0:], w[k0:], co[k0:] - co[k0], rev[k0:],
+             mil)]
+
+
+def _longest(c):
+    """(rows of the longest fill, steps of the longest walk) of a recorded
+    fill + backtrack launch."""
+    fa, ba, cig, nc = c[0], c[3], c[4], c[5]
+    ql, tl = (fa[6], fa[7]) if len(fa) == 12 else (fa[4], fa[5])
+    return (int((ql.long() + tl.long() - 1).max()),
+            int(_walk_steps(cig, nc, ba[4]).max()))
+
+
 def hold_splice_calls(calls, label, verbose=True, extra=(), max_rows=None):
     """Each recorded exts2_fill + intron backtrack launch (of calls, then
     of extra, launches made under the same options) against the twins.
@@ -997,33 +1025,41 @@ def hold_splice_calls(calls, label, verbose=True, extra=(), max_rows=None):
     all launches go through one run of each (per-fill results do not
     depend on the company a fill keeps); then each launch's kernel is
     re-run on its recorded operands, its p must match the recorded
-    fingerprint and its slice of the twin's p, its scores the twin's, and
-    both backtracks on it the recorded words.  With max_rows, only the
-    launches whose longest fill has at most that many rows (qlen + tlen)
-    go through the twins (their cost is that fill's rows); the others are
-    re-run and held against their recorded results alone.  Returns
-    (max_abs_err, fill ms and backtrack ms summed over calls' launches,
-    and the twins' ms of the one run: fill ms, fill twin ms, backtrack
-    ms, backtrack twin ms)."""
+    fingerprint, its scores, p regions and CIGAR slots those of the twin
+    run, and both backtracks on it the recorded words.  With max_rows,
+    only the fills of at most that many rows (qlen + tlen) go through the
+    twins (their cost is the longest one's rows), whichever launch they
+    are in; the others are held against their recorded results alone.
+    Returns (max_abs_err, fill ms and backtrack ms summed over calls'
+    launches, and the twins' ms of the one run: fill ms, fill twin ms,
+    backtrack ms, backtrack twin ms)."""
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     n_timed = len(calls)
     calls = list(calls) + list(extra)
     if not calls:
         return 0, 0.0, 0.0, 0.0, 0.0
-    held = [i for i, c in enumerate(calls)
-            if max_rows is None or int((c[0][6] + c[0][7]).max()) <= max_rows]
+    first = {}   # launch -> its first fill the twins hold
+    for i, c in enumerate(calls):
+        rows = (c[0][6] + c[0][7]).cpu()
+        over = (rows > max_rows).nonzero() if max_rows is not None else []
+        k0 = int(over[-1]) + 1 if len(over) else 0
+        if k0 < rows.shape[0]:
+            first[i] = k0
     twin = {}
     fpl = bpl = 0.0
-    if held:
-        fa_all, ba_all, bases = _merge_splice_calls([calls[i] for i in held])
+    if first:
+        fa_all, ba_all, bases = _merge_splice_calls(
+            [_splice_suffix(calls[i], k0) for i, k0 in first.items()])
         (sc_t, p_t), fpl = _timed(KS.exts2_fill_torch, *fa_all)
         (cg_t, nc_t), bpl = _timed(K.ksw2_backtrack_torch, p_t, *ba_all)
-        for i, (f0, p0, c0) in zip(held, bases):
-            fa, cig = calls[i][0], calls[i][4]
-            n = fa[6].shape[0]
-            twin[i] = (sc_t[f0:f0 + n], p_t[p0:p0 + fa[10]],
-                       cg_t[c0:c0 + cig.shape[0]], nc_t[f0:f0 + n])
+        for (i, k0), (f0, p0, c0) in zip(first.items(), bases):
+            fa, ba = calls[i][0], calls[i][3]
+            n, co = fa[6].shape[0] - k0, ba[4]
+            pb = fa[10] - (int(fa[9][k0]) if k0 < fa[9].shape[0] else 0)
+            cb = int(co[-1] - co[k0])
+            twin[i] = (sc_t[f0:f0 + n], p_t[p0:p0 + pb], cg_t[c0:c0 + cb],
+                       nc_t[f0:f0 + n])
     err, fms, bms = 0, 0.0, 0.0
     for i, (fa, sc, fp, ba, cig, nc) in enumerate(calls):
         n = fa[6].shape[0]
@@ -1032,25 +1068,33 @@ def hold_splice_calls(calls, label, verbose=True, extra=(), max_rows=None):
         (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba)
         e = max(e, _max_err(cgk, cig), _max_err(nck, nc))
         if i in twin:
+            k0, co = first[i], ba[4]
+            p0 = int(fa[9][k0]) if k0 < n else fa[10]
             sc_t, p_t, cg_t, nc_t = twin[i]
-            e = max(e, _max_err(sc_t, sc), _max_err(p_t, pk),
-                    _max_err(cg_t, cig), _max_err(nc_t, nc))
+            e = max(e, _max_err(sc_t, sc[k0:]), _max_err(p_t, pk[p0:]),
+                    _max_err(cg_t, cig[int(co[k0]):]),
+                    _max_err(nc_t, nc[k0:]))
         del pk
         if verbose and i < n_timed:
+            rows, steps = _longest(calls[i])
             log(f"{label} launch {i}: {n} fills, "
                 f"{int((fa[6].long() * fa[7].long()).sum())} cells; fill "
-                f"{tk:.3f} ms, backtrack {tb:.3f} ms; max_abs_err {e}"
-                + ("" if i in twin else " (against its recorded results)"))
+                f"{tk:.3f} ms, {rows} rows of the longest fill, "
+                f"{tk * 1e3 / rows:.4f} µs per row; backtrack {tb:.3f} ms, "
+                f"{steps} steps of the longest walk, "
+                f"{tb * 1e3 / max(steps, 1):.4f} µs per step; max_abs_err "
+                f"{e}" + ("" if i not in twin else
+                          f" ({n - first[i]} fills held against the twins)"))
         err = max(err, e)
         if i < n_timed:
             fms, bms = fms + tk, bms + tb
     if verbose:
-        n_twin = sum(calls[i][0][6].shape[0] for i in held)
+        n_twin = sum(calls[i][0][6].shape[0] - k0 for i, k0 in first.items())
         log(f"{label}: {n_timed} launches ({len(calls) - n_timed} more of "
             f"the splice workloads held with them, max_abs_err {err}); "
-            f"twins (one run over the {n_twin} fills of the {len(held)} "
-            f"launches" + ("" if max_rows is None else
-                           f" whose fills have at most {max_rows} rows")
+            f"twins (one run over {n_twin} fills of {len(first)} launches"
+            + ("" if max_rows is None else
+               f", every fill of at most {max_rows} rows")
             + f") fill {fpl:.3f} ms, backtrack {bpl:.3f} ms")
     return err, fms, fpl, bms, bpl
 
@@ -2166,7 +2210,193 @@ def scale_walls():
         fail("the rank walls' outputs differ")
 
 
+def _walk_steps(cig, n_cig, cig_off):
+    """Steps of each fill's backtrack walk: the unit ops of its words."""
+    import torch
+    m = n_cig.shape[0]
+    slot = torch.repeat_interleave(torch.arange(m, device=cig.device),
+                                   cig_off[1:] - cig_off[:-1])
+    used = (torch.arange(cig.shape[0], device=cig.device)
+            - cig_off[:-1][slot] < n_cig[slot])
+    steps = torch.zeros(m, dtype=torch.int64, device=cig.device)
+    steps.index_add_(0, slot, torch.where(used, cig.long() >> 4, 0))
+    return steps
+
+
+def dp_launches(root, budget, cdna, fc):
+    """`chip_smoke.py --dp-launches ROOT BUDGET ...` (a subprocess of
+    dp_turns): the port found under ROOT maps the cDNA set at `-ax splice
+    --gpu-align` and the flowcell at `--gpu-align -c`, each once, and
+    every exts2_fill, extd2_fill and backtrack launch is reported: its
+    fills, the longest fill's rows (qlen + tlen - 1) or the longest walk
+    (steps), the launch's ms (the CUDA events its wrapper records right
+    around the launch) and the µs per row or step.  BUDGET replaces
+    gpucfg.FILL_CHUNK_BYTES (bytes; "-": the tree's own).  The last line
+    is a JSON object of the launches and each output's sha256."""
+    import hashlib
+    import torch
+    sys.path.insert(0, root)
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    from mm2_gb_tpu_torch.utils import gpucfg
+    if not cli.__file__.startswith(os.path.abspath(root)):
+        fail(f"imported the port from {cli.__file__}, not {root}")
+    if budget != "-":
+        gpucfg.FILL_CHUNK_BYTES = int(budget)
+    recs = []
+
+    def wrap(mod, name, kind, ql_at):
+        fn = getattr(mod, name)
+
+        def rec(*a, **kw):
+            out = fn(*a, **kw)
+            if kind == "fill":
+                ql, tl = a[ql_at].long(), a[ql_at + 1].long()
+                rows = int((ql + tl - 1).max())
+                recs.append([kind, name, ql.shape[0], rows, kw["events"],
+                             int(torch.minimum(ql, tl).max())])
+            else:
+                steps = _walk_steps(out[0], out[1], a[5])
+                recs.append([kind, name, a[2].shape[0], int(steps.max()),
+                             kw["events"], int(steps.sum())])
+            return out
+        setattr(mod, name, rec)
+        return lambda: setattr(mod, name, fn)
+    undo = [wrap(KS, "exts2_fill", "fill", 6),
+            wrap(KS, "ksw2_backtrack", "walk", 0),
+            wrap(K, "extd2_fill", "fill", 4),
+            wrap(K, "ksw2_backtrack", "walk", 0)]
+    runs = {}
+    try:
+        for what, flags, (ref, reads) in (
+                ("cdna", ["-ax", "splice"], cdna), ("flowcell", ["-c"], fc)):
+            first = len(recs)
+            rc, out, err, wall = _cli(cli.main, [
+                "--gpu-chain", "--gpu-align", SKIP_INF, *flags, "-t",
+                str(THREADS), "-v", "3", ref, reads])
+            if rc != 0:
+                sys.stderr.write(err[-3000:])
+                fail(f"{what} run under {root}")
+            torch.cuda.synchronize()
+            for line in err.splitlines():
+                if line.startswith("[M::gpu] fills:"):
+                    log(f"{what}: {line}")
+            runs[what] = {"sha256": hashlib.sha256(out.encode()).hexdigest(),
+                          "wall_s": wall, "launches": []}
+            for kind, name, n, longest, ev, extra in recs[first:]:
+                ms = ev[0].elapsed_time(ev[1])
+                runs[what]["launches"].append([name, n, longest, ms, extra])
+                unit = "rows of the longest fill" if kind == "fill" else \
+                    "steps of the longest walk"
+                log(f"{what} {name}: {n} fills, {longest} {unit}, "
+                    f"{ms:.3f} ms, {ms * 1e3 / max(longest, 1):.4f} µs per "
+                    + ("row" if kind == "fill" else "step")
+                    + (f", widest min(qlen, tlen) {extra}" if kind == "fill"
+                       else f", {extra} steps in all"))
+    finally:
+        for u in undo:
+            u()
+    print(json.dumps(runs), flush=True)
+
+
+def dp_probe():
+    """`python3 chip_smoke.py --dp-probe`: the splice fill kernel and the
+    intron backtrack on seeded random fills of fixed shape (qlen x tlen,
+    junction bytes on), one fill alone and n copies in one launch, each
+    timed with the events the wrappers record right around the launch
+    (median of 3): µs per row of a fill (per step of a walk) alone, and
+    how it grows with the fills that share the card."""
+    import numpy as np
+    import torch
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    from mm2_gb_tpu_torch.utils import opts as O
+    phase1()
+    dev = torch.device("cuda")
+    prm = KS.splice_params(O.set_preset("splice")[1])
+    rng = np.random.default_rng(7)
+    for ql, tl, n in ((30, 20000, 1), (150, 20000, 1), (170, 20000, 1),
+                      (180, 20000, 1), (600, 20000, 1), (1500, 20000, 1),
+                      (150, 5000, 132), (150, 5000, 1056),
+                      (150, 5000, 4224), (600, 5000, 132),
+                      (600, 5000, 528), (600, 5000, 2112)):
+        q = torch.from_numpy(rng.integers(0, 4, ql * n).astype(np.uint8))
+        t = torch.from_numpy(rng.integers(0, 4, tl * n).astype(np.uint8))
+        j = torch.from_numpy(rng.integers(0, 16, tl * n).astype(np.uint8))
+        i64 = (lambda x: torch.tensor(x, dtype=torch.int64, device=dev))
+        i32 = (lambda x: torch.full((n,), x, dtype=torch.int32, device=dev))
+        pb = int(K.p_bound(np.array([ql]), np.array([tl]),
+                           np.array([ql + tl]))[0])
+        ar = np.arange(n)
+        ops = (q.to(dev), t.to(dev), j.to(dev), i64(ar * ql), i64(ar * tl),
+               i64(ar * tl), i32(ql), i32(tl), i32(0x08 | 0x100 | 0x400),
+               i64(ar * pb), pb * n, prm)
+        fms, bms = [], []
+        for _ in range(3):
+            (sc, p), tk = _timed_launch(KS.exts2_fill, *ops)
+            co = i64(np.arange(n + 1) * (ql + tl))
+            (cg, nc), tb = _timed_launch(
+                K.ksw2_backtrack, p, ops[9], ops[6], ops[7], i32(ql + tl), co,
+                False, prm.long_thres)
+            fms.append(tk)
+            bms.append(tb)
+            del p
+        tk, tb = sorted(fms)[1], sorted(bms)[1]
+        steps = int(_walk_steps(cg, nc, co).max())
+        log(f"probe {n} x ({ql} x {tl}): fill {tk:.3f} ms, "
+            f"{tk * 1e3 / (ql + tl - 1):.4f} µs per row, "
+            f"{n * ql * tl / tk / 1e6:.3f} GCUPS; backtrack {tb:.3f} ms, "
+            f"{steps} steps, {tb * 1e3 / steps:.4f} µs per step")
+
+
+def dp_turns(parent):
+    """`python3 chip_smoke.py --dp-turns [PARENT]`: the DP kernels'
+    per-launch times of this tree, and of the checkout PARENT when given,
+    each tree in its own subprocess (dp_launches; each builds its own
+    kernels and host kit under its build/), in turns parent, this, this,
+    parent; then this tree at chunk budgets of 512 MiB, 2 GiB and 4 GiB.
+    Sums per kernel and the outputs' equality are printed at the end."""
+    phase1()
+    cdna, fc = cdna_set(), flowcell()
+    me = REPO
+    turns = ([(parent, "-"), (me, "-"), (me, "-"), (parent, "-")] if parent
+             else [(me, "-")])
+    turns += [(me, str(b << 20)) for b in (512, 2048, 4096)]
+    results = []
+    for root, budget in turns:
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--dp-launches", root, budget, *cdna, *fc],
+                           cwd=REPO, text=True, capture_output=True,
+                           timeout=900)
+        lines = p.stdout.strip().splitlines()
+        print("\n".join(lines[:-1]), flush=True)
+        if p.returncode != 0:
+            sys.stderr.write(p.stderr[-3000:])
+            fail(f"the dp-launches run of {root}")
+        runs = json.loads(lines[-1])
+        results.append(runs)
+        for what, r in runs.items():
+            sums = {}
+            for name, _n, _l, ms, _x in r["launches"]:
+                c, s = sums.get(name, (0, 0.0))
+                sums[name] = (c + 1, s + ms)
+            log(f"turn {root} budget {budget} {what}: wall "
+                f"{r['wall_s']:.3f} s; " + "; ".join(
+                    f"{k} {c} launches {s:.3f} ms"
+                    for k, (c, s) in sorted(sums.items())))
+    same = all(r[w]["sha256"] == results[0][w]["sha256"]
+               for r in results for w in r)
+    log(f"every turn's cDNA SAM and flowcell PAF identical: {same}")
+    if not same:
+        fail("the turns' outputs differ")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-launches"]:
+        root, budget, *paths = sys.argv[2:]
+        dp_launches(root, budget, paths[:2], paths[2:])
+        return 0
     if not os.path.isdir(os.path.join(REPO, "mm2_gb_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
@@ -2186,6 +2416,13 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--scale-walls"]:
         scale_walls()
+        return 0
+    if sys.argv[1:] == ["--dp-probe"]:
+        dp_probe()
+        return 0
+    if sys.argv[1:2] == ["--dp-turns"] and len(sys.argv) <= 3:
+        dp_turns(os.path.abspath(sys.argv[2]) if len(sys.argv) == 3
+                 else None)
         return 0
     t_start = time.perf_counter()
 
@@ -2217,6 +2454,10 @@ def main() -> int:
     se, sfms, sfpl, sbms, sbpl = timed(
         hold_splice_calls, scalls, "main-path splice", extra=splice_later,
         max_rows=SPLICE_TWIN_ROWS)
+    n_held = sum(int((c[0][6] + c[0][7] <= SPLICE_TWIN_ROWS).sum())
+                 for c in scalls)
+    log(f"main-path splice fills held against the twins: {n_held} of "
+        f"{sum(c[0][6].shape[0] for c in scalls)}")
     if se:
         fail("a main-path or splice workload launch differs from its twins")
     xe, xms, xpl, xbms, xbpl = timed(hold_ext_calls, ecalls, "main-path ext")

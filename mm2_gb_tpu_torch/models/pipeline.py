@@ -196,6 +196,11 @@ class GpuMetrics:
             self.fills = ksw2_gpu.FillStats()
 
     def report(self, verbose: int = 3) -> None:
+        """The `[M::gpu]` lines at -v 3.  On the `fills:` line, `chunks`
+        counts the chunks of the fill batches, each one fill-kernel launch
+        and one backtrack launch: exts2_fill runs a chunk's warp-class and
+        block-class fills in one launch, so chunks are the launches of
+        each kernel."""
         if verbose < 3:
             return
         wall = time.perf_counter() - self.wall0

@@ -9,18 +9,20 @@ in its collect pass (models/pipeline.py::_prefill_device).  Two
 hand-written CUDA kernels do the work:
 
 - `exts2_fill` (csrc/exts2_kernel.cu): the splice DP of
-  ops/ksw2_splice.py::exts2 (ksw2_exts2_sse.c semantics), one thread
-  block per fill, state in a ring of lanes that slides along the target,
-  donor and acceptor scores made on the device from the target and the
-  fill's BED junction bytes.  Direction rows are packed as extd2_fill's.
+  ops/ksw2_splice.py::exts2 (ksw2_exts2_sse.c semantics), a warp per
+  narrow fill and a block per wide one (`fill_shape` picks each fill's
+  class; one launch holds both), state in rings of lanes that slide
+  along the target, the target, junction and query bytes staged a batch
+  of rows ahead, donor and acceptor scores made on the device from them.
+  Direction rows are packed as extd2_fill's.
 - `ksw2_backtrack` (ops/ksw2_gpu.py, csrc/extd2_kernel.cu) in intron
   mode: min_intron_len = long_thres, and w = qlen + tlen, under which its
   row windows are the unbanded ones.
 
-The same kernel's extension mode, `exts2_ext` (the JAX package's
-`exts2_fwd_tpu(track_h=True)`), runs the splice DP without
-KSW_EZ_APPROX_MAX: the H row, the ranked row maximum, mqe, mte, Z-drop
-with gap extension 0, and the backtrack start picked on the card;
+The same file's extension kernel, `exts2_ext` (the JAX package's
+`exts2_fwd_tpu(track_h=True)`; a block per fill), runs the splice DP
+without KSW_EZ_APPROX_MAX: the H row, the ranked row maximum, mqe, mte,
+Z-drop with gap extension 0, and the backtrack start picked on the card;
 `exts2_ext_batch` solves a batch of such calls (splice extensions, with
 or without KSW_EZ_EXTZ_ONLY) with the backtrack from per-fill starts in
 intron mode.  No JAX path calls that branch, and neither does the CLI:
@@ -60,13 +62,29 @@ FLAG_BITS = S_FOR | S_REV | S_FLANK | RIGHT | REV_CIGAR   # beside APPROX_MAX
 fill_launches = 0   # exts2_fill kernel launches (CUDA tensors)
 ext_launches = 0    # exts2_ext kernel launches (CUDA tensors)
 
-# the kernel's ring rows: u, y, the score row, x, v, x2 twice (by row
-# parity), donor and acceptor; a fill whose ring (RING_ROWS x ring_lanes
-# bytes) exceeds this keeps it in a global scratch region of its own
-# (it stays under the 48 KB a block gets without an opt-in)
+# fill mode (exts2_fill): thirteen byte rings of fill_ring_lanes lanes
+# (u, y, the score row, x, v and x2 twice by row parity, donor, acceptor,
+# the target bases with their junction bits, the query) and the H0 walk's
+# four int32 slots.  A fill whose ring has at most WARP_RING lanes takes
+# a warp (FILL_WARPS to a block), a wider one a block of 256 threads; a
+# block-class fill whose rings exceed FILL_SMEM_MAX bytes keeps them in a
+# global scratch region of its own.
+FILL_LANE_BYTES = 13
+FILL_RING_PAD = 80     # the kernel's kRingPad: kBatch (32) + 34 and more
+FILL_WARPS = 8
+WARP_RING = 256
+# a launch lasts as long as its longest fill, and a block runs a row
+# faster than a warp: the LONG_FILLS longest fills of a launch with at
+# least half its longest fill's rows take a block whatever their width
+LONG_FILLS = 132
+FILL_SMEM_MAX = FILL_LANE_BYTES * 2048 + 16   # rings of 2048 lanes
+# extension mode (exts2_ext): the first port's ring rows (u, y, the score
+# row, x, v, x2 twice by row parity, donor and acceptor) and the int32 H
+# row; a fill whose ring exceeds SMEM_RING_MAX keeps it in a global
+# scratch region of its own (it stays under the 48 KB a block gets
+# without an opt-in)
 RING_ROWS = 11
 SMEM_RING_MAX = 24 * 1024
-# extension mode adds the int32 H row to the ring
 EXT_RING_ROWS = RING_ROWS + 4
 
 
@@ -110,16 +128,76 @@ def splice_params(opt) -> SpliceParams:
         opt.q2, opt.noncan, opt.junc_bonus)
 
 
-def ring_lanes(qlen, tlen):
-    """Lanes of a fill's state ring in the kernel: the least power of two,
-    at least 32, not below min(qlen, tlen) + 32 (numpy arrays or
-    tensors)."""
+def ring_lanes(qlen, tlen, pad: int = 32, least: int = 32):
+    """Lanes of a fill's state ring in the extension kernel: the least
+    power of two, at least `least`, not below min(qlen, tlen) + pad
+    (numpy arrays or tensors)."""
     if isinstance(qlen, torch.Tensor):
-        m = torch.minimum(qlen, tlen).to(torch.int64) + 32
+        m = torch.minimum(qlen, tlen).to(torch.int64) + pad
         return torch.clamp(2 ** torch.ceil(torch.log2(m.double())).long(),
-                           min=32)
+                           min=least)
     m = np.minimum(np.asarray(qlen, np.int64), np.asarray(tlen, np.int64))
-    return np.maximum(32, 2 ** np.ceil(np.log2(m + 32)).astype(np.int64))
+    return np.maximum(least, 2 ** np.ceil(np.log2(m + pad)).astype(np.int64))
+
+
+def fill_ring_lanes(qlen, tlen):
+    """Lanes of a fill's rings in the fill kernel (its fill_ring): the
+    least power of two, at least 64, not below min(qlen, tlen) +
+    FILL_RING_PAD."""
+    return ring_lanes(qlen, tlen, FILL_RING_PAD, 64)
+
+
+def fill_bytes(qlen, tlen):
+    """Bytes of a fill's rings and slots in the fill kernel, a multiple
+    of 16."""
+    return FILL_LANE_BYTES * fill_ring_lanes(qlen, tlen) + 16
+
+
+@dataclass
+class FillShape:
+    """The launch of exts2_fill over n fills (fill_shape)."""
+    work: np.ndarray      # int32: block-class fills, then warp-class ones
+    #                       (FILL_WARPS to a block, -1 padding)
+    n_block: int          # block-class fills (a block each)
+    n_warp: int           # warp-class fills (a warp each)
+    scr_off: np.ndarray   # int64 [n]: the rings' offset in scratch, or -1
+    scratch: int          # bytes of global scratch
+    warp_stride: int      # shared-memory bytes of a warp-class fill
+    smem: int             # dynamic shared memory of a block
+
+
+def fill_shape(qlen, tlen) -> FillShape:
+    """Each fill's class and the launch's shape (numpy arrays of the n
+    fills in launch order, longest first): a warp for a fill whose rings
+    have at most WARP_RING lanes, else a block, and a block for the
+    LONG_FILLS longest fills with at least half the longest one's rows; a
+    block-class fill past FILL_SMEM_MAX keeps its rings in scratch.  One
+    launch holds both classes, block-class blocks first, so that every
+    fill of a chunk runs at once; its shared memory is the larger of
+    FILL_WARPS warp-class fills' and the widest block-class fill in
+    shared memory."""
+    qlen = np.asarray(qlen, np.int64)
+    tlen = np.asarray(tlen, np.int64)
+    lanes = fill_ring_lanes(qlen, tlen)
+    need = fill_bytes(qlen, tlen)
+    rows = qlen + tlen - 1
+    long = np.zeros(rows.shape[0], bool)
+    if rows.shape[0]:
+        top = np.argsort(-rows, kind="stable")[:LONG_FILLS]
+        long[top[rows[top] * 2 >= rows.max()]] = True
+    warp = (lanes <= WARP_RING) & ~long
+    big = ~warp & (need > FILL_SMEM_MAX)
+    scr_off = np.where(big, np.cumsum(np.where(big, need, 0)) - need, -1)
+    w_idx = np.nonzero(warp)[0]
+    b_idx = np.nonzero(~warp)[0]
+    pad = -len(w_idx) % FILL_WARPS
+    work = np.concatenate([b_idx, w_idx, np.full(pad, -1)]).astype(np.int32)
+    stride = int(need[warp].max()) if len(w_idx) else 0
+    in_smem = ~warp & ~big
+    smem = max(FILL_WARPS * stride,
+               int(need[in_smem].max()) if in_smem.any() else 0, 16)
+    return FillShape(work, len(b_idx), len(w_idx), scr_off.astype(np.int64),
+                     int(need[big].sum()), stride, smem)
 
 
 # --------------------------------------------------------------------------
@@ -493,11 +571,11 @@ def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
     p = torch.zeros(p_total, dtype=u8, device=dev)
     if n == 0:
         return out, p
-    scr_off, scratch, smem, threads = _ring_launch(
-        qlen, tlen, EXT_RING_ROWS if ext else RING_ROWS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _record(events, 0)
     if ext:
+        scr_off, scratch, smem, threads = _ring_launch(qlen, tlen,
+                                                       EXT_RING_ROWS)
+        _record(events, 0)
         rc = lib.mm2_exts2_ext(
             qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
             qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(),
@@ -507,14 +585,21 @@ def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
             prm.q2, prm.noncan, prm.junc_bonus, prm.mat0, prm.mat1,
             prm.sc_n, prm.long_thres, prm.long_diff, threads, smem, stream)
     else:
+        sh = fill_shape(qlen.cpu().numpy(), tlen.cpu().numpy())
+        scr_off, work = (torch.from_numpy(a).to(dev)
+                         for a in (sh.scr_off, sh.work))
+        scratch = torch.empty(max(sh.scratch, 1), dtype=torch.int8,
+                              device=dev)
+        _record(events, 0)
         rc = lib.mm2_exts2_fill(
             qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
             qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(),
             qlen.data_ptr(), tlen.data_ptr(), flags.data_ptr(),
-            p_off.data_ptr(), scr_off.data_ptr(), n, scratch.data_ptr(),
-            p.data_ptr(), out.data_ptr(), prm.q, prm.e, prm.q2, prm.noncan,
+            p_off.data_ptr(), scr_off.data_ptr(), work.data_ptr(),
+            sh.n_block, sh.n_warp, scratch.data_ptr(), p.data_ptr(),
+            out.data_ptr(), prm.q, prm.e, prm.q2, prm.noncan,
             prm.junc_bonus, prm.mat0, prm.mat1, prm.sc_n, prm.long_thres,
-            prm.long_diff, threads, smem, stream)
+            prm.long_diff, sh.warp_stride, sh.smem, stream)
     _record(events, 1)
     kernels.check(rc, what)
     if ext:
@@ -525,10 +610,10 @@ def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
 
 
 def _ring_launch(qlen, tlen, rows: int):
-    """(scr_off, scratch, smem bytes, threads) of a launch over fills of
-    `rows` x ring_lanes bytes of state: shared memory per block holds the
-    largest ring that fits; larger rings live in a global scratch region
-    of their own (scr_off >= 0)."""
+    """(scr_off, scratch, smem bytes, threads) of an extension launch over
+    fills of `rows` x ring_lanes bytes of state: shared memory per block
+    holds the largest ring that fits; larger rings live in a global
+    scratch region of their own (scr_off >= 0)."""
     i64 = torch.int64
     dev = qlen.device
     n = qlen.shape[0]
@@ -648,16 +733,22 @@ def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
     pieces, kms, bms, chunks, n_scr = [], 0.0, 0.0, 0, 0
     if dev_idx.shape[0]:
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        ring = (EXT_RING_ROWS if ext else RING_ROWS) * ring_lanes(ql, tl)
-        scr = np.where(ring > SMEM_RING_MAX, ring, 0)
-        n_scr = int((scr > 0).sum())
+        if ext:
+            ring = EXT_RING_ROWS * ring_lanes(ql, tl)
+            scr = np.where(ring > SMEM_RING_MAX, ring, 0)
+            n_scr = int((scr > 0).sum())
+        else:   # budgeted as if every fill's rings were in scratch
+            scr = fill_bytes(ql, tl)
         qb_d, tb_d, jb_d = (upload(b, device) for b in (qblob, tblob, jblob))
 
         def launch(c64, c32, po, p_total, events):
+            nonlocal n_scr
             (qo, to, jo), (q_, t_, f_, _w, zd) = c64, c32
             if ext:
                 return exts2_ext(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, zd,
                                  po, p_total, prm, events=events)
+            shape = fill_shape(q_.cpu().numpy(), t_.cpu().numpy())
+            n_scr += int((shape.scr_off >= 0).sum())
             return exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
                               p_total, prm, events=events)
 
@@ -667,8 +758,10 @@ def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
                                   (f_ & REV_CIGAR) != 0, prm.long_thres,
                                   starts=out[:, 10:] if ext else None,
                                   events=events)
+        # regions 16-aligned: the fill kernel stores 4 direction bytes at
+        # once where its region allows
         out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
-            dev_idx, p_bound(ql, tl, ql + tl), ql + tl, scr,
+            dev_idx, (p_bound(ql, tl, ql + tl) + 15) // 16 * 16, ql + tl, scr,
             [qoff, toff, np.where(jlen > 0, joff[:-1], -1)],
             [qlen, tlen, flags, qlen + tlen,
              zdrop if ext else np.zeros(n, np.int64)],

@@ -74,12 +74,15 @@ def apply_gpu_config(cfg: GpuConfig) -> None:
 BYTES_PER_ANCHOR = 2 * (20 + 8)
 
 
-# Gap fills (ops/ksw2_gpu.extd2_fill_batch) run in chunks whose device
-# bytes (direction bytes plus CIGAR slots, p_bound + 4*(qlen+tlen) per
-# fill) stay under this budget; PERF.md has the sweep on the card.  The
-# plain twin on the CPU holds about twice that in its state, so CPU runs
-# take a smaller budget.
-FILL_CHUNK_BYTES = 512 << 20
+# Gap fills (ops/ksw2_gpu.extd2_fill_batch, ksw2s_gpu.exts2_fill_batch)
+# run in chunks whose device bytes (direction bytes plus CIGAR slots,
+# p_bound + 4*(qlen+tlen) per fill) stay under this budget.  A launch
+# lasts as long as its longest fill, so the fill kernels' time is about
+# the sum over chunks of each one's longest fill: fewer, larger chunks
+# (PERF.md has the sweep on the card, 512 MiB to 4 GiB).  The plain twin
+# on the CPU holds about twice that in its state, so CPU runs take a
+# smaller budget.
+FILL_CHUNK_BYTES = 4 << 30
 CPU_FILL_CHUNK_BYTES = 128 << 20
 
 

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "mm2_extd2_fill": [_vp] * 9 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
     "mm2_extd2_ext": [_vp] * 10 + [_i, _vp, _vp, _vp] + [_i] * 13 + [_vp],
     "mm2_ksw2_backtrack": [_vp] * 8 + [_i] * 4 + [_vp] * 3,
-    "mm2_exts2_fill": [_vp] * 11 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
+    "mm2_exts2_fill": [_vp] * 12 + [_i] * 2 + [_vp] * 3 + [_i] * 12 + [_vp],
     "mm2_exts2_ext": [_vp] * 12 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
 }
 

@@ -260,3 +260,165 @@ def test_two_devices_on_one_card(cuda, flags, golden):
     assert met.n_dispatch == 2 * met.n_batches
     with gzip.open(os.path.join(GOLDEN, golden), "rt") as f:
         assert out.getvalue() == f.read()
+
+
+def _splice_mix(rng):
+    """Splice fills on both sides of the fill kernel's warp/block class
+    boundary (rings of WARP_RING lanes: min(qlen, tlen) 176), to go into
+    one launch: queries of 10 to 400 bases, two exons around an intron
+    of 300-3000 bases (GT..AG, or GA..TG under REV_CIGAR), every flag
+    variant, N bases in every third, BED junction bytes in every
+    other."""
+    from chip_smoke import SPLICE_VARIANTS, _mutate_splice
+    fills = []
+    for k, ql in enumerate([10, 10, 12, 40, 150, 176, 177, 200, 260, 300,
+                            400, 60, 10, 180, 90, 390]):
+        flag = 0x08 | SPLICE_VARIANTS[k % len(SPLICE_VARIANTS)]
+        a = int(rng.integers(1, ql)) if ql > 1 else 1
+        ex = rng.integers(0, 4, ql).astype(np.uint8)
+        intron = rng.integers(0, 4, int(rng.integers(300, 3000))
+                              ).astype(np.uint8)
+        rc = bool(flag & 0x80)
+        intron[:2] = (2, 0) if rc else (2, 3)
+        intron[-2:] = (3, 2) if rc else (0, 2)
+        t = np.concatenate([ex[:a], intron, ex[a:]])
+        q = _mutate_splice(rng, ex, 0.04, 0.02)
+        if k % 3 == 0:
+            q[rng.random(q.shape[0]) < 0.05] = 4
+            t[rng.random(t.shape[0]) < 0.02] = 4
+        junc = (rng.integers(0, 16, t.shape[0]).astype(np.uint8) if k % 2
+                else None)
+        fills.append((q, t, flag, junc))
+    return fills
+
+
+@pytest.mark.parametrize("in_scratch", [False, True],
+                         ids=["shared", "scratch"])
+def test_exts2_fill_warp_and_block_classes(cuda, monkeypatch, in_scratch):
+    """The fill kernel on one launch that mixes warp-class fills (qlen 10)
+    with block-class ones (min(qlen, tlen) past 176, and the longest):
+    equal to the twins (scores, direction bytes, CIGARs) and to
+    ksw2_splice.exts2, also with fill regions that are not 4-aligned;
+    with the shared-memory cap at 0, every block-class fill keeps its
+    rings in global scratch."""
+    from chip_smoke import _pack_splice
+    from mm2_gb_tpu_torch.utils import opts as O
+    if in_scratch:
+        monkeypatch.setattr(ksw2s_gpu, "FILL_SMEM_MAX", 0)
+    prm = ksw2s_gpu.splice_params(O.set_preset("splice")[1])
+    meta, qb, tb, jb, fl = _pack_splice(_splice_mix(
+        np.random.default_rng(606)))
+    st = ksw2_gpu.FillStats()
+    with recording_splice() as calls:
+        got = ksw2s_gpu.exts2_fill_batch(meta, qb, tb, jb, fl, prm, cuda, st)
+    assert fill_result_err(got, splice_oracle(meta, qb, tb, jb, fl,
+                                              prm)) == 0
+    assert len(calls) == 1
+    shape = ksw2s_gpu.fill_shape(calls[0][0][6].cpu().numpy(),
+                                 calls[0][0][7].cpu().numpy())
+    assert shape.n_block > 0 and shape.n_warp > 0
+    assert (st.scratch_fills == shape.n_block) == in_scratch
+    assert (st.scratch_fills > 0) == in_scratch
+    assert hold_splice_calls(calls, "mix", verbose=False)[0] == 0
+    # regions that are not 4-aligned take the kernel's byte stores
+    fa = list(calls[0][0])
+    fa[9], fa[10] = fa[9] + 1, fa[10] + 1
+    sc, p = ksw2s_gpu.exts2_fill(*fa)
+    sct, pt = ksw2s_gpu.exts2_fill_torch(*fa)
+    assert torch.equal(sc, sct) and torch.equal(p, pt)
+
+
+def _fill_operands(pairs, ws, cuda):
+    """Device operands of gap fills (q, t) with bands ws: (qblob, tblob,
+    qoff, toff, qlen, tlen, w, p_off, p_total, cig_off)."""
+    ql = np.array([len(q) for q, _t in pairs], np.int64)
+    tl = np.array([len(t) for _q, t in pairs], np.int64)
+    w = np.asarray(ws, np.int64)
+    wv = np.where(w < 0, np.maximum(ql, tl), w)
+    pb = ksw2_gpu.p_bound(ql, tl, wv)
+
+    def off(x):
+        return torch.from_numpy(np.concatenate([[0], np.cumsum(x)])).to(cuda)
+    blob = (lambda xs: torch.from_numpy(np.concatenate(xs).astype(np.uint8))
+            .to(cuda))
+    i32 = (lambda x: torch.from_numpy(x.astype(np.int32)).to(cuda))
+    p_off = off(pb)
+    return (blob([q for q, _t in pairs]), blob([t for _q, t in pairs]),
+            off(ql)[:-1], off(tl)[:-1], i32(ql), i32(tl), i32(w),
+            p_off[:-1], int(p_off[-1]), off(ql + tl))
+
+
+@pytest.mark.parametrize("mode", ["genomic", "intron", "starts",
+                                  "intron_starts"])
+def test_backtrack_kernel_matches_twin(cuda, mode):
+    """The backtrack kernel against ksw2_backtrack_torch on the same
+    direction bytes, in its four modes (genomic fills, intron mode, from
+    per-fill starts, intron mode from starts): walks of up to ~6,000
+    steps (many tiles), banded fills whose walks meet off-band cells
+    (forced states; starts anywhere in the matrix, most of them off a
+    16-lane band), long tail deletions (N in intron mode), starts of -1,
+    REV_CIGAR per fill."""
+    from chip_smoke import _mutate_splice, _walk_steps, splice_pairs
+    from mm2_gb_tpu_torch.utils import opts as O
+    rng = np.random.default_rng(["genomic", "intron", "starts",
+                                 "intron_starts"].index(mode) + 71)
+    intron = mode.startswith("intron")
+    if intron:
+        pairs, flags, junc = [], [], []
+        for q, t, flag, j in splice_pairs(rng, 24, 3000):
+            pairs.append((q, t))
+            flags.append(flag)
+            junc.append(np.zeros(0, np.uint8) if j is None else j)
+        ws = [len(q) + len(t) for q, t in pairs]
+        prm = ksw2s_gpu.splice_params(O.set_preset("splice")[1])
+    else:
+        pairs = []
+        for k in range(24):
+            t = rng.integers(0, 4, int(rng.integers(600, 3000))
+                             ).astype(np.uint8)
+            pairs.append((_mutate_splice(rng, t, 0.05, 0.02), t))
+        ws = [(16, 51, 200, -1)[k % 4] for k in range(24)]
+        keep = ~ksw2_gpu.band_collapses(
+            [len(q) for q, _t in pairs], [len(t) for _q, t in pairs],
+            [w if w >= 0 else max(len(q), len(t))
+             for w, (q, t) in zip(ws, pairs)])
+        pairs = [p for p, k in zip(pairs, keep) if k]
+        ws = [w for w, k in zip(ws, keep) if k]
+        prm = ksw2_gpu.fill_params(O.set_preset(None)[1])
+    qb, tb, qo, to, ql, tl, w, po, p_total, co = _fill_operands(pairs, ws,
+                                                               cuda)
+    n = ql.shape[0]
+    if intron:
+        jl = np.array([len(j) for j in junc], np.int64)
+        jo = torch.from_numpy(np.where(
+            jl > 0, np.concatenate([[0], np.cumsum(jl)])[:-1], -1)).to(cuda)
+        jb = torch.from_numpy(np.concatenate(junc)).to(cuda)
+        fl = torch.tensor(flags, dtype=torch.int32, device=cuda)
+        _sc, p = ksw2s_gpu.exts2_fill(qb, tb, jb, qo, to, jo, ql, tl, fl, po,
+                                      p_total, prm)
+        mil = prm.long_thres
+    else:
+        _sc, p = ksw2_gpu.extd2_fill(qb, tb, qo, to, ql, tl, w, po, p_total,
+                                     prm, False)
+        mil = 0
+    starts = None
+    if mode.endswith("starts"):
+        i0 = (rng.random(n) * tl.cpu().numpy()).astype(np.int32)
+        j0 = (rng.random(n) * ql.cpu().numpy()).astype(np.int32)
+        i0[::5] = -1
+        j0[2::7] = -1
+        starts = torch.from_numpy(np.stack([i0, j0], 1)).to(cuda)
+    rev = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    before = ksw2_gpu.backtrack_launches
+    cg, nc = ksw2_gpu.ksw2_backtrack(p, po, ql, tl, w, co, rev, mil,
+                                     starts=starts)
+    cgt, nct = ksw2_gpu.ksw2_backtrack_torch(p, po, ql, tl, w, co, rev, mil,
+                                             starts)
+    torch.cuda.synchronize()
+    assert ksw2_gpu.backtrack_launches == before + 1
+    assert torch.equal(nc, nct) and torch.equal(cg, cgt)
+    assert int(_walk_steps(cg, nc, co).max()) > 40 * 32   # 40 tiles
+    if starts is not None:
+        assert int((nc == 0).sum()) == int(((starts < 0).any(1)).sum()) > 0
+    if intron:
+        assert bool(((cg & 15) == 3).any())   # N runs

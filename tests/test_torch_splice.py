@@ -240,6 +240,114 @@ def test_ring_lanes():
                          torch.from_numpy(tl)).tolist() == want
 
 
+def test_fill_shape_per_fill_class():
+    """exts2_fill's launch takes each fill's class on its own: a warp for
+    rings of at most WARP_RING lanes (min(qlen, tlen) + 80, a power of two
+    from 64), else a block, and a block for the LONG_FILLS longest fills
+    with at least half the longest one's rows; block-class rings past
+    FILL_SMEM_MAX go to global scratch; block-class fills come first,
+    warp-class ones eight to a block; the shared memory is the larger of
+    eight warp rings and the widest block ring in shared memory."""
+    ql = np.array([10, 176, 177, 5000, 300, 4100, 10, 20])
+    tl = np.array([20000, 3000, 3000, 5000, 20, 4200, 5, 3000])
+    lanes = KS.fill_ring_lanes(ql, tl)
+    assert lanes.tolist() == [128, 256, 512, 8192, 128, 8192, 128, 128]
+    assert KS.fill_ring_lanes(torch.from_numpy(ql),
+                              torch.from_numpy(tl)).tolist() == lanes.tolist()
+    sh = KS.fill_shape(ql, tl)
+    assert (sh.n_block, sh.n_warp) == (4, 4)
+    assert sh.work.tolist() == [0, 2, 3, 5, 1, 4, 6, 7] + [-1] * 4
+    lb = KS.FILL_LANE_BYTES
+    big = lb * 8192 + 16
+    assert big > KS.FILL_SMEM_MAX >= lb * 512 + 16
+    assert sh.scr_off.tolist() == [-1, -1, -1, 0, -1, big, -1, -1]
+    assert sh.scratch == 2 * big
+    assert sh.warp_stride == lb * 256 + 16
+    assert sh.smem == max(KS.FILL_WARPS * sh.warp_stride, lb * 512 + 16)
+    # a fill alone is its launch's longest: a block, and no warp stride
+    only = KS.fill_shape(ql[6:7], tl[6:7])
+    assert (only.n_block, only.n_warp, only.warp_stride, only.smem) == (
+        1, 0, 0, lb * 128 + 16)
+    # many fills as long as the longest: the LONG_FILLS first take blocks
+    same = KS.fill_shape(np.full(200, 10), np.full(200, 5000))
+    assert (same.n_block, same.n_warp) == (KS.LONG_FILLS, 200 - KS.LONG_FILLS)
+
+
+def _ring_schedule_holds(qlen, tlen, pad, batch=32):
+    """The fill kernel's ring schedule (csrc/exts2_kernel.cu): every
+    `batch` rows the TJ and query rings take the bytes loaded a batch
+    earlier and the lanes the next batch of rows reaches are entered
+    (their site scores read TJ 2 lanes before and 3 after).  True when
+    every lane a row reads (state at [st - 1, last], TJ over the score
+    store span, the query at r - t) is the one its slot holds, with a
+    ring of the least power of two >= max(64, min(qlen, tlen) + pad)."""
+    n_rows, nbytes = qlen + tlen - 1, (tlen + 15) // 16 * 16
+    R = 64
+    while R < min(qlen, tlen) + pad:
+        R <<= 1
+    m = R - 1
+    state, tj, qr = [-1] * R, [-1] * R, [-1] * R
+
+    def bound(r):   # lane_bound
+        return min(min(min(r, n_rows - 1), tlen - 1) + 15, nbytes - 1)
+
+    def enter(t):
+        if any(tj[k & m] != k for k in range(max(t - 2, 0), t + 4)):
+            return False
+        state[t & m] = t
+        return True
+    tj_hi, q_hi = bound(0) + 3, 0
+    for t in range(tj_hi + 1):
+        tj[t & m] = t
+    qr[0] = 0
+    if not all(enter(t) for t in range(tj_hi - 2)):
+        return False
+    exposed = tj_hi - 3
+    tj_pf, q_pf = bound(batch) + 3, min(batch, qlen - 1)
+    last_st = last_en = -1
+    for r in range(n_rows):
+        st0, en0 = max(0, r - qlen + 1), min(tlen - 1, r)
+        st, en = st0 & -16, en0 | 15
+        hi = min(st0 + 16 * ((en0 - st0) // 16 + 1), nbytes)
+        if st > 0 and last_st <= st - 1 <= last_en \
+                and state[(st - 1) & m] != st - 1:
+            return False
+        for t in range(st, max(en, hi - 1) + 1):
+            if state[t & m] != t or st0 <= t < hi and (
+                    tj[t & m] != t or t <= r and qr[(r - t) & m] != r - t):
+                return False
+        if r % batch == 0 and r + 1 < n_rows:
+            if tj_pf - tj_hi > 32 or q_pf - q_hi > 32:   # a lane a thread
+                return False
+            for k in range(tj_hi + 1, tj_pf + 1):
+                tj[k & m] = k
+            for k in range(q_hi + 1, q_pf + 1):
+                qr[k & m] = k
+            tj_hi, q_hi = tj_pf, q_pf
+            if not all(enter(t) for t in range(exposed + 1,
+                                               bound(r + batch) + 1)):
+                return False
+            exposed = bound(r + batch)
+            tj_pf = bound(r + 2 * batch) + 3
+            q_pf = min(r + 2 * batch, qlen - 1)
+        last_st, last_en = st, en
+    return True
+
+
+def test_fill_ring_pad_covers_the_batches():
+    """FILL_RING_PAD lanes beyond min(qlen, tlen) keep every lane the
+    fill kernel's rows read in its slot while the ring is filled a batch
+    of 32 rows ahead (the derivation asks for 32 + 34); 40 would not."""
+    rng = np.random.default_rng(5)
+    sizes = [(1, 1), (1, 50), (50, 1), (10, 900), (900, 10), (200, 200),
+             (33, 17), (20, 300)]
+    sizes += [tuple(int(x) for x in rng.integers(1, 400, 2))
+              for _ in range(30)]
+    assert all(_ring_schedule_holds(q, t, KS.FILL_RING_PAD)
+               for q, t in sizes)
+    assert not all(_ring_schedule_holds(q, t, 40) for q, t in sizes)
+
+
 def test_host_route_is_counted():
     """An empty side takes ksw2_splice.exts2 and is counted; options with
     q2 <= q + e or a matrix past the gate send every fill there."""
@@ -307,6 +415,46 @@ def test_chunks_split_by_budget(monkeypatch):
     got = KS.exts2_fill_batch(meta, qb, tb, jb, fl, prm, "cpu", st)
     assert st.chunks >= 3
     assert fill_result_err(got, want) == 0
+
+
+def test_smoke_holds_each_fill_of_at_most_n_rows(monkeypatch):
+    """chip_smoke's per-fill twin selection: the fills of at most n rows
+    are a suffix of each launch (longest first), and one twin run over
+    those suffixes of every launch (re-based by _splice_suffix and
+    merged) gives each fill the scores, direction bytes and CIGAR slots
+    its own launch gave it."""
+    from chip_smoke import (_merge_splice_calls, _splice_suffix,
+                            recording_splice)
+    from mm2_gb_tpu_torch.utils import gpucfg
+    _name, meta, qb, tb, jb, fl, prm = WORKLOADS[0]
+    monkeypatch.setattr(gpucfg, "CPU_FILL_CHUNK_BYTES", 1_200_000)
+    with recording_splice() as calls:
+        KS.exts2_fill_batch(meta, qb, tb, jb, fl, prm, "cpu")
+    assert len(calls) >= 3
+    n_rows = 1100
+    cut = []
+    for c in calls:
+        rows = (c[0][6] + c[0][7]).numpy()
+        assert (np.diff(rows) <= 0).all()
+        cut.append(int((rows > n_rows).sum()))
+    held = [(i, k0) for i, k0 in enumerate(cut)
+            if k0 < calls[i][0][6].shape[0]]
+    assert len(held) >= 2 and any(k0 > 0 for _i, k0 in held)
+    fa, ba, bases = _merge_splice_calls([_splice_suffix(calls[i], k0)
+                                         for i, k0 in held])
+    sc_t, p_t = KS.exts2_fill_torch(*fa)
+    cg_t, nc_t = K.ksw2_backtrack_torch(p_t, *ba)
+    for (i, k0), (f0, p0, c0) in zip(held, bases):
+        (fa_i, sc, _fp, ba_i, cig, nc) = calls[i]
+        n = fa_i[6].shape[0] - k0
+        po, co = fa_i[9], ba_i[4]
+        _sc, p = KS.exts2_fill_torch(*fa_i)
+        assert torch.equal(sc_t[f0:f0 + n], sc[k0:])
+        assert torch.equal(p_t[p0:p0 + fa_i[10] - int(po[k0])],
+                           p[int(po[k0]):])
+        assert torch.equal(cg_t[c0:c0 + int(co[-1] - co[k0])],
+                           cig[int(co[k0]):])
+        assert torch.equal(nc_t[f0:f0 + n], nc[k0:])
 
 
 @pytest.mark.slow
