@@ -14,12 +14,17 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    against the port's host oracle (`chain_scores_host`, the reference DP
    at max_skip = inf), exact (tolerance 0: all outputs are integers), on
    small, dense, multi-segment, repeat, wide-window and is_cdna
-   workloads; the kernel's mg_log2 against the twin's bit for bit; the
-   gap-fill kernels (extd2_fill, ksw2_backtrack) against their twins and
-   against ksw2.extd2 (score and CIGAR, exact) on seeded fill workloads:
-   five presets' penalties, RIGHT and REV_CIGAR on and off, N bases,
-   indel-rich and unrelated pairs, bands from 16 to the whole matrix,
-   the q/e swap, pairs to 5 kb, and the host routes (collapse, mat gate);
+   workloads, one whose segments fall in every class of the kernel's
+   launch (a warp, a group of warps, the block with the window in its
+   ring or in global memory), equal totals spread over a block's warps
+   and gap differences across 2^24; the kernel's mg_log2 against the
+   twin's bit for bit; the gap-fill kernels (extd2_fill, ksw2_backtrack)
+   against their twins and against ksw2.extd2 (score and CIGAR, exact)
+   on seeded fill workloads: five presets' penalties, RIGHT and
+   REV_CIGAR on and off, N bases, indel-rich and unrelated pairs, bands
+   from 16 to the whole matrix, the q/e swap, pairs to 5 kb and one of 7
+   kb (the fill kernel's state in global scratch), warp- and block-class
+   fills in one launch, and the host routes (collapse, mat gate);
 3. end to end through the CLI entry point, `--gpu-chain
    --max-chain-skip=2147483647`: byte-identical to the sim200 goldens
    (with and without --cs -c, and with --gpu-align for --cs -c and
@@ -93,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import inspect
 import io
 import json
 import os
@@ -161,7 +167,9 @@ def synthetic_anchors(n, seed, step_hi=12, jitter=6):
 
 def workloads():
     """Analogs of tests/test_chain_tpu.py:39-74, a window wider than the
-    TPU kernel's largest (5120), and an is_cdna case."""
+    TPU kernel's largest (5120), an is_cdna case, and the chain kernel's
+    classes, ties and float limits (class_anchors, tie_anchors,
+    far_anchors)."""
     import numpy as np
     cg = float(np.float32(float(np.float32(0.8)) * 0.01 * 15))
     base = dict(max_dist_x=5000, max_dist_y=5000, bw=500, max_iter=5000,
@@ -186,6 +194,60 @@ def workloads():
     yield ("is_cdna", *synthetic_anchors(2000, 11, step_hi=40, jitter=300),
            dict(base, max_dist_y=2000, cs=float(np.float32(0.3)),
                 is_cdna=True))
+    yield ("every_class", *class_anchors(),
+           dict(base, max_dist_x=50000, max_dist_y=50000, max_iter=40000))
+    yield "ties_across_warps", *tie_anchors(), dict(base, bw=5000, cg=0.0)
+    yield ("dd_2p24", *far_anchors(),
+           dict(base, max_dist_x=2**25, max_dist_y=2**25, bw=2**26, cg=0.0))
+
+
+def class_anchors():
+    """One read whose segments fall in every class of the chain kernel
+    (chain_gpu.segment_shape at max_dist_x 50,000 and max_iter 40,000):
+    short ones of 2 to 256 anchors (a warp), mid ones of 257 to 1024 (a
+    group of four warps), long ones with the window in the block's ring
+    (1,025 and 2,000 anchors; 5,000 anchors ~40 bp apart, widest range
+    ~1,250), and one of 4,500 dense anchors whose widest range (~4,500)
+    is past the ring, which reads its window from global memory."""
+    import numpy as np
+    xs, ys, off = [], [], 0
+    for k, (n, step) in enumerate(((2, 12), (30, 12), (256, 12), (257, 12),
+                                   (700, 12), (1024, 12), (1025, 12),
+                                   (2000, 12), (5000, 80), (4500, 2))):
+        ax, ay = synthetic_anchors(n, 100 + k, step_hi=step)
+        xs.append(ax + np.uint64(off))
+        ys.append(ay + np.uint64(off))
+        off += int(ax[-1]) + 100_000
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def tie_anchors():
+    """Equal totals spread over the warps of a block: 1,500 anchors on an
+    anti-diagonal (no pair among them is valid, so each keeps f = span),
+    then 10 more on it (no pair among them either), each of which sees
+    ~200 of the first at a gap difference dd in [255, 1022], where at
+    cg = 0 the penalty int(0.5 * mg_log2(dd + 1)) is 4 for all: the
+    largest i must win."""
+    import numpy as np
+    k = np.arange(1500)
+    rpos = np.concatenate([1000 + k, 3300 + 7 * np.arange(10)])
+    qpos = np.concatenate([100_000 - k, 98_800 - 7 * np.arange(10)])
+    return (rpos.astype(np.uint64),
+            (np.uint64(15) << np.uint64(32)) | qpos.astype(np.uint64))
+
+
+def far_anchors():
+    """200 anchors ~2^24 apart on the reference and 1,000 on the query:
+    the gap difference dd of neighbours straddles 2^24 (where dd + 1
+    rounds as a float32) and that of anchors two apart 2^25; at cg = 0
+    the penalty is int(0.5 * mg_log2(dd + 1)), 11 to 12 a link."""
+    import numpy as np
+    rng = np.random.default_rng(24)
+    step = (2**24 + 1000 + rng.integers(-8, 9, 200)).astype(np.int64)
+    rpos = np.cumsum(step) - step[0] + 1
+    qpos = 1000 * np.arange(1, 201)
+    return (rpos.astype(np.uint64),
+            (np.uint64(15) << np.uint64(32)) | qpos.astype(np.uint64))
 
 
 def kernel_operands(ax, ay, read_bounds, a, device):
@@ -320,12 +382,13 @@ def fill_pairs(rng, n, min_len, max_len):
     return pairs, ws
 
 
-def fill_workloads(n_pairs=96, max_len=600, long_len=5000):
+def fill_workloads(n_pairs=96, max_len=600, long_len=5000, huge_len=0):
     """(name, meta, qblob, tblob, params, flag) of the fill checks: pairs
     of 1..max_len bp under the penalties of five presets, each with RIGHT
     and REV_CIGAR on and off; the q/e swap case (q+e > q2+e2); pairs of
-    max_len..long_len bp (state in global scratch past ~4.5 kb); a matrix
-    that fails the mat gate."""
+    max_len..long_len bp and, when huge_len, one of huge_len bp (the
+    fill kernel's state in global scratch past ~6 kb); a matrix that
+    fails the mat gate."""
     import numpy as np
     from mm2_gb_tpu_torch.ops import ksw2
     from mm2_gb_tpu_torch.utils import opts as O
@@ -347,11 +410,12 @@ def fill_workloads(n_pairs=96, max_len=600, long_len=5000):
                K.fill_params_from(mat, 24, 1, 4, 2), flag)
     _io, mo = O.set_preset(None)
     pairs, ws = fill_pairs(rng, 12, max_len, long_len)
-    t = rng.integers(0, 4, long_len).astype(np.uint8)
-    q = t.copy()
-    q[rng.random(long_len) < 0.05] = 1
-    pairs.append((q, t))
-    ws.append(-1)
+    for n in (long_len, huge_len) if huge_len else (long_len,):
+        t = rng.integers(0, 4, n).astype(np.uint8)
+        q = t.copy()
+        q[rng.random(n) < 0.05] = 1
+        pairs.append((q, t))
+        ws.append(-1)
     yield "long", *_pack_fills(pairs, ws), K.fill_params(mo), am
     pairs, ws = fill_pairs(rng, max(8, n_pairs // 8), 1, max_len)
     yield ("mat_gate", *_pack_fills(pairs, ws),
@@ -487,7 +551,7 @@ def phase2_fills():
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     dev = torch.device("cuda")
     err = 0
-    for name, meta, qb, tb, prm, flag in fill_workloads():
+    for name, meta, qb, tb, prm, flag in fill_workloads(huge_len=7000):
         st = K.FillStats()
         with recording_fills() as calls:
             got = K.extd2_fill_batch(meta, qb, tb, prm, dev, flag, st)
@@ -507,6 +571,8 @@ def phase2_fills():
             fail("the mat gate did not route every fill to the host")
         if name != "mat_gate" and not (0 < st.host_fills < st.fills):
             fail(f"fill workload {name}: no collapse case on the host")
+        if name == "long" and not st.scratch_fills:
+            fail("no fill took the global-scratch state")
         err = max(err, e_tw)
     return err
 
@@ -1994,13 +2060,18 @@ def phase4(calls):
     twin = {0, len(calls) - 1}
     err, ms, plain_ms = 0, 0.0, 0.0
     for i, (args, kw, f, p) in enumerate(calls):
+        # the kernel with the launch's own shape; the twin takes the
+        # chain parameters alone
+        kw = {k: v for k, v in kw.items() if k != "events"}
         runs = [timed(G.chain_segments, args, kw) for _ in range(KERNEL_REPS)]
         t_kern = sorted(t for _out, t in runs)[KERNEL_REPS // 2]
         e = max(max(_max_err(fk, f), _max_err(pk, p))
                 for (fk, pk), _t in runs)
         msg = ""
         if i in twin:
-            (ft, pt), t_plain = timed(G.chain_segments_torch, args, kw)
+            (ft, pt), t_plain = timed(
+                G.chain_segments_torch, args,
+                {k: v for k, v in kw.items() if k != "shape"})
             e = max(e, _max_err(f, ft), _max_err(p, pt))
             plain_ms += t_plain
             msg = f", twin {t_plain:.3f} ms"
@@ -2223,6 +2294,18 @@ def _walk_steps(cig, n_cig, cig_off):
     return steps
 
 
+def chain_launch_shape(rng, seg_start, seg_end):
+    """(work segments, the longest one's anchors, its pairs: sum(rng)
+    over it) of a chain launch's operands."""
+    import torch
+    lens = (seg_end - seg_start).long()
+    if lens.numel() == 0:
+        return 0, 0, 0
+    k = int(lens.argmax())
+    s, e = int(seg_start[k]), int(seg_end[k])
+    return lens.shape[0], e - s, int(rng[s:e].sum(dtype=torch.int64))
+
+
 def dp_launches(root, budget, cdna, fc):
     """`chip_smoke.py --dp-launches ROOT BUDGET ...` (a subprocess of
     dp_turns): the port found under ROOT maps the cDNA set at `-ax splice
@@ -2230,7 +2313,10 @@ def dp_launches(root, budget, cdna, fc):
     every exts2_fill, extd2_fill and backtrack launch is reported: its
     fills, the longest fill's rows (qlen + tlen - 1) or the longest walk
     (steps), the launch's ms (the CUDA events its wrapper records right
-    around the launch) and the µs per row or step.  BUDGET replaces
+    around the launch) and the µs per row or step; and every
+    chain_segments launch: its anchors, work segments, the longest
+    segment's anchors and pairs, ms, and µs per step (anchor) of the
+    longest segment.  BUDGET replaces
     gpucfg.FILL_CHUNK_BYTES (bytes; "-": the tree's own).  The last line
     is a JSON object of the launches and each output's sha256."""
     import hashlib
@@ -2244,6 +2330,10 @@ def dp_launches(root, budget, cdna, fc):
         fail(f"imported the port from {cli.__file__}, not {root}")
     if budget != "-":
         gpucfg.FILL_CHUNK_BYTES = int(budget)
+    # built and loaded before the runs, so that no launch's time holds it
+    # (a tree whose chain wrapper takes no events is timed around its call)
+    from mm2_gb_tpu_torch.utils import kernels
+    kernels.library()
     recs = []
 
     def wrap(mod, name, kind, ql_at):
@@ -2263,10 +2353,30 @@ def dp_launches(root, budget, cdna, fc):
             return out
         setattr(mod, name, rec)
         return lambda: setattr(mod, name, fn)
+    def wrap_chain():
+        from mm2_gb_tpu_torch.ops import chain_gpu as G
+        fn = G.chain_segments
+        own = "events" in inspect.signature(fn).parameters
+
+        def rec(*a, **kw):
+            if own:
+                out = fn(*a, **kw)
+                ev = kw["events"]
+            else:   # a tree whose wrapper takes no events: around its call
+                ev = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+                ev[0].record()
+                out = fn(*a, **kw)
+                ev[1].record()
+            recs.append(["chain", "chain_segments", a[0].shape[0], a[2:5],
+                         ev, None])
+            return out
+        G.chain_segments = rec
+        return lambda: setattr(G, "chain_segments", fn)
     undo = [wrap(KS, "exts2_fill", "fill", 6),
             wrap(KS, "ksw2_backtrack", "walk", 0),
             wrap(K, "extd2_fill", "fill", 4),
-            wrap(K, "ksw2_backtrack", "walk", 0)]
+            wrap(K, "ksw2_backtrack", "walk", 0), wrap_chain()]
     runs = {}
     try:
         for what, flags, (ref, reads) in (
@@ -2286,6 +2396,15 @@ def dp_launches(root, budget, cdna, fc):
                           "wall_s": wall, "launches": []}
             for kind, name, n, longest, ev, extra in recs[first:]:
                 ms = ev[0].elapsed_time(ev[1])
+                if kind == "chain":
+                    segs, longest, pairs = chain_launch_shape(*longest)
+                    runs[what]["launches"].append(
+                        [name, n, longest, ms, [segs, pairs]])
+                    log(f"{what} {name}: {n} anchors, {segs} work segments, "
+                        f"the longest {longest} anchors and {pairs} pairs, "
+                        f"{ms:.3f} ms, {ms * 1e3 / max(longest, 1):.4f} µs "
+                        "per step of the longest segment")
+                    continue
                 runs[what]["launches"].append([name, n, longest, ms, extra])
                 unit = "rows of the longest fill" if kind == "fill" else \
                     "steps of the longest walk"

@@ -16,23 +16,47 @@
 //
 // What bounds it: dependent latency, not bytes.  f[j] needs the final
 // f[i] of its whole predecessor window, so a segment is a chain of
-// n_seg dependent steps, each a load of the window plus a reduction.
-// The design (mm2-gb's warp-per-segment short kernel, plscore.cu) hides
-// that latency with many segments in flight instead of within one:
-//   - one warp owns one segment; segments are taken longest-first from
-//     an atomic work counter, so the longest dependent chains start
-//     first and short ones fill in behind them;
-//   - for each j the window starts at the first anchor whose range
-//     reaches j (a pointer that only moves forward), so the lanes walk
-//     the live predecessors and not the segment's widest range;
-//   - the 32 lanes split that window (coalesced loads of x, y, rng and
-//     f from global memory, L1/L2 resident);
-//   - a warp shuffle reduction over packed (total << 32 | i) keys picks
-//     the maximum total and, on a tie, the largest i;
-//   - lane 0 writes f[j], p[j]; __syncwarp() orders that store before the
-//     next step's loads.
-// Shared-memory staging of the window and block-per-long-segment
-// scheduling are later work.
+// n_seg dependent steps, each a pass over the window plus a reduction.
+// The first port ran a warp per segment and read the window from global
+// memory: the flowcell's launches lasted as long as their longest segment
+// (~9,600 anchors, ~470 predecessors a step) at 2.5-2.9 us a step, the
+// latency of a ballot scan, window/32 rounds of L1/L2 loads and a
+// 5-level shuffle reduction.  The design (mm2-gb's size-classed split,
+// plscore.cu:330-451, with the window in shared memory):
+//   - size classes, chosen per segment by the wrapper
+//     (chain_gpu.segment_shape): a warp per short segment (at most
+//     SHORT_LEN anchors), a group of four warps per mid segment (at most
+//     MID_LEN), the whole block of 512 threads per long one.  One
+//     persistent launch holds them all: every block first takes long
+//     segments from an atomic queue, longest first, then its four groups
+//     take mid segments and then its warps short ones from queues of
+//     their own, so the longest dependent chains start first and the rest
+//     fill in behind them (one launch: a launch per class would run the
+//     classes one after the other);
+//   - the window in shared memory: a unit (the block, a group, a warp)
+//     keeps x, y, rng and f of its segment's anchors in a ring of its
+//     share of the block's RING_SLOTS slots, anchor i in slot i mod the
+//     unit's slots.  Every NT steps (NT the unit's threads) the unit loads
+//     the next NT anchors; a slot is overwritten only once no later
+//     window reaches it, which holds when the segment fits the ring or its
+//     widest range plus NT fits it (segment_shape checks it).  A long
+//     segment whose widest range is larger reads its window from global
+//     memory inside the kernel (the same code, another address space);
+//   - the forward pointer lo (the first i whose range reaches j) for the
+//     unit's next NT steps is computed with those loads, each warp
+//     scanning its 32 steps by ballots from a bound it already holds, so
+//     no scan sits on a step's chain;
+//   - a step splits the window's pairs over the unit's threads, reduces
+//     (total, i) per warp with two __reduce_max_sync (the largest total,
+//     then the largest i at it), and across the unit's warps through
+//     parity slots read after one barrier; thread 0 writes f[j], p[j] to
+//     the ring and to global memory, and takes the pair (j, j + 1) of the
+//     next step itself, so one barrier a step orders everything.
+// What bounds it now: the longest segment's steps, ~0.53 us each for a
+// block alone on ~460 pairs (PERF.md); a step pipelined so that warp 0
+// finishes f[j] while the other warps pass over j + 1's window was
+// exact but slower (0.63 us), so the pass over the window, not the
+// barrier or the reduction, holds a step.
 //
 // Numerics: every float product and sum is written with __fmul_rn /
 // __fadd_rn so nvcc cannot contract it into an FMA (the host oracle
@@ -98,75 +122,220 @@ __device__ __forceinline__ int pair_total(int xs, int ys, int xp, int yp,
   return wrap_add(sc, fp);
 }
 
-constexpr int kWarpsPerBlock = 4;
+// the block (chain_gpu.CHAIN_THREADS), a mid segment's group of warps
+// (chain_gpu.GROUP_THREADS), and blocks an SM holds (at most 64
+// registers a thread)
+constexpr int kChainThreads = 512;
+constexpr int kChainWarps = kChainThreads / 32;
+constexpr int kGroupThreads = 128;
+constexpr int kGroups = kChainThreads / kGroupThreads;
+constexpr int kChainBlocksPerSm = 2;
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-chain_segments_kernel(const int* __restrict__ x, const int* __restrict__ y,
-                      const int* __restrict__ rng,
-                      const int* __restrict__ seg_start,
-                      const int* __restrict__ seg_end, int n_work,
-                      int* __restrict__ work_counter, int* f, int* p,
-                      ChainParams c) {
-  const int lane = threadIdx.x & 31;
-  for (;;) {
-    int k = 0;
-    if (lane == 0) k = atomicAdd(work_counter, 1);
-    k = __shfl_sync(0xffffffffu, k, 0);
-    if (k >= n_work) return;
-    const int s = seg_start[k];
-    const int e = seg_end[k];
+struct ChainArgs {
+  const int* x;
+  const int* y;
+  const int* rng;
+  int* f;   // not __restrict__: a segment read from global memory reads
+  int* p;   // back the f it wrote
+  const int4* work;   // start, end, widest range, ring (1) or global (0)
+  ChainParams c;
+};
 
-    if (lane == 0) {
-      f[s] = c.span;
-      p[s] = 0;
-    }
+// a unit's window: its ring in shared memory (x, y, rng, f of anchor i in
+// slot i & mask), or the arrays in global memory (mask -1; only f is
+// written then)
+struct Window {
+  int* x;
+  int* y;
+  int* rng;
+  int* f;
+  int mask;
+};
+
+// the barrier of a unit of NT threads: a warp, a group (named barrier
+// bar), the block
+template <int NT>
+__device__ __forceinline__ void unit_sync(int bar) {
+  if (NT == 32)
     __syncwarp();
-    // lo = the first i whose reach i + rng[i] covers j.  It never moves
-    // back as j grows (an i skipped for j cannot reach j + 1 either), so
-    // the warp advances it 32 anchors per ballot; for ranges from
-    // compute_ranges (reach nondecreasing) [lo, j) is exactly the set of
-    // predecessors, in general a superset that the range test filters.
-    int lo = s;
-    for (int j = s + 1; j < e; ++j) {
-      for (;;) {
-        const int i = lo + lane;
-        const bool stop = i >= j || i + rng[i] >= j;
-        const unsigned hit = __ballot_sync(0xffffffffu, stop);
-        if (hit) {
-          lo = min(lo + __ffs(hit) - 1, j);
-          break;
-        }
-        lo += 32;
+  else if (NT == kChainThreads)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(NT) : "memory");
+}
+
+// The batch of a unit of NT threads at step jb: anchors [jb, jb + NT) of
+// segment [s, e) into the ring (their slots held anchors below
+// jb + NT - (mask + 1) <= jb - W, which no window from jb on reads; W >=
+// the segment's widest range), and lo of the successors j in
+// [jb, jb + NT) into lo_of[j & (NT - 1)]: the first i >= s with
+// i + rng[i] >= j, or j.  lo is nondecreasing in j and at least j - W, so
+// warp w, taking the 32 successors from jb + 32 w, scans from the larger
+// of j - W and its lo of NT successors before (the same slot of lo_of).
+template <int NT, bool RING>
+__device__ __forceinline__ void chain_batch(const ChainArgs& A, int s, int e,
+                                            int W, int tid, int bar,
+                                            const Window& win, int* lo_of,
+                                            int jb) {
+  const int lane = tid & 31, warp = tid >> 5, M = win.mask;
+  if (RING && jb + tid < e) {
+    const int a = jb + tid, sl = a & M;
+    win.x[sl] = A.x[a];
+    win.y[sl] = A.y[a];
+    win.rng[sl] = A.rng[a];
+    if (a == s) win.f[sl] = A.c.span;
+  }
+  const int j0 = jb + 32 * warp;
+  int lo = jb == s ? s : lo_of[j0 & (NT - 1)];
+  lo = max(lo, max(s, j0 - W));
+  unit_sync<NT>(bar);   // the ring's new anchors, and lo_of read
+  for (int k = 0; k < 32 && j0 + k < e; ++k) {
+    const int j = j0 + k;
+    for (;;) {
+      const int i = lo + lane;
+      const bool stop = i >= j || i + win.rng[i & M] >= j;
+      const unsigned hit = __ballot_sync(0xffffffffu, stop);
+      if (hit) {
+        lo = min(lo + __ffs(hit) - 1, j);
+        break;
       }
-      const int xs = x[j];
-      const int ys = y[j];
-      // key = total << 32 | i: the max is the best total, then largest i
-      long long best = LLONG_MIN;
-      for (int i = j - 1 - lane; i >= lo; i -= 32) {
-        if (j - i > rng[i]) continue;
-        bool valid;
-        int tot = pair_total(xs, ys, x[i], y[i], f[i], c, &valid);
-        if (!valid || tot == c.span) continue;
-        long long key = (long long)(((unsigned long long)(unsigned)tot << 32)
-                                    | (unsigned)i);
-        best = key > best ? key : best;
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        long long other = __shfl_xor_sync(0xffffffffu, best, o);
-        best = other > best ? other : best;
-      }
-      if (lane == 0) {
-        int tot = best == LLONG_MIN ? INT_MIN : (int)(best >> 32);
-        if (tot >= c.span) {
-          f[j] = tot;
-          p[j] = j - (int)(unsigned)(best & 0xffffffffLL);
-        } else {
-          f[j] = c.span;
-          p[j] = 0;
-        }
-      }
-      __syncwarp();
+      lo += 32;
     }
+    if (lane == 0) lo_of[j & (NT - 1)] = lo;
+  }
+  unit_sync<NT>(bar);
+}
+
+// The best (total, i) over the pairs (i, j), i in [lo, hi], that thread
+// t of n takes (i = hi - t, hi - t - n, ...), reduced over its warp: the
+// largest total, and at it the largest i ((INT_MIN, -1): none).  A pair
+// out of i's range, invalid, or with a total equal to span is no
+// candidate.
+__device__ __forceinline__ int2 best_pair(const ChainArgs& A,
+                                          const Window& win, int j, int lo,
+                                          int hi, int t, int n) {
+  const int M = win.mask, sj = j & M;
+  const int xs = win.x[sj], ys = win.y[sj];
+  int bt = INT_MIN, bi = -1;   // i falls: the first i at a total is the
+  for (int i = hi - t; i >= lo; i -= n) {   // largest
+    const int sl = i & M;
+    if (j - i > win.rng[sl]) continue;
+    bool valid;
+    const int tot = pair_total(xs, ys, win.x[sl], win.y[sl], win.f[sl], A.c,
+                               &valid);
+    if (!valid || tot == A.c.span) continue;
+    if (tot > bt) {
+      bt = tot;
+      bi = i;
+    }
+  }
+  const int wt = __reduce_max_sync(0xffffffffu, bt);
+  return make_int2(wt, __reduce_max_sync(0xffffffffu, bt == wt ? bi : -1));
+}
+
+// f[j], p[j] from the best candidate (a total equal to span never was one)
+__device__ __forceinline__ void chain_store(const ChainArgs& A, Window& win,
+                                            bool ring, int j, int2 best) {
+  const bool acc = best.x >= A.c.span;
+  const int fj = acc ? best.x : A.c.span;
+  if (ring) win.f[j & win.mask] = fj;
+  A.f[j] = fj;
+  A.p[j] = acc ? j - best.y : 0;
+}
+
+// Segment [s, e) (e - s >= 2) by the NT threads of a unit, tid in
+// [0, NT); W >= its widest range.  RING: the window in the unit's ring
+// (win, in shared memory, whose slots hold the segment or W + NT
+// anchors), else in global memory.  lo_of: NT ints, slot: 2 x NT / 32
+// int2 of the unit's in shared memory.  Step j's pairs go over the
+// unit's threads; each warp reduces its own, and in a unit of several
+// warps lane k of every warp reads warp k's best from the slots of j's
+// parity after one barrier (the next write to them is two steps later,
+// after another barrier).  Thread 0 stores f[j], and takes the pair
+// (j, j + 1) of the next step itself, so that no barrier is needed for
+// the f it reads.
+template <int NT, bool RING>
+__device__ void chain_one(const ChainArgs& A, int s, int e, int W, int tid,
+                          int bar, Window win, int* lo_of, int2* slot) {
+  constexpr int NW = NT / 32;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (!RING)
+    win = Window{const_cast<int*>(A.x), const_cast<int*>(A.y),
+                 const_cast<int*>(A.rng), A.f, -1};
+  if (tid == 0) {
+    A.f[s] = A.c.span;
+    A.p[s] = 0;
+  }
+  chain_batch<NT, RING>(A, s, e, W, tid, bar, win, lo_of, s);
+  for (int j = s + 1; j < e; ++j) {
+    if (((j - s) & (NT - 1)) == 0)
+      chain_batch<NT, RING>(A, s, e, W, tid, bar, win, lo_of, j);
+    int2 best = best_pair(A, win, j, lo_of[j & (NT - 1)], j - 1, tid, NT);
+    if (NT > 32) {
+      int2* par = slot + (j & 1) * NW;
+      if (lane == 0) par[warp] = best;
+      unit_sync<NT>(bar);
+      const int2 v = lane < NW ? par[lane] : make_int2(INT_MIN, -1);
+      const int wt = __reduce_max_sync(0xffffffffu, v.x);
+      best = make_int2(wt,
+                       __reduce_max_sync(0xffffffffu, v.x == wt ? v.y : -1));
+    }
+    if (tid == 0) chain_store(A, win, RING, j, best);
+    if (NT == 32) __syncwarp();
+  }
+}
+
+// work: n_long long segments, then n_mid mid and n_short short ones, each
+// class longest first; counters: three zeroed ints; ring_slots: the
+// block's ring (a power of two, 16 bytes a slot of dynamic shared memory)
+__global__ void __launch_bounds__(kChainThreads, kChainBlocksPerSm)
+chain_segments_kernel(ChainArgs A, int n_long, int n_mid, int n_short,
+                      int* __restrict__ counters, int ring_slots) {
+  extern __shared__ __align__(16) int ring[];
+  __shared__ int lo_of[kChainThreads];
+  __shared__ int2 slot[2 * kChainWarps];
+  __shared__ int item[kGroups];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto window = [&](int unit, int units) {
+    const int n = ring_slots / units, o = unit * n;
+    return Window{ring + o, ring + ring_slots + o, ring + 2 * ring_slots + o,
+                  ring + 3 * ring_slots + o, n - 1};
+  };
+  for (;;) {   // long segments: the block each
+    if (tid == 0) item[0] = atomicAdd(&counters[0], 1);
+    __syncthreads();
+    const int k = item[0];
+    __syncthreads();
+    if (k >= n_long) break;
+    const int4 w = A.work[k];
+    if (w.w)
+      chain_one<kChainThreads, true>(A, w.x, w.y, w.z, tid, 0, window(0, 1),
+                                     lo_of, slot);
+    else
+      chain_one<kChainThreads, false>(A, w.x, w.y, w.z, tid, 0, Window{},
+                                      lo_of, slot);
+  }
+  const int g = tid / kGroupThreads, gt = tid % kGroupThreads;
+  for (;;) {   // mid segments: a group of four warps each
+    if (gt == 0) item[g] = n_long + atomicAdd(&counters[1], 1);
+    unit_sync<kGroupThreads>(1 + g);
+    const int k = item[g];
+    unit_sync<kGroupThreads>(1 + g);
+    if (k >= n_long + n_mid) break;
+    const int4 w = A.work[k];
+    chain_one<kGroupThreads, true>(
+        A, w.x, w.y, w.z, gt, 1 + g, window(g, kGroups),
+        lo_of + g * kGroupThreads, slot + g * 2 * (kGroupThreads / 32));
+  }
+  for (;;) {   // short segments: a warp each
+    int k = 0;
+    if (lane == 0) k = n_long + n_mid + atomicAdd(&counters[2], 1);
+    k = __shfl_sync(0xffffffffu, k, 0);
+    if (k >= n_long + n_mid + n_short) break;
+    const int4 w = A.work[k];
+    chain_one<32, true>(A, w.x, w.y, w.z, lane, 0,
+                        window(warp, kChainWarps), lo_of + warp * 32,
+                        nullptr);
   }
 }
 
@@ -180,26 +349,35 @@ __global__ void mg_log2_kernel(const float* __restrict__ in,
 
 extern "C" {
 
-// Chains the segments [seg_start[k], seg_end[k]) for k < n_work, in that
-// order of work.  f and p of anchors outside every listed segment are
-// not written.  work_counter is one zeroed int on the device.  Returns
-// the CUDA error of the launch (0 on success).
+// Chains the segments of work (int32 [n_long + n_mid + n_short, 4]:
+// start, end, widest range, ring flag; chain_gpu.segment_shape) on
+// n_blocks persistent blocks of `threads` (the kernel's 512).  f and p of
+// anchors outside every listed segment are not written.  counters is
+// three zeroed ints on the device; ring_slots a power of two, the
+// block's ring.  Returns the CUDA error of the launch (0 on success).
 int mm2_chain_segments(const void* x, const void* y, const void* rng,
-                       const void* seg_start, const void* seg_end,
-                       int n_work, void* work_counter, void* f, void* p,
-                       int span, int max_dist_x, int max_dist_y, int bw,
-                       float cg, float cs, int is_cdna, int n_blocks,
-                       void* stream) {
-  if (n_work <= 0) return 0;
-  ChainParams c{span, max_dist_x, max_dist_y, bw, is_cdna, cg, cs};
-  chain_segments_kernel<<<n_blocks, 32 * kWarpsPerBlock, 0,
+                       const void* work, int n_long, int n_mid, int n_short,
+                       void* counters, void* f, void* p, int span,
+                       int max_dist_x, int max_dist_y, int bw, float cg,
+                       float cs, int is_cdna, int n_blocks, int threads,
+                       int ring_slots, void* stream) {
+  if (n_long + n_mid + n_short <= 0) return 0;
+  if (threads != kChainThreads || ring_slots < kChainThreads ||
+      (ring_slots & (ring_slots - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = 16 * ring_slots;
+  cudaError_t rc = cudaFuncSetAttribute(
+      chain_segments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (rc != cudaSuccess) return (int)rc;
+  ChainArgs a{(const int*)x, (const int*)y, (const int*)rng, (int*)f,
+              (int*)p, (const int4*)work,
+              ChainParams{span, max_dist_x, max_dist_y, bw, is_cdna, cg, cs}};
+  chain_segments_kernel<<<n_blocks, kChainThreads, smem,
                           (cudaStream_t)stream>>>(
-      (const int*)x, (const int*)y, (const int*)rng, (const int*)seg_start,
-      (const int*)seg_end, n_work, (int*)work_counter, (int*)f, (int*)p, c);
+      a, n_long, n_mid, n_short, (int*)counters, ring_slots);
   return (int)cudaGetLastError();
 }
-
-int mm2_chain_warps_per_block(void) { return kWarpsPerBlock; }
 
 // Test entry: the kernel's mg_log2 applied elementwise.
 int mm2_mg_log2(const void* in, void* out, int n, void* stream) {

@@ -2,9 +2,10 @@
 
 Port of the host half of mm2_gb_tpu/ops/chain_tpu.py and of
 ops/chain_xla.py.  The device DP is the hand-written CUDA kernel in
-csrc/chain_kernel.cu (warp per segment); `chain_segments_torch` is its
-plain PyTorch twin, which the wrapper `chain_segments` takes only for
-tensors on the CPU.
+csrc/chain_kernel.cu (a warp, a group of warps or a block per segment by
+its size, `segment_shape`, the window in shared memory);
+`chain_segments_torch` is its plain PyTorch twin, which the wrapper
+`chain_segments` takes only for tensors on the CPU.
 
 - **Range selection** (`compute_ranges`, plrange.cu:38-76 analog):
   per-anchor successor count, on the host.
@@ -23,6 +24,8 @@ its successor ranges, chains on the device.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
+
 import numpy as np
 import torch
 
@@ -31,6 +34,21 @@ from mm2_gb_tpu_torch.utils import kernels
 INT32_MIN = -(2**31)
 
 launches = 0  # chain kernel launches (chain_segments on CUDA tensors)
+
+# the kernel's block (kChainThreads) and a mid segment's group of warps
+# (kGroupThreads); the block's ring of RING_SLOTS anchors (16 bytes each
+# of shared memory), of which a group takes a quarter and a warp a
+# sixteenth.  A segment of at most SHORT_LEN anchors takes a warp and one
+# of at most MID_LEN a group: their rings hold the whole segment.  A
+# longer one takes the block, with the window in the ring when the
+# segment or its widest range plus CHAIN_THREADS fits it, else read from
+# global memory.
+CHAIN_THREADS = 512
+GROUP_THREADS = 128
+CHAIN_BLOCKS_PER_SM = 2
+RING_SLOTS = 4096
+SHORT_LEN = RING_SLOTS // (CHAIN_THREADS // 32)
+MID_LEN = RING_SLOTS // (CHAIN_THREADS // GROUP_THREADS)
 
 
 # --------------------------------------------------------------------------
@@ -90,6 +108,49 @@ def segment_work(bounds: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     idx = idx[np.argsort(-lens[idx], kind="stable")]
     return (bounds[:-1][idx].astype(np.int32),
             bounds[1:][idx].astype(np.int32))
+
+
+@dataclass
+class SegmentShape:
+    """The chain kernel's work (segment_shape)."""
+    work: np.ndarray | torch.Tensor   # int32 [m, 4]: start, end, widest
+    #   range, 1 when the window is in the ring (0: global memory); the
+    #   long segments, then the mid and the short ones, each longest first
+    n_long: int
+    n_mid: int
+    n_short: int
+
+
+def segment_shape(starts: np.ndarray, ends: np.ndarray,
+                  rng: np.ndarray) -> SegmentShape:
+    """Each segment's class (the unit of threads the kernel gives it) and
+    whether its window fits the unit's ring.  starts, ends: the segments
+    (non-overlapping, e - s >= 2, any order); rng: every anchor's range.
+    A segment of at most SHORT_LEN anchors takes a warp, of at most
+    MID_LEN a group of GROUP_THREADS, else the block; each class is
+    listed longest first (stably), long, mid, short."""
+    starts = np.asarray(starts, np.int64)
+    ends = np.asarray(ends, np.int64)
+    m = starts.shape[0]
+    work = np.zeros((m, 4), np.int32)
+    if m == 0:
+        return SegmentShape(work, 0, 0, 0)
+    # the widest range of each segment: a max over [s, e), taken at the
+    # even entries of the interleaved bounds
+    order = np.argsort(starts, kind="stable")
+    idx = np.stack([starts[order], ends[order]], 1).ravel()
+    wide = np.empty(m, np.int64)
+    wide[order] = np.maximum.reduceat(
+        np.append(np.asarray(rng, np.int64), 0), idx)[::2]
+    lens = ends - starts
+    cls = np.where(lens <= SHORT_LEN, 2, np.where(lens <= MID_LEN, 1, 0))
+    ring = (cls > 0) | (lens <= RING_SLOTS) | (wide + CHAIN_THREADS
+                                                <= RING_SLOTS)
+    pick = np.lexsort((-lens, cls))   # class, then longest first (stable)
+    work[:, 0], work[:, 1] = starts[pick], ends[pick]
+    work[:, 2], work[:, 3] = wide[pick], ring[pick]
+    n = np.bincount(cls, minlength=3)
+    return SegmentShape(work, int(n[0]), int(n[1]), int(n[2]))
 
 
 # --------------------------------------------------------------------------
@@ -222,17 +283,22 @@ def chain_segments_torch(x, y, rng, seg_start, seg_end, *, span,
 
 
 def chain_segments(x, y, rng, seg_start, seg_end, *, span, max_dist_x,
-                   max_dist_y, bw, cg, cs, is_cdna=False):
+                   max_dist_y, bw, cg, cs, is_cdna=False, events=None,
+                   shape=None):
     """Chain DP over the segments [seg_start[k], seg_end[k]).
 
     x, y: low 32 bits of the anchors' (ref, query) positions; rng: the
     successor ranges; all int32 [n].  Returns (f, p) int32 [n]; p is the
     predecessor distance (0 = none); anchors outside every listed
-    segment keep (span, 0).  Segments are processed in the given order,
-    so list them longest first (`segment_work`).
+    segment keep (span, 0).  Segments have at least two anchors and do
+    not overlap (`segment_work` lists them longest first).
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel
-    (built on first use); a build or launch failure raises.
+    (built on first use); a build or launch failure raises.  events: a
+    (start, end) pair of CUDA events recorded right around the launch,
+    after the wrapper's host work, or None.  shape: the segments'
+    `segment_shape` (its work on the device or in numpy), or None to
+    make it here from the segments and ranges (a device-to-host copy).
     """
     global launches
     _check_operands(x, y, rng, seg_start, seg_end)
@@ -246,19 +312,36 @@ def chain_segments(x, y, rng, seg_start, seg_end, *, span, max_dist_x,
     n = x.shape[0]
     f = torch.full((n,), span, dtype=torch.int32, device=x.device)
     p = torch.zeros(n, dtype=torch.int32, device=x.device)
-    n_work = seg_start.shape[0]
-    if n_work == 0:
+    if seg_start.shape[0] == 0:
         return f, p
-    counter = torch.zeros(1, dtype=torch.int32, device=x.device)
-    wpb = lib.mm2_chain_warps_per_block()
+    if shape is None:
+        shape = segment_shape(seg_start.cpu().numpy(), seg_end.cpu().numpy(),
+                              rng.cpu().numpy())
+    work = shape.work
+    if not isinstance(work, torch.Tensor):
+        work = torch.from_numpy(work)
+    work = work.to(x.device).contiguous()
+    if work.dtype != torch.int32 or work.shape != (seg_start.shape[0], 4):
+        raise ValueError("chain_segments: shape.work must be int32 "
+                         f"[{seg_start.shape[0]}, 4]")
+    if work.data_ptr() % 16:   # the kernel reads a row as one int4
+        work = work.clone()
+    counters = torch.zeros(3, dtype=torch.int32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_blocks = min((n_work + wpb - 1) // wpb, sms * (2048 // (32 * wpb)))
+    units = (shape.n_long + -(-shape.n_mid // (CHAIN_THREADS // GROUP_THREADS))
+             + -(-shape.n_short // (CHAIN_THREADS // 32)))
+    n_blocks = max(1, min(units, sms * CHAIN_BLOCKS_PER_SM))
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if events is not None:
+        events[0].record()
     rc = lib.mm2_chain_segments(
-        x.data_ptr(), y.data_ptr(), rng.data_ptr(), seg_start.data_ptr(),
-        seg_end.data_ptr(), n_work, counter.data_ptr(), f.data_ptr(),
-        p.data_ptr(), int(span), int(max_dist_x), int(max_dist_y), int(bw),
-        float(cg), float(cs), int(bool(is_cdna)), n_blocks, stream)
+        x.data_ptr(), y.data_ptr(), rng.data_ptr(), work.data_ptr(),
+        shape.n_long, shape.n_mid, shape.n_short, counters.data_ptr(),
+        f.data_ptr(), p.data_ptr(), int(span), int(max_dist_x),
+        int(max_dist_y), int(bw), float(cg), float(cs), int(bool(is_cdna)),
+        n_blocks, CHAIN_THREADS, RING_SLOTS, stream)
+    if events is not None:
+        events[1].record()
     kernels.check(rc, "chain_segments")
     launches += 1
     return f, p
@@ -387,13 +470,18 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
     t0 = time.perf_counter()
     cuda = device.type == "cuda"
     m = starts.shape[0]
-    host = torch.empty(3 * n + 2 * m, dtype=torch.int32, pin_memory=cuda)
+    # the kernel's work rows first, where the buffer is 16-aligned
+    shape = segment_shape(starts, ends, rng) if cuda else None
+    w = 4 * m if cuda else 0
+    host = torch.empty(w + 3 * n + 2 * m, dtype=torch.int32, pin_memory=cuda)
     hv = host.numpy()
-    hv[:n] = (ax & np.uint64(0xFFFFFFFF)).astype(np.int32)
-    hv[n:2 * n] = (ay & np.uint64(0xFFFFFFFF)).astype(np.int32)
-    hv[2 * n:3 * n] = rng
-    hv[3 * n:3 * n + m] = starts
-    hv[3 * n + m:] = ends
+    if cuda:
+        hv[:w] = shape.work.ravel()
+    hv[w:w + n] = (ax & np.uint64(0xFFFFFFFF)).astype(np.int32)
+    hv[w + n:w + 2 * n] = (ay & np.uint64(0xFFFFFFFF)).astype(np.int32)
+    hv[w + 2 * n:w + 3 * n] = rng
+    hv[w + 3 * n:w + 3 * n + m] = starts
+    hv[w + 3 * n + m:] = ends
     if metrics is not None:
         metrics.t_pack += time.perf_counter() - t0
         metrics.n_dispatch += 1
@@ -407,11 +495,11 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
         t_end = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(stream):
             dev = host.to(device, non_blocking=True)
-            t_start.record(stream)
-            f, p = chain_segments(dev[:n], dev[n:2 * n], dev[2 * n:3 * n],
-                                  dev[3 * n:3 * n + m], dev[3 * n + m:],
+            ops, shape = dev[w:], replace(shape, work=dev[:w].view(m, 4))
+            f, p = chain_segments(ops[:n], ops[n:2 * n], ops[2 * n:3 * n],
+                                  ops[3 * n:3 * n + m], ops[3 * n + m:],
+                                  events=(t_start, t_end), shape=shape,
                                   **params)
-            t_end.record(stream)
             out = torch.empty((2, n), dtype=torch.int32, pin_memory=True)
             out[0].copy_(f, non_blocking=True)
             out[1].copy_(p, non_blocking=True)

@@ -10,9 +10,10 @@ CUDA kernels do the work (csrc/extd2_kernel.cu):
 - `extd2_fill`: the dual affine-gap anti-diagonal DP of
   ops/ksw2.py::extd2 (ksw2_extd2_sse.c semantics: 16-aligned stale
   windows, the unaligned score-row store span, the boundary fallbacks,
-  the approx-max H0 walk), one thread block per fill.  It writes each
-  row's direction bytes over [st, en] into the fill's own region of `p`
-  (rows packed at a running sum of their widths) and the score.
+  the approx-max H0 walk), a warp per narrow fill and a block per wide
+  or long one in one launch (`fill_shape`).  It writes each row's
+  direction bytes over [st, en] into the fill's own region of `p` (rows
+  packed at a running sum of their widths) and the score.
 - `extd2_ext`: the same kernel in extension mode: the H row, the ranked
   row maximum, mqe, mte, Z-drop and the backtrack start of each fill.
 - `ksw2_backtrack`: ksw_backtrack with is_rot (ksw2.h:126-158), a
@@ -50,14 +51,31 @@ ext_launches = 0        # extd2_ext kernel launches (CUDA tensors)
 backtrack_launches = 0  # ksw2_backtrack kernel launches (CUDA tensors)
 start_backtrack_launches = 0   # of those, the ones from per-fill starts
 
-# fills whose state (10 rows of nbytes int8) exceeds this run with their
-# state in a global scratch region instead of shared memory (the default
-# 48 KiB of a block, less the kernel's static slots)
+# extension mode (extd2_ext, a block per fill): fills whose state
+# (EXT_STATE_ROWS rows of nbytes) exceeds this run with their state in a
+# global scratch region instead of shared memory (the default 48 KiB of a
+# block, less the kernel's static slots)
 SMEM_STATE_MAX = 44 * 1024
 # the kernel's state rows: u, y, y2, the score row, and x, v, x2 twice
 # (double-buffered by row parity); extension mode adds the int32 H row
 STATE_ROWS = 10
 EXT_STATE_ROWS = STATE_ROWS + 4
+# fill mode (extd2_fill): the state rows and the target row of nbytes
+# lanes, the reversed query (QUERY_PAD zero bytes before it, 32 after)
+# and the H0 walk's four int32 slots (fill_bytes).  A fill of at most
+# WARP_LANES lanes (nbytes) takes a warp (FILL_WARPS to a block, here and
+# in the splice fill kernel), a wider one a block of 256 threads; a
+# block-class fill past FILL_SMEM_MAX bytes keeps its state in a global
+# scratch region of its own.
+FILL_WARPS = 8
+WARP_LANES = 512
+QUERY_PAD = 16
+# a launch lasts as long as its longest fill, and a block runs a row
+# faster than a warp: the LONG_FILLS longest fills of a launch with at
+# least half its longest fill's rows take a block whatever their width
+# (both fill kernels)
+LONG_FILLS = 132
+FILL_SMEM_MAX = 72 * 1024   # three blocks an SM share its 227 KB
 # extd2_ext's per-fill output: the Extz fields, then the backtrack start
 EXT_FIELDS = ("score", "max", "max_t", "max_q", "mqe", "mqe_t", "mte",
               "mte_q", "zdropped", "reach_end")
@@ -183,6 +201,69 @@ def _windows(r, qlen, tlen, w):
     return st0, en0
 
 
+def fill_bytes(qlen, tlen):
+    """Bytes of a fill's state in the fill kernel, a multiple of 16
+    (numpy arrays)."""
+    nbytes = (np.asarray(tlen, np.int64) + 15) // 16 * 16
+    query = (np.asarray(qlen, np.int64) + QUERY_PAD + 32 + 15) // 16 * 16
+    return (STATE_ROWS + 1) * nbytes + query + 16
+
+
+@dataclass
+class FillShape:
+    """A fill launch over n fills in two classes (class_shape)."""
+    work: np.ndarray      # int32: block-class fills, then warp-class ones
+    #                       (FILL_WARPS to a block, -1 padding)
+    n_block: int          # block-class fills (a block each)
+    n_warp: int           # warp-class fills (a warp each)
+    scr_off: np.ndarray   # int64 [n]: the state's offset in scratch, or -1
+    scratch: int          # bytes of global scratch
+    warp_stride: int      # shared-memory bytes of a warp-class fill
+    smem: int             # dynamic shared memory of a block
+
+
+def class_shape(need, rows, warp_ok, smem_max: int) -> FillShape:
+    """Each fill's class and the launch's shape, for the gap-fill and the
+    splice-fill kernels (numpy arrays of the n fills in launch order:
+    need, the bytes of its state; rows, its rows; warp_ok, whether it is
+    narrow enough for a warp): a warp for a narrow fill, else a block,
+    and a block for the LONG_FILLS longest fills with at least half the
+    longest one's rows; a block-class fill past smem_max keeps its state
+    in scratch.  One launch holds both classes, block-class blocks
+    first, so that every fill of a chunk runs at once; its shared memory
+    is the larger of FILL_WARPS warp-class fills' and the largest
+    block-class fill in shared memory."""
+    need = np.asarray(need, np.int64)
+    rows = np.asarray(rows, np.int64)
+    long = np.zeros(rows.shape[0], bool)
+    if rows.shape[0]:
+        top = np.argsort(-rows, kind="stable")[:LONG_FILLS]
+        long[top[rows[top] * 2 >= rows.max()]] = True
+    warp = np.asarray(warp_ok, bool) & ~long
+    big = ~warp & (need > smem_max)
+    scr_off = np.where(big, np.cumsum(np.where(big, need, 0)) - need, -1)
+    w_idx = np.nonzero(warp)[0]
+    b_idx = np.nonzero(~warp)[0]
+    pad = -len(w_idx) % FILL_WARPS
+    work = np.concatenate([b_idx, w_idx, np.full(pad, -1)]).astype(np.int32)
+    stride = int(need[warp].max()) if len(w_idx) else 0
+    in_smem = ~warp & ~big
+    smem = max(FILL_WARPS * stride,
+               int(need[in_smem].max()) if in_smem.any() else 0, 16)
+    return FillShape(work, len(b_idx), len(w_idx), scr_off.astype(np.int64),
+                     int(need[big].sum()), stride, smem)
+
+
+def fill_shape(qlen, tlen) -> FillShape:
+    """extd2_fill's launch over n fills (numpy arrays, in launch order,
+    longest first): a warp for a fill of at most WARP_LANES lanes, else a
+    block (class_shape, with FILL_SMEM_MAX)."""
+    qlen = np.asarray(qlen, np.int64)
+    tlen = np.asarray(tlen, np.int64)
+    return class_shape(fill_bytes(qlen, tlen), qlen + tlen - 1,
+                       (tlen + 15) // 16 * 16 <= WARP_LANES, FILL_SMEM_MAX)
+
+
 def _c8(v: int) -> int:
     """The int8 value an int truncates to (the kernels' casts)."""
     return ((v + 128) & 255) - 128
@@ -198,7 +279,8 @@ def extd2_fill_torch(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
 
     Anti-diagonals r = 0, 1, ... are stepped in Python; each step is
     vectorized over the fills still that long x the columns of their
-    windows, in int32 holding the kernel's int8 values.  Returns
+    windows, in int8 tensors whose arithmetic wraps as the kernels'
+    int8 casts do.  Returns
     (score int32 [n], p uint8 [p_total]): fill k's row r lies at
     p_off[k] + (sum of its earlier rows' widths), over [st, en]."""
     return _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
@@ -232,7 +314,7 @@ def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     p = torch.zeros(p_total, dtype=torch.uint8, device=dev)
     if n == 0:
         return out, p
-    i64, i32 = torch.int64, torch.int32
+    i64, i8, u8 = torch.int64, torch.int8, torch.uint8
     ql0, tl0 = qlen.to(i64), tlen.to(i64)
     order = torch.argsort(ql0 + tl0, descending=True, stable=True)
     ql, tl, wv = ql0[order], tl0[order], w.to(i64)[order]
@@ -250,23 +332,27 @@ def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     q, e, q2, e2 = prm.qq, prm.ee, prm.qq2, prm.ee2
     nqe, nqe2 = _c8(-q - e), _c8(-q2 - e2)
     qe8, qe28, q8, q28 = _c8(q + e), _c8(q2 + e2), _c8(q), _c8(q2)
-    mat0, mat1, sc_n = prm.mat0, prm.mat1, prm.sc_n
     # state channels per (fill, column): the six DP rows, the score row
-    # and (fixed) the target byte, zero past tlen
+    # and (fixed) the target byte, zero past tlen; int8, so that +, - wrap
+    # as the kernels' int8 casts do
     U, V, X, Y, X2, Y2, S, TB = range(8)
-    st8 = torch.tensor([nqe, nqe, nqe, nqe, nqe2, nqe2, 0, 0], dtype=i32,
+    st8 = torch.tensor([nqe, nqe, nqe, nqe, nqe2, nqe2, 0, 0], dtype=i8,
                        device=dev)
     Z = st8.repeat(n, width, 1)
     cols = torch.arange(width - 2, device=dev)
     tsrc = to[:, None] + torch.minimum(cols, tl[:, None] - 1)
     Z[:, 1:-1, TB] = torch.where(cols < tl[:, None],
-                                 tblob.to(i32)[tsrc], 0)
+                                 tblob.to(i8)[tsrc], 0)
     # the query, one leading zero for r - t < 0
     qw = int(ql.max()) + 1
     qcols = torch.arange(qw - 1, device=dev)
     qsrc = qo[:, None] + torch.minimum(qcols, ql[:, None] - 1)
-    QP = torch.zeros((n, qw), dtype=i32, device=dev)
-    QP[:, 1:] = torch.where(qcols < ql[:, None], qblob.to(i32)[qsrc], 0)
+    QP = torch.zeros((n, qw), dtype=i8, device=dev)
+    QP[:, 1:] = torch.where(qcols < ql[:, None], qblob.to(i8)[qsrc], 0)
+    mat0, mat1, sc_n = prm.mat0, prm.mat1, prm.sc_n
+    c8 = {v: torch.tensor(v, dtype=i8, device=dev)
+          for v in (mat0, mat1, sc_n)}
+    d8 = [torch.tensor(v, dtype=u8, device=dev) for v in range(5)]
     H0 = torch.zeros(n, dtype=i64, device=dev)
     lh = torch.zeros(n, dtype=i64, device=dev)
     last_st = torch.full((n,), -1, dtype=i64, device=dev)
@@ -284,9 +370,6 @@ def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
         mte = mqe.clone()
         dropped = torch.zeros(n, dtype=torch.bool, device=dev)
 
-    def w8(x):   # the kernels' int8 casts
-        return x.to(torch.int8).to(i32)
-
     def bound_v(r):
         if r == 0:
             return nqe
@@ -300,21 +383,21 @@ def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
         """The direction state and the new z of the cell update, under
         KSW_EZ_RIGHT's tie rules or the default ones."""
         if right_rule:
-            d = torch.where(z > av, 0, 1)
+            d = torch.where(z > av, d8[0], d8[1])
             z = torch.maximum(z, av)
-            d = torch.where(z > bv, d, 2)
+            d = torch.where(z > bv, d, d8[2])
             z = torch.maximum(z, bv)
-            d = torch.where(z > a2, d, 3)
+            d = torch.where(z > a2, d, d8[3])
             z = torch.maximum(z, a2)
-            d = torch.where(z > b2, d, 4)
+            d = torch.where(z > b2, d, d8[4])
             return d, torch.maximum(z, b2)
-        d = torch.where(av > z, 1, 0)
+        d = torch.where(av > z, d8[1], d8[0])
         z = torch.maximum(z, av)
-        d = torch.where(bv > z, 2, d)
+        d = torch.where(bv > z, d8[2], d)
         z = torch.maximum(z, bv)
-        d = torch.where(a2 > z, 3, d)
+        d = torch.where(a2 > z, d8[3], d)
         z = torch.maximum(z, a2)
-        d = torch.where(b2 > z, 4, d)
+        d = torch.where(b2 > z, d8[4], d)
         return d, torch.maximum(z, b2)
 
     for r in range(int(rows_h[0])):
@@ -336,8 +419,8 @@ def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
         # the score row (ksw2._row_scores over [st0, hi))
         qbyte = QP[:a].gather(1, torch.clamp(r - t + 1, 0, qw - 1))
         tbyte = cur[:, :, TB]
-        sc = torch.where(tbyte == qbyte, mat0, mat1).to(i32)
-        sc = torch.where((tbyte == 4) | (qbyte == 4), sc_n, sc)
+        sc = torch.where(tbyte == qbyte, c8[mat0], c8[mat1])
+        sc = torch.where((tbyte == 4) | (qbyte == 4), c8[sc_n], sc)
         z = torch.where(fresh, sc, cur[:, :, S])
         # x, v, x2 of the previous row at t - 1, and the boundary values
         xt1 = Za[:, :, X].gather(1, col - 1)
@@ -352,32 +435,31 @@ def _extd2_rows(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
         ut = torch.where(reset, bound_v(r), cur[:, :, U])
         yt = torch.where(reset, nqe, cur[:, :, Y])
         y2t = torch.where(reset, nqe2, cur[:, :, Y2])
-        # the cell update (csrc/ksw2kit.cpp extd2_row)
-        av = w8(xt1 + vt1)
-        bv = w8(yt + ut)
-        a2 = w8(x2t1 + vt1)
-        b2 = w8(y2t + ut)
+        # the cell update (csrc/ksw2kit.cpp extd2_row), int8 wrapping
+        av = xt1 + vt1
+        bv = yt + ut
+        a2 = x2t1 + vt1
+        b2 = y2t + ut
         d, z = dirs(z, av, bv, a2, b2, rt)
         z = torch.clamp(z, max=mat0)
-        tq, tq2 = w8(z - q8), w8(z - q28)
-        av, bv = w8(av - tq), w8(bv - tq)
-        a2, b2 = w8(a2 - tq2), w8(b2 - tq2)
+        tq, tq2 = z - q8, z - q28
+        av, bv = av - tq, bv - tq
+        a2, b2 = a2 - tq2, b2 - tq2
         ta, tb = (av >= 0, bv >= 0) if rt else (av > 0, bv > 0)
         ta2, tb2 = (a2 >= 0, b2 >= 0) if rt else (a2 > 0, b2 > 0)
         new = torch.stack([
-            w8(z - vt1), w8(z - ut), w8(torch.where(ta, av, 0) - qe8),
-            w8(torch.where(tb, bv, 0) - qe8),
-            w8(torch.where(ta2, a2, 0) - qe28),
-            w8(torch.where(tb2, b2, 0) - qe28)], -1)
+            z - vt1, z - ut, av * ta - qe8, bv * tb - qe8, a2 * ta2 - qe28,
+            b2 * tb2 - qe28], -1)
         cur[:, :, :6] = torch.where(dp[:, :, None], new, cur[:, :, :6])
         cur[:, :, S] = torch.where(fresh, sc, cur[:, :, S])
         keep = dp | fresh
         Za.scatter_(1, torch.where(keep, col, trash)[:, :, None]
                     .expand(a, J, 8), cur)
-        d = d | ta * 0x08 | tb * 0x10 | ta2 * 0x20 | tb2 * 0x40
+        d = (d | (ta.to(u8) << 3) | (tb.to(u8) << 4) | (ta2.to(u8) << 5)
+             | (tb2.to(u8) << 6))
         dst = po[:a, None] + row_off[:a, None] + (t - st[:, None])
         wr = dp & ~dropped[:a, None] if track_h else dp
-        p[dst[wr]] = d[wr].to(torch.uint8)
+        p[dst[wr]] = d[wr]
         row_off[:a] += en - st + 1
         last_st[:a], last_en[:a] = st, en
         if track_h:
@@ -540,17 +622,19 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     p = torch.zeros(p_total, dtype=torch.uint8, device=dev)
     if n == 0:
         return score, p
-    scr_off, scratch, smem, threads = _launch_shape(qlen, tlen, w,
-                                                    STATE_ROWS)
+    sh = fill_shape(qlen.cpu().numpy(), tlen.cpu().numpy())
+    scr_off, work = (torch.from_numpy(a).to(dev)
+                     for a in (sh.scr_off, sh.work))
+    scratch = torch.empty(max(sh.scratch, 1), dtype=torch.int8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _record(events, 0)
     rc = lib.mm2_extd2_fill(
         qblob.data_ptr(), tblob.data_ptr(), qoff.data_ptr(), toff.data_ptr(),
         qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), p_off.data_ptr(),
-        scr_off.data_ptr(), n, scratch.data_ptr(), p.data_ptr(),
-        score.data_ptr(), prm.qq, prm.ee, prm.qq2, prm.ee2, prm.mat0,
-        prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff, int(bool(right)),
-        threads, smem, stream)
+        scr_off.data_ptr(), work.data_ptr(), sh.n_block, sh.n_warp,
+        scratch.data_ptr(), p.data_ptr(), score.data_ptr(), prm.qq, prm.ee,
+        prm.qq2, prm.ee2, prm.mat0, prm.mat1, prm.sc_n, prm.long_thres,
+        prm.long_diff, int(bool(right)), sh.warp_stride, sh.smem, stream)
     _record(events, 1)
     kernels.check(rc, "extd2_fill")
     fill_launches += 1
@@ -558,10 +642,10 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
 
 
 def _launch_shape(qlen, tlen, w, rows: int):
-    """(scr_off, scratch, smem bytes, threads) of a launch over fills of
-    `rows` x nbytes of state: shared memory per block holds the largest
-    state that fits; larger fills keep theirs in a global scratch region
-    of their own (scr_off >= 0)."""
+    """(scr_off, scratch, smem bytes, threads) of an extension launch over
+    fills of `rows` x nbytes of state: shared memory per block holds the
+    largest state that fits; larger fills keep theirs in a global scratch
+    region of their own (scr_off >= 0)."""
     dev = qlen.device
     n = qlen.shape[0]
     tl = tlen.to(torch.int64)
@@ -967,13 +1051,17 @@ def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
     pieces, kms, bms, chunks = [], 0.0, 0.0, 0
     if dev_idx.shape[0]:
         qb_d, tb_d = upload(qblob, device), upload(tblob, device)
+        n_scr = 0
 
         def launch(c64, c32, po, p_total, events):
+            nonlocal n_scr
             (qo, to), (ql, tl, wd, zd) = c64, c32
             if ext:
                 return extd2_ext(qb_d, tb_d, qo, to, ql, tl, wd, zd, po,
                                  p_total, prm, right, end_bonus,
                                  events=events)
+            shape = fill_shape(ql.cpu().numpy(), tl.cpu().numpy())
+            n_scr += int((shape.scr_off >= 0).sum())
             return extd2_fill(qb_d, tb_d, qo, to, ql, tl, wd, po, p_total,
                               prm, right, events=events)
 
@@ -981,15 +1069,22 @@ def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
             return ksw2_backtrack(p, po, *c32[:3], co, rev,
                                   starts=out[:, 10:] if ext else None,
                                   events=events)
+        ql, tl = qlen[dev_idx], tlen[dev_idx]
+        if ext:
+            scr = EXT_STATE_ROWS * ((tl + 15) // 16 * 16)
+            scr = np.where(scr > SMEM_STATE_MAX, scr, 0)
+            n_scr = int((scr > 0).sum())
+        else:   # the block-class fills past FILL_SMEM_MAX, at most
+            scr = fill_bytes(ql, tl)
+            scr = np.where(scr > FILL_SMEM_MAX, scr, 0)
+        # regions 16-aligned: the fill kernel stores 4 direction bytes at
+        # once where its region allows
         out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
-            dev_idx, p_bound(qlen, tlen, wv)[dev_idx],
-            (qlen + tlen)[dev_idx], 0, [qoff, toff], [qlen, tlen, w, zdrop],
-            device, launch, backtrack)
+            dev_idx, (p_bound(ql, tl, wv[dev_idx]) + 15) // 16 * 16, ql + tl,
+            scr, [qoff, toff], [qlen, tlen, w, zdrop], device, launch,
+            backtrack)
         res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
-        nb = (tlen[dev_idx] + 15) // 16 * 16
-        stats.scratch_fills += int(
-            ((EXT_STATE_ROWS if ext else STATE_ROWS) * nb
-             > SMEM_STATE_MAX).sum())
+        stats.scratch_fills += n_scr
     cells = int((qlen * tlen)[dev_idx].sum())
     cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
     if ext:

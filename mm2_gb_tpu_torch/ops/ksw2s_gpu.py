@@ -44,9 +44,11 @@ import numpy as np
 import torch
 
 from mm2_gb_tpu_torch.ops import ksw2, ksw2_splice
-from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, KSW_NEG_INF,
-                                           FillStats, _c8, _record,
-                                           _track_h_row, assemble_cigars,
+from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, FILL_WARPS,
+                                           KSW_NEG_INF, LONG_FILLS,
+                                           FillShape, FillStats, _c8,
+                                           _record, _track_h_row,
+                                           assemble_cigars, class_shape,
                                            ksw2_backtrack, p_bound,
                                            solve_chunks, upload)
 from mm2_gb_tpu_torch.utils import kernels
@@ -66,17 +68,13 @@ ext_launches = 0    # exts2_ext kernel launches (CUDA tensors)
 # (u, y, the score row, x, v and x2 twice by row parity, donor, acceptor,
 # the target bases with their junction bits, the query) and the H0 walk's
 # four int32 slots.  A fill whose ring has at most WARP_RING lanes takes
-# a warp (FILL_WARPS to a block), a wider one a block of 256 threads; a
+# a warp (FILL_WARPS to a block), a wider one a block of 256 threads, as
+# do the LONG_FILLS longest of a launch (ksw2_gpu.class_shape); a
 # block-class fill whose rings exceed FILL_SMEM_MAX bytes keeps them in a
 # global scratch region of its own.
 FILL_LANE_BYTES = 13
 FILL_RING_PAD = 80     # the kernel's kRingPad: kBatch (32) + 34 and more
-FILL_WARPS = 8
 WARP_RING = 256
-# a launch lasts as long as its longest fill, and a block runs a row
-# faster than a warp: the LONG_FILLS longest fills of a launch with at
-# least half its longest fill's rows take a block whatever their width
-LONG_FILLS = 132
 FILL_SMEM_MAX = FILL_LANE_BYTES * 2048 + 16   # rings of 2048 lanes
 # extension mode (exts2_ext): the first port's ring rows (u, y, the score
 # row, x, v, x2 twice by row parity, donor and acceptor) and the int32 H
@@ -153,51 +151,15 @@ def fill_bytes(qlen, tlen):
     return FILL_LANE_BYTES * fill_ring_lanes(qlen, tlen) + 16
 
 
-@dataclass
-class FillShape:
-    """The launch of exts2_fill over n fills (fill_shape)."""
-    work: np.ndarray      # int32: block-class fills, then warp-class ones
-    #                       (FILL_WARPS to a block, -1 padding)
-    n_block: int          # block-class fills (a block each)
-    n_warp: int           # warp-class fills (a warp each)
-    scr_off: np.ndarray   # int64 [n]: the rings' offset in scratch, or -1
-    scratch: int          # bytes of global scratch
-    warp_stride: int      # shared-memory bytes of a warp-class fill
-    smem: int             # dynamic shared memory of a block
-
-
 def fill_shape(qlen, tlen) -> FillShape:
-    """Each fill's class and the launch's shape (numpy arrays of the n
-    fills in launch order, longest first): a warp for a fill whose rings
-    have at most WARP_RING lanes, else a block, and a block for the
-    LONG_FILLS longest fills with at least half the longest one's rows; a
-    block-class fill past FILL_SMEM_MAX keeps its rings in scratch.  One
-    launch holds both classes, block-class blocks first, so that every
-    fill of a chunk runs at once; its shared memory is the larger of
-    FILL_WARPS warp-class fills' and the widest block-class fill in
-    shared memory."""
+    """exts2_fill's launch over n fills (numpy arrays, in launch order,
+    longest first): a warp for a fill whose rings have at most WARP_RING
+    lanes, else a block (ksw2_gpu.class_shape, with FILL_SMEM_MAX)."""
     qlen = np.asarray(qlen, np.int64)
     tlen = np.asarray(tlen, np.int64)
-    lanes = fill_ring_lanes(qlen, tlen)
-    need = fill_bytes(qlen, tlen)
-    rows = qlen + tlen - 1
-    long = np.zeros(rows.shape[0], bool)
-    if rows.shape[0]:
-        top = np.argsort(-rows, kind="stable")[:LONG_FILLS]
-        long[top[rows[top] * 2 >= rows.max()]] = True
-    warp = (lanes <= WARP_RING) & ~long
-    big = ~warp & (need > FILL_SMEM_MAX)
-    scr_off = np.where(big, np.cumsum(np.where(big, need, 0)) - need, -1)
-    w_idx = np.nonzero(warp)[0]
-    b_idx = np.nonzero(~warp)[0]
-    pad = -len(w_idx) % FILL_WARPS
-    work = np.concatenate([b_idx, w_idx, np.full(pad, -1)]).astype(np.int32)
-    stride = int(need[warp].max()) if len(w_idx) else 0
-    in_smem = ~warp & ~big
-    smem = max(FILL_WARPS * stride,
-               int(need[in_smem].max()) if in_smem.any() else 0, 16)
-    return FillShape(work, len(b_idx), len(w_idx), scr_off.astype(np.int64),
-                     int(need[big].sum()), stride, smem)
+    return class_shape(fill_bytes(qlen, tlen), qlen + tlen - 1,
+                       fill_ring_lanes(qlen, tlen) <= WARP_RING,
+                       FILL_SMEM_MAX)
 
 
 # --------------------------------------------------------------------------

@@ -30,11 +30,10 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 _SIGNATURES = {
-    "mm2_chain_segments": [_vp, _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp,
-                           _i, _i, _i, _i, _f, _f, _i, _i, _vp],
-    "mm2_chain_warps_per_block": [],
+    "mm2_chain_segments": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp, _vp, _vp,
+                           _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _vp],
     "mm2_mg_log2": [_vp, _vp, _i, _vp],
-    "mm2_extd2_fill": [_vp] * 9 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
+    "mm2_extd2_fill": [_vp] * 10 + [_i] * 2 + [_vp] * 3 + [_i] * 12 + [_vp],
     "mm2_extd2_ext": [_vp] * 10 + [_i, _vp, _vp, _vp] + [_i] * 13 + [_vp],
     "mm2_ksw2_backtrack": [_vp] * 8 + [_i] * 4 + [_vp] * 3,
     "mm2_exts2_fill": [_vp] * 12 + [_i] * 2 + [_vp] * 3 + [_i] * 12 + [_vp],

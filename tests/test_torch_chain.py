@@ -25,6 +25,16 @@ from mm2_gb_tpu_torch.ops import chain_gpu
 CG = float(np.float32(float(np.float32(0.8)) * 0.01 * 15))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The twins gain nothing from intra-op threads at these sizes, and
+    under several test workers those threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _synthetic_anchors(n, seed, step_hi=12, jitter=6):
     rng = np.random.default_rng(seed)
     rpos = np.cumsum(rng.integers(1, step_hi, n))

@@ -422,3 +422,94 @@ def test_backtrack_kernel_matches_twin(cuda, mode):
         assert int((nc == 0).sum()) == int(((starts < 0).any(1)).sum()) > 0
     if intron:
         assert bool(((cg & 15) == 3).any())   # N runs
+
+
+def _extd2_mix(rng):
+    """Gap fills on both sides of the fill kernel's warp/block class
+    boundary (WARP_LANES: tlen 512), to go into one launch: targets of 10
+    to 1,500 bases against mutated copies of 60-120% of their length,
+    bands 16 to the whole matrix (the whole matrix past 512), N bases in
+    every third."""
+    from chip_smoke import _mutate_splice
+    pairs, ws = [], []
+    for k, tl in enumerate([10, 40, 200, 300, 496, 497, 512, 513, 700, 1500,
+                            90, 250, 60, 1200, 30, 480]):
+        t = rng.integers(0, 4, tl).astype(np.uint8)
+        q = _mutate_splice(rng, t, 0.05, 0.03)
+        q = q[:max(1, int(tl * rng.uniform(0.6, 1.2)))].copy()
+        if k % 3 == 0:
+            q[rng.random(q.shape[0]) < 0.05] = 4
+        pairs.append((q, t))
+        ws.append(-1 if tl > 512 else (-1, 16, 51, 200)[k % 4])
+    return pairs, ws
+
+
+@pytest.mark.parametrize("right", [False, True], ids=["default", "right"])
+@pytest.mark.parametrize("in_scratch", [False, True],
+                         ids=["shared", "scratch"])
+def test_extd2_fill_warp_and_block_classes(cuda, monkeypatch, right,
+                                           in_scratch):
+    """The gap-fill kernel on one launch that mixes warp-class fills (at
+    most WARP_LANES lanes) with block-class ones (wider, and the
+    longest), under KSW_EZ_RIGHT and without: equal to the twins (scores,
+    direction bytes, CIGARs) and to ksw2.extd2, also with fill regions
+    that are not 4-aligned; with the shared-memory cap at 0, every
+    block-class fill keeps its state in global scratch."""
+    from chip_smoke import _pack_fills
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.utils import opts as O
+    if in_scratch:
+        monkeypatch.setattr(ksw2_gpu, "FILL_SMEM_MAX", 0)
+    prm = ksw2_gpu.fill_params(O.set_preset(None)[1])
+    flag = ksw2.KSW_EZ_APPROX_MAX | (ksw2.KSW_EZ_RIGHT if right else 0)
+    pairs, ws = _extd2_mix(np.random.default_rng(707 + right))
+    meta, qb, tb = _pack_fills(pairs, ws)
+    st = ksw2_gpu.FillStats()
+    with recording_fills() as calls:
+        got = ksw2_gpu.extd2_fill_batch(meta, qb, tb, prm, cuda, flag, st)
+    assert fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag)) == 0
+    assert len(calls) == 1
+    shape = ksw2_gpu.fill_shape(calls[0][0][4].cpu().numpy(),
+                                calls[0][0][5].cpu().numpy())
+    assert shape.n_block > 0 and shape.n_warp > 0
+    assert (st.scratch_fills == shape.n_block) == in_scratch
+    assert (st.scratch_fills > 0) == in_scratch
+    assert hold_fill_calls(calls, "mix", verbose=False)[0] == 0
+    # regions that are not 4-aligned take the kernel's byte stores
+    fa = list(calls[0][0])
+    fa[7], fa[8] = fa[7] + 1, fa[8] + 1
+    sc, p = ksw2_gpu.extd2_fill(*fa)
+    sct, pt = ksw2_gpu.extd2_fill_torch(*fa)
+    assert torch.equal(sc, sct) and torch.equal(p, pt)
+
+
+@pytest.mark.parametrize("name", ["every_class", "ties_across_warps",
+                                  "dd_2p24"])
+def test_chain_kernel_classes(cuda, name):
+    """The chain kernel's size classes in one launch: segments of a warp,
+    of a group of four warps and of the block, with the window in the
+    ring and (a widest range past it) in global memory; equal totals
+    spread over a block's warps (the largest i wins); gap differences
+    across 2^24.  Equal to the twin and to chain_scores_host, exact."""
+    ax, ay, a = next((w[1], w[2], w[3]) for w in WORKLOADS if w[0] == name)
+    bounds = np.array([0, ax.shape[0]], np.int64)
+    ops, kw, _ = kernel_operands(ax, ay, bounds, a, cuda)
+    shape = chain_gpu.segment_shape(ops[3].cpu().numpy(),
+                                    ops[4].cpu().numpy(),
+                                    ops[2].cpu().numpy())
+    if name == "every_class":
+        assert min(shape.n_long, shape.n_mid, shape.n_short) > 0
+        assert set(shape.work[:shape.n_long, 3].tolist()) == {0, 1}
+    before = chain_gpu.launches
+    f, p = chain_gpu.chain_segments(*ops, **kw, shape=shape)
+    ft, pt = chain_gpu.chain_segments_torch(*ops, **kw)
+    torch.cuda.synchronize()
+    assert chain_gpu.launches == before + 1
+    assert torch.equal(f, ft) and torch.equal(p, pt)
+    fo, po = chain_gpu.chain_scores_host(
+        ax, ay, a["max_dist_x"], a["max_dist_y"], a["bw"], a["max_iter"],
+        a["cg"], a["cs"], a["is_cdna"])
+    prel = p.cpu().numpy().astype(np.int64)
+    assert np.array_equal(f.cpu().numpy(), fo)
+    assert np.array_equal(np.where(prel > 0, np.arange(prel.shape[0]) - prel,
+                                   -1), po)

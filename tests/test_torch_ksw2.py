@@ -5,7 +5,19 @@ JAX package itself runs for these fills on the CPU: extd2_batch_device
 resolves to its host oracle there).  Score and CIGAR, tolerance 0.
 Every input is made from a numpy seed; the port's side takes its options
 from the port's own copies.
+
+The first test is the sim200 --qstrand golden through the genomic
+Python fill session (the twins of the fill and extension kernels end to
+end; tests/test_torch_session.py holds the rest of that route).  It is
+the longest test of the suite, and it comes first in a file of many
+tests on purpose: pytest-xdist's --dist loadfile hands files out by
+their number of tests, most first, so in a file of its own it would
+start last and end the run late.
 """
+
+import contextlib
+import gzip
+import io
 
 import numpy as np
 import pytest
@@ -14,8 +26,54 @@ import torch
 from chip_smoke import (_pack_fills, fill_oracle, fill_result_err,
                         fill_workloads)
 from mm2_gb_tpu.ops import ksw2
+from mm2_gb_tpu_torch import cli
 from mm2_gb_tpu_torch.ops import ksw2_gpu as K
 from mm2_gb_tpu_torch.utils import opts as O
+from tests.conftest import golden_path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The twins gain nothing from intra-op threads at these sizes, and
+    under several test workers those threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run_gpu_path(argv):
+    """The --gpu-chain --gpu-align run path (cli._run) on the CPU twins:
+    (rc, stdout, stderr)."""
+    argv, args = cli.parse_args(["--max-chain-skip=2147483647",
+                                 "--gpu-chain", "--gpu-align", *argv])
+    io_, mo = O.set_preset(args.preset)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli._run(args, argv, io_, mo, torch.device("cpu"))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def test_qstrand_gpu_align_matches_golden():
+    """`--gpu-chain --gpu-align --qstrand -c` (test_e2e_paf.py:288-290's
+    flags) on the twins equals the reference's golden byte for byte; the
+    fills and extensions go through the Python fill session."""
+    before = (K.fill_launches, K.ext_launches, K.backtrack_launches)
+    rc, out, err = _run_gpu_path(["--qstrand", "-c", "-v", "3",
+                                  golden_path("simref.fa.gz"),
+                                  golden_path("simreads.fa.gz")])
+    assert rc == 0
+    with gzip.open(golden_path("sim200.qstrand.c.paf.gz"), "rt") as f:
+        assert out == f.read()
+    line = next(line for line in err.splitlines()
+                if line.startswith("[M::gpu] fills:"))
+    assert " 0 host-routed) in" in line.split("; extensions:")[0]
+    assert "; extensions: 0 " not in line
+    # the real pass found every fill and extension in the device results
+    assert line.endswith("real-pass misses (aligned on the host): 0 fill, "
+                         "0 ext, 0 splice")
+    assert (K.fill_launches, K.ext_launches, K.backtrack_launches) == before
+
 
 WORKLOADS = list(fill_workloads(n_pairs=16, max_len=160, long_len=400))
 

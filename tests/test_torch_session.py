@@ -6,7 +6,9 @@ and extension kernels then solve.
 
 Each side's inputs come from its own package: the port's from the
 port's copies of the host layer, the JAX package's from its modules.
-Caches, PAF and dump lines are compared exactly.
+Caches, PAF and dump lines are compared exactly.  The sim200 --qstrand
+golden of this route is the first test of tests/test_torch_ksw2.py
+(why there: that file's docstring).
 """
 
 import contextlib
@@ -79,11 +81,6 @@ def _run_gpu_path(argv):
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli._run(args, argv, io_, mo, torch.device("cpu"))
     return rc, out.getvalue(), err.getvalue()
-
-
-def _fill_line(err):
-    return next(line for line in err.splitlines()
-                if line.startswith("[M::gpu] fills:"))
 
 
 # ---------------------------------------------------------------- the cache
@@ -175,25 +172,6 @@ def test_prefill_device_cache_matches_jax(flag, preset):
 
 
 # ---------------------------------------------------------- the byte gates
-
-def test_qstrand_gpu_align_matches_golden():
-    """`--gpu-chain --gpu-align --qstrand -c` (test_e2e_paf.py:288-290's
-    flags) on the twins equals the reference's golden byte for byte; the
-    fills and extensions go through the Python fill session."""
-    before = (K.fill_launches, K.ext_launches, K.backtrack_launches)
-    rc, out, err = _run_gpu_path(["--qstrand", "-c", "-v", "3",
-                                  golden_path("simref.fa.gz"),
-                                  golden_path("simreads.fa.gz")])
-    assert rc == 0
-    assert out == _gold("sim200.qstrand.c.paf.gz")
-    line = _fill_line(err)
-    assert " 0 host-routed) in" in line.split("; extensions:")[0]
-    assert "; extensions: 0 " not in line
-    # the real pass found every fill and extension in the device results
-    assert line.endswith("real-pass misses (aligned on the host): 0 fill, "
-                         "0 ext, 0 splice")
-    assert (K.fill_launches, K.ext_launches, K.backtrack_launches) == before
-
 
 @pytest.mark.parametrize("preset,flags,ref,query,golden,lo,hi", [
     (None, ["--cs", "-c"], "simref.fa.gz", "simreads.fa.gz",
