@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # the smoke, below
     python3 chip_smoke.py --walls    # --qstrand walls: port vs host path
     python3 chip_smoke.py --scale-walls  # two devices, two ranks vs one
+    python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
+    python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
 
 Run from the root of a checkout, on a machine with a CUDA GPU, nvcc and
 a CUDA build of PyTorch.  Phases (any failure exits non-zero):
@@ -47,7 +49,9 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    its per-fill starts against their twins and the port's ksw2.extd2 on
    seeded extension workloads (five presets' penalties, both flag
    forms, Z-drop, reach_end, N bases, the q/e swap, state in global
-   scratch, the host routes); `--gpu-chain --gpu-align --qstrand -c`
+   scratch, the host routes, one launch of warp- and block-class
+   extensions with a Z-drop beside running warps and row maxima tied
+   across rank classes); `--gpu-chain --gpu-align --qstrand -c`
    byte-identical to the sim200 qstrand golden (no real-pass miss of
    the device results) and the no-native-kit route to the sim200 --cs
    -c golden; on a draw of the bench flowcell `--qstrand -c -t 8`
@@ -59,7 +63,8 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    per-fill starts) against their twins and ksw2_splice.exts2 on seeded
    read ends across introns (both strands, FLANK, BED junctions,
    EXTZ_ONLY with and without RIGHT|REV_CIGAR, Z-drop hits, N bases,
-   unrelated pairs, tlen to a few kb, the global-scratch ring), and on
+   unrelated pairs, tlen to a few kb, the global-scratch ring, one
+   launch of warp- and block-class extensions), and on
    every splice extension the cDNA run's align driver ran on the host
    (at least 100), in one exts2_ext_batch;
    Then the scale-out paths on the flowcell draw: two devices
@@ -630,6 +635,52 @@ def ext_workloads(n_pairs=96, max_len=400, long_len=3400):
            EXT_FLAGS[0], -1)
 
 
+def ext_class_mix(seed, flag):
+    """(meta, qblob, tblob, zdrop, params, flag, end_bonus) of one
+    extension launch over both of extd2_ext's classes: sixteen warp-class
+    read ends of ~150 against ~300 bases (band 751, Z-drop 400), two of
+    them with an unrelated tail under a Z-drop of 40, so that they drop
+    while the rest of their block of warps runs on; periodic and
+    one-base pairs, whose H rows tie across the row maximum's rank
+    classes; N bases; block-class ones past WARP_LANES lanes (the whole
+    matrix), one of them unrelated (a block's Z-drop); end bonus 10
+    (reach_end starts)."""
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import opts as O
+    rng = np.random.default_rng(seed)
+    pairs, ws, zd = [], [], []
+    for k in range(16):
+        t = rng.integers(0, 4, int(rng.integers(280, 320))).astype(np.uint8)
+        q = _mutate_splice(rng, t[:int(rng.integers(140, 160))], 0.03, 0.01)
+        if k in (3, 12):
+            q[30:] = rng.integers(0, 4, q.shape[0] - 30)
+        if k % 5 == 1:
+            q[rng.random(q.shape[0]) < 0.05] = 4
+        pairs.append((q, t))
+        ws.append(751)
+        zd.append(40 if k in (3, 12) else 400)
+    unit = np.array([0, 1, 2, 3], np.uint8)
+    for q, t in ((np.tile(unit, 30), np.tile(unit, 70)),
+                 (np.tile(unit[:2], 45), np.tile(unit[:2], 120)),
+                 (np.full(40, 1, np.uint8), np.full(100, 1, np.uint8)),
+                 (np.tile(unit, 20), np.tile(unit[::-1], 60))):
+        pairs.append((q, t))
+        ws.append(751)
+        zd.append(400)
+    for ql, tl, related in ((300, 600, True), (500, 900, True),
+                            (700, 1500, True), (400, 700, False)):
+        t = rng.integers(0, 4, tl).astype(np.uint8)
+        q = (_mutate_splice(rng, t[:ql], 0.04, 0.02) if related
+             else rng.integers(0, 4, ql).astype(np.uint8))
+        pairs.append((q, t))
+        ws.append(-1)
+        zd.append(400 if related else 100)
+    meta, qb, tb = _pack_ext(pairs, ws)
+    return (meta, qb, tb, np.array(zd), K.fill_params(O.set_preset(None)[1]),
+            flag, 10)
+
+
 def ext_oracle(meta, qblob, tblob, zdrop, prm, flag, end_bonus):
     """The port's ksw2.extd2 of every extension: (fields [n, 10], cig_off,
     cig_blob)."""
@@ -789,13 +840,17 @@ def ext_result_err(got, want) -> int:
 def phase2_ext():
     """The extd2_ext kernel and the backtrack from its starts against
     their twins and the port's ksw2.extd2 (the native kit here) on the
-    extension workloads; exact.  The launches of one option set go
-    through one twin run."""
+    extension workloads and, in both flag forms, on one launch of both
+    kernel classes (ext_class_mix); exact.  The launches of one option
+    set go through one twin run."""
     import torch
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     dev = torch.device("cuda")
     err, groups = 0, {}
-    for name, meta, qb, tb, zd, prm, flag, eb in ext_workloads():
+    mixes = [(f"mix/{'right' if r else 'default'}",
+              *ext_class_mix(808, 0x40 | (0x82 if r else 0)))
+             for r in (False, True)]
+    for name, meta, qb, tb, zd, prm, flag, eb in [*ext_workloads(), *mixes]:
         st = K.FillStats()
         with recording_ext() as calls:
             got = K.extd2_ext_batch(meta, qb, tb, zd, prm, flag, eb, dev, st)
@@ -1323,6 +1378,35 @@ def splice_ext_workloads(n_pairs=24, max_intron=1000, long_intron=1000,
                                  9, 9))
 
 
+def splice_ext_class_mix(seed):
+    """(meta, qblob, tblob, jblob, flags, zdrop, params) of one splice
+    extension launch over both of exts2_ext's classes: splice_ext_pairs'
+    read ends across introns (every splice variant, RIGHT|REV_CIGAR,
+    EXTZ_ONLY on two in three, BED junctions, N bases, unrelated tails
+    under tight Z-drops), two in three of them cut to warp-class read
+    ends (min(qlen, tlen) at most 176) and the rest blocks; and periodic
+    and one-base pairs, whose H rows tie across the row maximum's rank
+    classes."""
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    from mm2_gb_tpu_torch.utils import opts as O
+    rng = np.random.default_rng(seed)
+    exts = splice_ext_pairs(rng, 48, 600)
+    for k in range(32):   # read ends cut short enough for a warp
+        q, t, flag, junc, zdrop = exts[k]
+        exts[k] = (q[:int(rng.integers(40, 170))].copy(), t, flag, junc,
+                   zdrop)
+    unit = np.array([0, 1, 2, 3], np.uint8)
+    for k, (q, t) in enumerate(((np.tile(unit, 30), np.tile(unit, 70)),
+                                (np.tile(unit[:2], 45),
+                                 np.tile(unit[:2], 120)),
+                                (np.full(40, 1, np.uint8),
+                                 np.full(100, 1, np.uint8)))):
+        exts.append((q, t, SPLICE_VARIANTS[2 * k] | 0x40, None, 200))
+    return (*_pack_splice_ext(exts),
+            KS.splice_params(O.set_preset("splice")[1]))
+
+
 def splice_ext_oracle(meta, qblob, tblob, jblob, flags, zdrop, prm,
                       exts2=None):
     """exts2 (the port's ksw2_splice.exts2 unless given) of every
@@ -1431,13 +1515,15 @@ def hold_splice_ext_calls(calls, label, verbose=True, max_rows=None):
 def phase2_splice_ext():
     """The exts2 kernel's extension mode and the intron backtrack from its
     starts against their twins and ksw2_splice.exts2 (the native kit
-    here) on the splice extension workloads; exact.  The launches of one
+    here) on the splice extension workloads and on one launch of both
+    kernel classes (splice_ext_class_mix); exact.  The launches of one
     option set go through one twin run."""
     import torch
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     dev = torch.device("cuda")
     groups = {}
-    for name, meta, qb, tb, jb, fl, zd, prm in splice_ext_workloads():
+    for name, meta, qb, tb, jb, fl, zd, prm in [
+            *splice_ext_workloads(), ("mix", *splice_ext_class_mix(909))]:
         st = KS.FillStats()
         with recording_splice_ext() as calls:
             got = KS.exts2_ext_batch(meta, qb, tb, jb, fl, zd, prm, dev, st)
@@ -2306,26 +2392,32 @@ def chain_launch_shape(rng, seg_start, seg_end):
     return lens.shape[0], e - s, int(rng[s:e].sum(dtype=torch.int64))
 
 
-def dp_launches(root, budget, cdna, fc):
+def dp_launches(root, budget, cdna, fc, qfc):
     """`chip_smoke.py --dp-launches ROOT BUDGET ...` (a subprocess of
     dp_turns): the port found under ROOT maps the cDNA set at `-ax splice
-    --gpu-align` and the flowcell at `--gpu-align -c`, each once, and
-    every exts2_fill, extd2_fill and backtrack launch is reported: its
-    fills, the longest fill's rows (qlen + tlen - 1) or the longest walk
-    (steps), the launch's ms (the CUDA events its wrapper records right
-    around the launch) and the µs per row or step; and every
-    chain_segments launch: its anchors, work segments, the longest
-    segment's anchors and pairs, ms, and µs per step (anchor) of the
-    longest segment.  BUDGET replaces
-    gpucfg.FILL_CHUNK_BYTES (bytes; "-": the tree's own).  The last line
-    is a JSON object of the launches and each output's sha256."""
+    --gpu-align`, the flowcell at `--gpu-align -c` and the flowcell's
+    N_QSTRAND_CHECK-read draw at `--gpu-align --qstrand -c`, each once,
+    then solves the splice extensions the cDNA run's align driver ran on
+    the host in one exts2_ext_batch.  Every exts2_fill, extd2_fill,
+    extd2_ext, exts2_ext and backtrack launch is reported: its fills, the
+    longest fill's rows (qlen + tlen - 1) or the longest walk (steps), the
+    launch's ms (the CUDA events its wrapper records right around the
+    launch) and the µs per row or step, and for the extension kernels
+    their cells and widest min(qlen, tlen); and every chain_segments
+    launch: its anchors, work segments, the longest segment's anchors and
+    pairs, ms, and µs per step (anchor) of the longest segment.  BUDGET
+    replaces gpucfg.FILL_CHUNK_BYTES (bytes; "-": the tree's own).  The
+    last line is a JSON object of the launches and each output's sha256
+    (the splice extensions': of their fields and CIGAR words)."""
     import hashlib
+    import numpy as np
     import torch
     sys.path.insert(0, root)
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     from mm2_gb_tpu_torch.utils import gpucfg
+    from mm2_gb_tpu_torch.utils import opts as O
     if not cli.__file__.startswith(os.path.abspath(root)):
         fail(f"imported the port from {cli.__file__}, not {root}")
     if budget != "-":
@@ -2341,11 +2433,14 @@ def dp_launches(root, budget, cdna, fc):
 
         def rec(*a, **kw):
             out = fn(*a, **kw)
-            if kind == "fill":
+            if kind in ("fill", "ext"):
                 ql, tl = a[ql_at].long(), a[ql_at + 1].long()
                 rows = int((ql + tl - 1).max())
                 recs.append([kind, name, ql.shape[0], rows, kw["events"],
-                             int(torch.minimum(ql, tl).max())])
+                             [int(torch.minimum(ql, tl).max()),
+                              int((ql * tl).sum())]])
+                if kind == "ext":   # re-run alone after the run
+                    recs[-1][5].append((fn, a))
             else:
                 steps = _walk_steps(out[0], out[1], a[5])
                 recs.append([kind, name, a[2].shape[0], int(steps.max()),
@@ -2373,46 +2468,81 @@ def dp_launches(root, budget, cdna, fc):
             return out
         G.chain_segments = rec
         return lambda: setattr(G, "chain_segments", fn)
-    undo = [wrap(KS, "exts2_fill", "fill", 6),
+    undo = [wrap(KS, "exts2_fill", "fill", 6), wrap(KS, "exts2_ext", "ext", 6),
             wrap(KS, "ksw2_backtrack", "walk", 0),
-            wrap(K, "extd2_fill", "fill", 4),
+            wrap(K, "extd2_fill", "fill", 4), wrap(K, "extd2_ext", "ext", 4),
             wrap(K, "ksw2_backtrack", "walk", 0), wrap_chain()]
     runs = {}
+
+    def report(what, first, sha, wall):
+        torch.cuda.synchronize()
+        runs[what] = {"sha256": sha, "wall_s": wall, "launches": []}
+        for kind, name, n, longest, ev, extra in recs[first:]:
+            ms = ev[0].elapsed_time(ev[1])
+            if kind == "chain":
+                segs, longest, pairs = chain_launch_shape(*longest)
+                runs[what]["launches"].append(
+                    [name, n, longest, ms, [segs, pairs]])
+                log(f"{what} {name}: {n} anchors, {segs} work segments, "
+                    f"the longest {longest} anchors and {pairs} pairs, "
+                    f"{ms:.3f} ms, {ms * 1e3 / max(longest, 1):.4f} µs "
+                    "per step of the longest segment")
+                continue
+            if kind == "ext":
+                # the launch again on its own operands, in a quiet process:
+                # in the run, the events also hold the host's delays
+                # between them (the -t 8 threads share the interpreter)
+                fn, a = extra.pop()
+                extra.append(sorted(_timed_launch(fn, *a)[1]
+                                    for _ in range(3))[1])
+            runs[what]["launches"].append([name, n, longest, ms, extra])
+            if kind in ("fill", "ext"):
+                log(f"{what} {name}: {n} fills, {extra[1]} cells, {longest} "
+                    f"rows of the longest fill, {ms:.3f} ms, "
+                    f"{ms * 1e3 / max(longest, 1):.4f} µs per row, widest "
+                    f"min(qlen, tlen) {extra[0]}" + (
+                        f"; alone {extra[2]:.3f} ms (median of 3), "
+                        f"{extra[2] * 1e3 / max(longest, 1):.4f} µs per row"
+                        if kind == "ext" else ""))
+            else:
+                log(f"{what} {name}: {n} fills, {longest} steps of the "
+                    f"longest walk, {ms:.3f} ms, "
+                    f"{ms * 1e3 / max(longest, 1):.4f} µs per step, {extra} "
+                    "steps in all")
     try:
         for what, flags, (ref, reads) in (
-                ("cdna", ["-ax", "splice"], cdna), ("flowcell", ["-c"], fc)):
+                ("cdna", ["-ax", "splice"], cdna), ("flowcell", ["-c"], fc),
+                ("qstrand", ["--qstrand", "-c"], qfc)):
             first = len(recs)
-            rc, out, err, wall = _cli(cli.main, [
-                "--gpu-chain", "--gpu-align", SKIP_INF, *flags, "-t",
-                str(THREADS), "-v", "3", ref, reads])
+            with recording_splice_exts() as exts:
+                rc, out, err, wall = _cli(cli.main, [
+                    "--gpu-chain", "--gpu-align", SKIP_INF, *flags, "-t",
+                    str(THREADS), "-v", "3", ref, reads])
             if rc != 0:
                 sys.stderr.write(err[-3000:])
                 fail(f"{what} run under {root}")
-            torch.cuda.synchronize()
             for line in err.splitlines():
                 if line.startswith("[M::gpu] fills:"):
                     log(f"{what}: {line}")
-            runs[what] = {"sha256": hashlib.sha256(out.encode()).hexdigest(),
-                          "wall_s": wall, "launches": []}
-            for kind, name, n, longest, ev, extra in recs[first:]:
-                ms = ev[0].elapsed_time(ev[1])
-                if kind == "chain":
-                    segs, longest, pairs = chain_launch_shape(*longest)
-                    runs[what]["launches"].append(
-                        [name, n, longest, ms, [segs, pairs]])
-                    log(f"{what} {name}: {n} anchors, {segs} work segments, "
-                        f"the longest {longest} anchors and {pairs} pairs, "
-                        f"{ms:.3f} ms, {ms * 1e3 / max(longest, 1):.4f} µs "
-                        "per step of the longest segment")
-                    continue
-                runs[what]["launches"].append([name, n, longest, ms, extra])
-                unit = "rows of the longest fill" if kind == "fill" else \
-                    "steps of the longest walk"
-                log(f"{what} {name}: {n} fills, {longest} {unit}, "
-                    f"{ms:.3f} ms, {ms * 1e3 / max(longest, 1):.4f} µs per "
-                    + ("row" if kind == "fill" else "step")
-                    + (f", widest min(qlen, tlen) {extra}" if kind == "fill"
-                       else f", {extra} steps in all"))
+            report(what, first, hashlib.sha256(out.encode()).hexdigest(),
+                   wall)
+            if what == "cdna":
+                sexts = exts
+        # the cDNA run's host-side splice extensions, in an order that does
+        # not depend on its threads
+        sexts = sorted(sexts, key=lambda c: (
+            c[0].shape[0], c[1].shape[0], c[0].tobytes(), c[1].tobytes(),
+            c[2], c[4], b"" if c[3] is None else c[3].tobytes()))
+        prm = KS.splice_params(O.set_preset("splice")[1])
+        first = len(recs)
+        t0 = time.perf_counter()
+        got = KS.exts2_ext_batch(*_pack_splice_ext([c[:5] for c in sexts]),
+                                 prm, torch.device("cuda"))
+        wall = time.perf_counter() - t0
+        report("splice_ext", first, hashlib.sha256(b"".join(
+            np.ascontiguousarray(a).tobytes() for a in got)).hexdigest(),
+            wall)
+        log(f"splice_ext: {len(sexts)} extensions of the cDNA run")
     finally:
         for u in undo:
             u()
@@ -2425,7 +2555,11 @@ def dp_probe():
     junction bytes on), one fill alone and n copies in one launch, each
     timed with the events the wrappers record right around the launch
     (median of 3): µs per row of a fill (per step of a walk) alone, and
-    how it grows with the fills that share the card."""
+    how it grows with the fills that share the card.  Then the two
+    extension kernels on seeded related extensions of the flowcell's and
+    the cDNA set's widest shapes, alone and n to a launch, each as a warp
+    (its class) and forced to a block: whether a block runs a short
+    extension's row faster than a warp (ksw2_gpu.ext_shape)."""
     import numpy as np
     import torch
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
@@ -2467,6 +2601,42 @@ def dp_probe():
             f"{tk * 1e3 / (ql + tl - 1):.4f} µs per row, "
             f"{n * ql * tl / tk / 1e6:.3f} GCUPS; backtrack {tb:.3f} ms, "
             f"{steps} steps, {tb * 1e3 / steps:.4f} µs per step")
+    kprm = K.fill_params(O.set_preset(None)[1])
+    warp_lanes, warp_ring = K.WARP_LANES, KS.WARP_RING
+    for ql, tl, n in ((106, 210, 1), (139, 276, 1), (106, 210, 200),
+                      (139, 276, 4000)):
+        t = rng.integers(0, 4, (n, tl)).astype(np.uint8)
+        q = t[:, :ql].copy()
+        sub = rng.random(q.shape) < 0.05
+        q[sub] = rng.integers(0, 4, int(sub.sum()))
+        i64 = (lambda x: torch.tensor(x, dtype=torch.int64, device=dev))
+        i32 = (lambda x: torch.full((n,), x, dtype=torch.int32, device=dev))
+        pb = int(K.p_bound(np.array([ql]), np.array([tl]),
+                           np.array([751]))[0])
+        ar = np.arange(n)
+        qd, td = (torch.from_numpy(x.reshape(-1)).to(dev) for x in (q, t))
+        for cls in ("warp", "block"):
+            K.WARP_LANES, KS.WARP_RING = ((warp_lanes, warp_ring)
+                                          if cls == "warp" else (0, 0))
+            try:
+                xs = [_timed_launch(K.extd2_ext, qd, td, i64(ar * ql),
+                                    i64(ar * tl), i32(ql), i32(tl), i32(751),
+                                    i32(-1), i64(ar * pb), pb * n, kprm,
+                                    False, 10)[1] for _ in range(3)]
+                ss = [_timed_launch(KS.exts2_ext, qd, td,
+                                    torch.zeros(1, dtype=torch.uint8,
+                                                device=dev),
+                                    i64(ar * ql), i64(ar * tl),
+                                    i64(np.full(n, -1)), i32(ql), i32(tl),
+                                    i32(0x40 | 0x100), i32(-1), i64(ar * pb),
+                                    pb * n, prm)[1] for _ in range(3)]
+            finally:
+                K.WARP_LANES, KS.WARP_RING = warp_lanes, warp_ring
+            tx, ts = sorted(xs)[1], sorted(ss)[1]
+            log(f"probe ext {n} x ({ql} x {tl}) as a {cls}: extd2_ext "
+                f"{tx:.3f} ms, {tx * 1e3 / (ql + tl - 1):.4f} µs per row; "
+                f"exts2_ext {ts:.3f} ms, {ts * 1e3 / (ql + tl - 1):.4f} µs "
+                "per row")
 
 
 def dp_turns(parent):
@@ -2475,9 +2645,11 @@ def dp_turns(parent):
     each tree in its own subprocess (dp_launches; each builds its own
     kernels and host kit under its build/), in turns parent, this, this,
     parent; then this tree at chunk budgets of 512 MiB, 2 GiB and 4 GiB.
-    Sums per kernel and the outputs' equality are printed at the end."""
+    Sums per kernel (the extension kernels' also alone) and the equality
+    of every run's output (the cDNA SAM, the flowcell PAFs, the splice
+    extensions' fields and CIGARs) are printed at the end."""
     phase1()
-    cdna, fc = cdna_set(), flowcell()
+    cdna, fc, qfc = cdna_set(), flowcell(), flowcell(N_QSTRAND_CHECK)
     me = REPO
     turns = ([(parent, "-"), (me, "-"), (me, "-"), (parent, "-")] if parent
              else [(me, "-")])
@@ -2485,7 +2657,7 @@ def dp_turns(parent):
     results = []
     for root, budget in turns:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--dp-launches", root, budget, *cdna, *fc],
+                            "--dp-launches", root, budget, *cdna, *fc, *qfc],
                            cwd=REPO, text=True, capture_output=True,
                            timeout=900)
         lines = p.stdout.strip().splitlines()
@@ -2497,16 +2669,20 @@ def dp_turns(parent):
         results.append(runs)
         for what, r in runs.items():
             sums = {}
-            for name, _n, _l, ms, _x in r["launches"]:
-                c, s = sums.get(name, (0, 0.0))
-                sums[name] = (c + 1, s + ms)
+            for name, _n, _l, ms, x in r["launches"]:
+                c, s, a = sums.get(name, (0, 0.0, None))
+                if name in ("extd2_ext", "exts2_ext"):
+                    a = (a or 0.0) + x[2]
+                sums[name] = (c + 1, s + ms, a)
             log(f"turn {root} budget {budget} {what}: wall "
                 f"{r['wall_s']:.3f} s; " + "; ".join(
                     f"{k} {c} launches {s:.3f} ms"
-                    for k, (c, s) in sorted(sums.items())))
+                    + (f" ({a:.3f} ms alone)" if a is not None else "")
+                    for k, (c, s, a) in sorted(sums.items())))
     same = all(r[w]["sha256"] == results[0][w]["sha256"]
                for r in results for w in r)
-    log(f"every turn's cDNA SAM and flowcell PAF identical: {same}")
+    log(f"every turn's cDNA SAM, flowcell PAFs and splice extensions "
+        f"identical: {same}")
     if not same:
         fail("the turns' outputs differ")
 
@@ -2514,7 +2690,7 @@ def dp_turns(parent):
 def main() -> int:
     if sys.argv[1:2] == ["--dp-launches"]:
         root, budget, *paths = sys.argv[2:]
-        dp_launches(root, budget, paths[:2], paths[2:])
+        dp_launches(root, budget, paths[:2], paths[2:4], paths[4:])
         return 0
     if not os.path.isdir(os.path.join(REPO, "mm2_gb_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",

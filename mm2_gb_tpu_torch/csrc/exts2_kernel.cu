@@ -84,25 +84,28 @@
 // qlen 150.
 //
 // Extension mode (exts2_ext_kernel: splice extensions and the non-approx
-// splice DP, no KSW_EZ_APPROX_MAX) keeps the first port's block per fill
-// with a ring of min(qlen, tlen) + 32 lanes and its loads of the target
-// and query in the row loop.  It is the oracle's non-approx branch
-// (ksw2_splice.py:239-258, 284-291), as extd2_kernel.cu's extension mode
-// with these differences:
-//   - the int32 H row lives in the ring too (4 R bytes more, so 15 R in
-//     all); a lane entering the ring starts at KSW_NEG_INF;
-//   - the previous row's H[en0 - 1], which another thread updates in
-//     place in this row, comes through a parity slot its owner filled in
-//     the previous row (when that row did not hold the lane, it is read in
-//     place);
-//   - the row maximum takes the ranked keys of ksw2_row_max.cuh, made
-//     from the absolute lane, so a ring that wraps inside the window
-//     reorders no tie;
+// splice DP, no KSW_EZ_APPROX_MAX) is the oracle's non-approx branch
+// (ksw2_splice.py:239-258, 284-291), in the fill mode's body
+// (exts2_one<NT, EXT>), classes (ksw2s_gpu.ext_ring_shape: a warp per
+// extension whose rings have at most WARP_RING lanes, which is every
+// splice extension of the cDNA set, a block for wider ones, rings past
+// EXT_SMEM_MAX in scratch, no LONG_FILLS rule) and rings, which stage the
+// target, junction and query bytes ahead of the rows; the first port's
+// block per extension loaded them from device memory on each row's chain
+// and took 2.7 us a row.  With extd2_kernel.cu's extension mode
+// (ksw2_row_max.cuh) and these differences:
+//   - the int32 H row lives in a ring of its own (4 R bytes more); a lane
+//     entering the ring starts at KSW_NEG_INF (lane 0 at -(q + e));
+//   - the row maximum ranks the absolute lanes, so a ring that wraps
+//     inside the window reorders no tie;
 //   - Z-drop takes gap extension 0 (ksw2_splice.py:255);
 //   - the backtrack start is picked in the kernel: (tlen-1, qlen-1) when
 //     nothing dropped and the fill has no KSW_EZ_EXTZ_ONLY, else
 //     (max_t, max_q) when both are >= 0, else none.  No end bonus, no
 //     reach_end.
+// What bounds it: a warp's row chain, as in extd2_kernel.cu, and a
+// launch of the cDNA set's 4,000 extensions its longest one's 414 rows
+// and the two waves of blocks it takes at two blocks an SM.
 //
 // The backtrack is extd2_kernel.cu's ksw2_backtrack in intron mode
 // (min_intron_len > 0) with a window w = qlen + tlen, which makes its
@@ -123,18 +126,21 @@ namespace {
 #include "ksw2_row_max.cuh"
 
 constexpr int kNegInf = -0x40000000;
-constexpr int kMaxWarps = 8;   // blocks of at most 256 threads
 constexpr int kRight = 0x02, kExtzOnly = 0x40, kRevCigar = 0x80;
 constexpr int kSpliceFor = 0x100, kSpliceRev = 0x200, kSpliceFlank = 0x400;
-// fill mode: rows between two batches of entering lanes, the ring's
-// slack beyond min(qlen, tlen) (>= kBatch + 34) and the threads of a
-// block
+// rows between two batches of entering lanes, the ring's slack beyond
+// min(qlen, tlen) (>= kBatch + 34), the threads of a block and its
+// warp-class fills (fill and extension modes)
 constexpr int kBatch = 32;
 constexpr int kRingPad = 80;
 constexpr int kFillThreads = 256;
+constexpr int kFillWarps = kFillThreads / 32;
+static_assert(kFillWarps <= 8, "ExtSlots holds a block's warp keys");
 // blocks an SM holds: at most 85 registers a thread (the unbounded
-// build took 112, two blocks an SM)
+// build took 112, two blocks an SM); in extension mode at most 128 (a
+// row's chain is what bounds it, and 85 registers spilled on it)
 constexpr int kFillBlocksPerSm = 3;
+constexpr int kExtBlocksPerSm = 2;
 
 struct SpliceConsts {
   int q, e, q2, noncan, junc_bonus;
@@ -197,20 +203,9 @@ __device__ __forceinline__ void site_scores(int i, TB tb, JB jb, bool has_j,
   }
 }
 
-// the last lane row r touches: the window's en or the score store span's
-__device__ __forceinline__ int row_last(int r, int qlen, int tlen,
-                                        int nbytes) {
-  const int st0 = r - qlen + 1 > 0 ? r - qlen + 1 : 0;
-  const int en0 = r < tlen - 1 ? r : tlen - 1;
-  int hi = st0 + 16 * ((en0 - st0) / 16 + 1);
-  if (hi > nbytes) hi = nbytes;
-  const int en = en0 | 15;
-  return en > hi - 1 ? en : hi - 1;
-}
-
-// fill mode: a bound on the last lane rows 0 .. r touch, nondecreasing in
-// r: row_last(r) <= min(en0 + 15, nbytes - 1) (the store span ends at
-// most 15 lanes past en0)
+// a bound on the last lane rows 0 .. r touch (the window's en = en0 | 15
+// or the end of the score store span, at most 15 lanes past en0),
+// nondecreasing in r: min(en0 + 15, nbytes - 1)
 __device__ __forceinline__ int lane_bound(int r, int n_rows, int tlen,
                                           int nbytes) {
   if (r > n_rows - 1) r = n_rows - 1;
@@ -218,7 +213,7 @@ __device__ __forceinline__ int lane_bound(int r, int n_rows, int tlen,
   return en0 + 15 < nbytes - 1 ? en0 + 15 : nbytes - 1;
 }
 
-// fill mode: the ring's lanes, ksw2s_gpu.fill_ring_lanes
+// the ring's lanes, ksw2s_gpu.fill_ring_lanes
 __device__ __forceinline__ int fill_ring(int qlen, int tlen) {
   const int mn = qlen < tlen ? qlen : tlen;
   int R = 64;
@@ -240,10 +235,14 @@ struct FillArgs {
   const long long* scr_off;
   int8_t* scratch;
   uint8_t* p;
-  int* score;
+  int* score;        // fill mode: the score of each fill
+  // extension mode: the Z-drop of each fill (< 0: none) and its 12
+  // output fields
+  const int* zdrops;
+  int* ext;
 };
 
-// fill mode: four int8 lanes to a 32-bit word (SIMD within a register)
+// four int8 lanes to a 32-bit word (SIMD within a register)
 __device__ __forceinline__ unsigned bcast(int8_t v) {
   return (unsigned)(uint8_t)v * 0x01010101u;
 }
@@ -252,19 +251,17 @@ __device__ __forceinline__ unsigned pick(unsigned m, unsigned a,
                                          unsigned b) {
   return (b & m) | (a & ~m);
 }
-// byte i of w, as a signed int
-__device__ __forceinline__ int byte_at(unsigned w, int i) {
-  return (int)(int8_t)(w >> (8 * i));
-}
 
 // one fill by NT threads (a warp, or the block), tid in [0, NT); base:
 // its rings, in shared memory or the fill's global scratch region (the
 // caller passes one or the other, so that each inlined copy knows its
-// address space and takes shared-memory instructions where it can)
-template <int NT>
-__device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
-                                               int tid, int8_t* base,
-                                               const SpliceConsts& c) {
+// address space and takes shared-memory instructions where it can);
+// EXT: extension mode, a block-class fill's row state in xs
+template <int NT, bool EXT>
+__device__ __forceinline__ void exts2_one(const FillArgs& a, int f, int tid,
+                                          int8_t* base,
+                                          const SpliceConsts& c,
+                                          ExtSlots* xs) {
   auto sync = [] {
     if (NT == 32)
       __syncwarp();
@@ -289,7 +286,10 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
   int8_t* AC = DN + R;
   uint8_t* TJ = (uint8_t*)(AC + R);   // base | junction bits << 3
   uint8_t* Q = TJ + R;
-  int* slot = (int*)(Q + R);          // the H0 walk's v and u, by parity
+  // fill mode: the H0 walk's v and u, by parity; extension mode: the
+  // int32 H ring
+  int* slot = (int*)(Q + R);
+  int* H = slot;
   const uint8_t* qs = a.qblob + a.qoff[f];
   const uint8_t* ts = a.tblob + a.toff[f];
   const bool has_j = a.joff[f] >= 0;
@@ -320,6 +320,7 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
     X20[s] = X21[s] = nq2;
     S[s] = 0;
     site_scores(t, base_at, junc_at, has_j, tlen, flag, c, DN[s], AC[s]);
+    if (EXT) H[s] = t == 0 ? -(c.q + c.e) : kNegInf;   // row 0: H[0] + v
   };
 
   // lanes [0, lane_bound(0)] with the TJ lanes 3 past them and the first
@@ -342,6 +343,12 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
   int H0 = 0, lh = 0, sc_final = kNegInf;
   int last_st = -1, last_en = -1;
   long long row_off = 0;
+  // extension mode: the Extz fields, the previous row's window and the
+  // H[en0 - 1] a warp's shuffle carried over from it
+  ExtTrack ez;
+  const int zdrop = EXT ? a.zdrops[f] : -1;
+  int prev_st0 = -1, prev_en0 = -1, hp_next = 0;
+  bool dropped = false;
   for (int r = 0; r < n_rows; ++r) {
     const int par = r & 1;
     int8_t* xc = par ? X1 : X0;
@@ -374,6 +381,17 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
     if (hi > nbytes) hi = nbytes;
     const int last = en > hi - 1 ? en : hi - 1;
     uint8_t* prow = pf + row_off;
+    // extension mode: the previous row's H[en0 - 1] (its owner's copy
+    // when that row's window held the lane, which this row overwrites;
+    // else in place), the next row's en0, and this thread's lanes of the
+    // H row
+    int hp = 0;
+    const int nen0 = r + 1 < tlen - 1 ? r + 1 : tlen - 1;
+    if (EXT && r > 0 && en0 > 0)
+      hp = en0 - 1 >= prev_st0 && en0 - 1 <= prev_en0
+               ? (NT == 32 ? hp_next : xs->hp[par])
+               : H[(en0 - 1) & mask];
+    ExtLanes x(st0, en0, nen0, hp);
     // four lanes t0 .. t0 + 3 of the row (t0 a multiple of 4, as st and
     // en + 1 are of 16) in one 32-bit word of each ring, bytes in lane
     // order; a cell reads lane t - 1 of the last row, so the x, v and x2
@@ -431,24 +449,28 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
       unsigned bv4 = __vadd4(yt, ut);
       unsigned a2 = __vadd4(x2t1, vt1);
       const unsigned a2a = __vadd4(a2, word(AC, s));
+      // each step's compare mask gives both the d bits and the max
       unsigned d, m;
-      if (right) {
+      if (right) {   // z keeps its value only where it is larger
         m = __vcmpgts4(z, av);
         d = ~m & 0x01010101u;
-        z = __vmaxs4(z, av);
+        z = pick(m, av, z);
         m = __vcmpgts4(z, bv4);
         d = pick(m, 0x02020202u, d);
-        z = __vmaxs4(z, bv4);
+        z = pick(m, bv4, z);
         m = __vcmpgts4(z, a2a);
         d = pick(m, 0x03030303u, d);
-        z = __vmaxs4(z, a2a);
-      } else {
-        d = __vcmpgts4(av, z) & 0x01010101u;
-        z = __vmaxs4(z, av);
-        d = pick(__vcmpgts4(bv4, z), d, 0x02020202u);
-        z = __vmaxs4(z, bv4);
-        d = pick(__vcmpgts4(a2a, z), d, 0x03030303u);
-        z = __vmaxs4(z, a2a);
+        z = pick(m, a2a, z);
+      } else {       // a candidate takes over only where it is larger
+        m = __vcmpgts4(av, z);
+        d = m & 0x01010101u;
+        z = pick(m, z, av);
+        m = __vcmpgts4(bv4, z);
+        d = pick(m, d, 0x02020202u);
+        z = pick(m, z, bv4);
+        m = __vcmpgts4(a2a, z);
+        d = pick(m, d, 0x03030303u);
+        z = pick(m, z, a2a);
       }
       const unsigned un = __vsub4(z, vt1), vn = __vsub4(z, ut);
       const unsigned tq = __vsub4(z, q8);
@@ -469,6 +491,16 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
       } else {
         for (int i = 0; i < 4; ++i)
           prow[t0 - st + i] = (uint8_t)(d >> (8 * i));
+      }
+      if (EXT) {
+        // the H row over [st0, en0] in the ring (ksw2_splice.py:240-250)
+        // and this thread's best lane of it, ranked by the absolute lane
+        if (t0 <= en0 && t0 + 3 >= st0) {
+          int4 h4 = *(const int4*)(H + s);
+          x.word(h4, t0, un, vn);
+          *(int4*)(H + s) = h4;
+        }
+        continue;
       }
       // the H0 walk reads v at lh and u at lh + 1 of this row
       if (lh >= t0 && lh < t0 + 4) slot[par] = byte_at(vn, lh - t0);
@@ -496,328 +528,152 @@ __device__ __forceinline__ void exts2_fill_one(const FillArgs& a, int f,
         if (q_hi + 1 + tid <= q_pf) reg_q = qs[q_hi + 1 + tid];
       }
     }
-    sync();
-    // the approx-max H0 walk (ksw2_splice.py:259-281); lh stays in
-    // [st0, en0] of the row, so the lanes it reads were written just now
-    const int vl = slot[par], ul = slot[2 + par];
-    if (r == 0) {
-      H0 = vl - (c.q + c.e);
-      lh = 0;
-    } else {
-      const bool in0 = lh >= st0 && lh <= en0;
-      const bool in1 = lh + 1 >= st0 && lh + 1 <= en0;
-      if (in0 && in1) {
-        if (vl > ul) {
-          H0 += vl;
-        } else {
-          H0 += ul;
-          ++lh;
-        }
-      } else if (in0) {
-        H0 += vl;
+    if (EXT) {
+      // the row maximum, H[st0] and H[en0]: in a warp by __reduce_*_sync
+      // and shuffles from the lanes' owners (words go to threads (word
+      // index) mod NT), in a block through the owners' parity slots; Z-drop with
+      // gap extension 0 (ksw2_splice.py:255)
+      int m, rank, mt, h_st0, h_en0;
+      warp_row_max(x, m, rank, mt);
+      if (NT == 32) {
+        h_st0 = __shfl_sync(0xffffffffu, x.hst0, ((st0 - st) >> 2) & 31);
+        h_en0 = __shfl_sync(0xffffffffu, x.hen0, ((en0 - st) >> 2) & 31);
+        hp_next =
+            __shfl_sync(0xffffffffu, x.hnext, ((nen0 - 1 - st) >> 2) & 31);
+        sync();
       } else {
-        ++lh;
-        H0 += ul;
+        if (tid == ((st0 - st) >> 2) % NT) xs->hst0[par] = x.hst0;
+        if (tid == ((en0 - st) >> 2) % NT) xs->hen0[par] = x.hen0;
+        if (nen0 - 1 >= st0 && nen0 - 1 <= en0 &&
+            tid == ((nen0 - 1 - st) >> 2) % NT)
+          xs->hp[par ^ 1] = x.hnext;
+        if ((tid & 31) == 0) put_warp_max(xs, par, tid >> 5, m, rank, mt);
+        sync();
+        block_row_max(xs, par, NT / 32, m, mt);
+        h_st0 = xs->hst0[par];
+        h_en0 = xs->hen0[par];
       }
-    }
-    if (r == n_rows - 1 && en0 == tlen - 1) sc_final = H0;
-    last_st = st;
-    last_en = en;
-    row_off += en - st + 1;
-  }
-  if (tid == 0) a.score[f] = sc_final;
-}
-
-// work[0 .. n_block): the block-class fills, one to a block; then the
-// warp-class fills, eight to a block (-1: none), each warp's rings at
-// warp * warp_stride of the block's shared memory (a warp-class fill's
-// rings are never in scratch)
-__global__ void __launch_bounds__(kFillThreads, kFillBlocksPerSm)
-exts2_fill_kernel(
-    FillArgs a, const int* __restrict__ work, int n_block, int warp_stride,
-    SpliceConsts c) {
-  extern __shared__ __align__(16) int8_t smem[];
-  if ((int)blockIdx.x < n_block) {
-    const int f = work[blockIdx.x];
-    if (a.scr_off[f] >= 0)
-      exts2_fill_one<kFillThreads>(a, f, threadIdx.x,
-                                   a.scratch + a.scr_off[f], c);
-    else
-      exts2_fill_one<kFillThreads>(a, f, threadIdx.x, smem, c);
-    return;
-  }
-  const int w = threadIdx.x >> 5;
-  const int f = work[n_block + (blockIdx.x - n_block) * kMaxWarps + w];
-  if (f < 0) return;
-  exts2_fill_one<32>(a, f, threadIdx.x & 31, smem + w * warp_stride, c);
-}
-
-// extension mode: one block per fill, the first port's design (above)
-__global__ void __launch_bounds__(256) exts2_ext_kernel(
-    const uint8_t* __restrict__ qblob, const uint8_t* __restrict__ tblob,
-    const uint8_t* __restrict__ jblob, const long long* __restrict__ qoff,
-    const long long* __restrict__ toff, const long long* __restrict__ joff,
-    const int* __restrict__ qlens, const int* __restrict__ tlens,
-    const int* __restrict__ flags, const long long* __restrict__ p_off,
-    const long long* __restrict__ scr_off, int8_t* __restrict__ scratch,
-    uint8_t* __restrict__ p, SpliceConsts c, const int* __restrict__ zdrops,
-    int* __restrict__ ext) {
-  extern __shared__ __align__(16) int8_t smem[];
-  // H[en0 - 1] of the previous row, H[en0] and H[st0] of this row, and
-  // each warp's best row key, by row parity
-  __shared__ int slot_hp[2], slot_hen0[2], slot_hst0[2];
-  __shared__ long long slot_key[2][kMaxWarps];
-  const int f = blockIdx.x;
-  const int qlen = qlens[f], tlen = tlens[f], flag = flags[f];
-  const bool right = flag & kRight;
-  const int nbytes = (tlen + 15) / 16 * 16;
-  const int mn = qlen < tlen ? qlen : tlen;
-  int R = 32;  // ksw2s_gpu.ring_lanes
-  while (R < mn + 32) R <<= 1;
-  const int mask = R - 1;
-  int8_t* base = scr_off[f] >= 0 ? scratch + scr_off[f] : smem;
-  int8_t* U = base;
-  int8_t* Y = U + R;
-  int8_t* S = Y + R;
-  int8_t* X0 = S + R;
-  int8_t* X1 = X0 + R;
-  int8_t* V0 = X1 + R;
-  int8_t* V1 = V0 + R;
-  int8_t* X20 = V1 + R;
-  int8_t* X21 = X20 + R;
-  int8_t* DN = X21 + R;
-  int8_t* AC = DN + R;
-  int* H = (int*)(AC + R);
-  const uint8_t* qs = qblob + qoff[f];
-  const uint8_t* ts = tblob + toff[f];
-  const bool has_j = joff[f] >= 0;
-  const uint8_t* jc = has_j ? jblob + joff[f] : nullptr;
-  uint8_t* pf = p + p_off[f];
-  auto base_at = [&](int k) { return (int)ts[k]; };
-  auto junc_at = [&](int k) { return (int)jc[k]; };
-
-  const int8_t nqe = (int8_t)(-c.q - c.e), nq2 = (int8_t)-c.q2;
-  const int8_t q8 = (int8_t)c.q, q28 = (int8_t)c.q2;
-  const int8_t qe8 = (int8_t)(c.q + c.e);
-  const int8_t mat0 = (int8_t)c.mat0, mat1 = (int8_t)c.mat1;
-  const int8_t scn = (int8_t)c.sc_n;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  // lanes 0 .. R-1 start in their own slots
-  for (int t = tid; t < R; t += nt) {
-    U[t] = Y[t] = X0[t] = X1[t] = V0[t] = V1[t] = nqe;
-    X20[t] = X21[t] = nq2;
-    S[t] = 0;
-    site_scores(t, base_at, junc_at, has_j, tlen, flag, c, DN[t], AC[t]);
-    H[t] = kNegInf;
-  }
-  int exposed = R - 1;  // lanes up to here hold their initial values
-  __syncthreads();
-
-  int sc_final = kNegInf;
-  int last_st = -1, last_en = -1;
-  long long row_off = 0;
-  const int n_rows = qlen + tlen - 1;
-  // the oracle's Extz fields, the same in every thread
-  const int zdrop = zdrops[f];
-  int mx = 0, max_t = -1, max_q = -1, mqe = kNegInf, mqe_t = -1;
-  int mte = kNegInf, mte_q = -1, dropped = 0;
-  int prev_st0 = -1, prev_en0 = -1;
-  for (int r = 0; r < n_rows; ++r) {
-    const int par = r & 1;
-    int8_t* xc = par ? X1 : X0;
-    const int8_t* xp = par ? X0 : X1;
-    int8_t* vc = par ? V1 : V0;
-    const int8_t* vp = par ? V0 : V1;
-    int8_t* x2c = par ? X21 : X20;
-    const int8_t* x2p = par ? X20 : X21;
-    const int st0 = r - qlen + 1 > 0 ? r - qlen + 1 : 0;
-    const int en0 = r < tlen - 1 ? r : tlen - 1;
-    const int st = st0 & ~15, en = en0 | 15;
-    const int8_t bv = r == 0 ? nqe
-                      : r < c.long_thres ? (int8_t)-c.e
-                      : r == c.long_thres ? (int8_t)c.long_diff
-                                          : (int8_t)0;
-    int8_t x1, x21, v1;
-    if (st > 0) {
-      if (st - 1 >= last_st && st - 1 <= last_en) {
-        const int s = (st - 1) & mask;
-        x1 = xp[s];
-        x21 = x2p[s];
-        v1 = vp[s];
-      } else {
-        x1 = nqe;
-        x21 = nq2;
-        v1 = nqe;
-      }
-    } else {
-      x1 = nqe;
-      x21 = nq2;
-      v1 = bv;
-    }
-    const bool reset = en >= r;
-    // the previous row's H[en0 - 1], and the lane whose H the next row
-    // reads so (the next row's en0 - 1)
-    int h_prev = 0;
-    const int next_en0 = r + 1 < tlen - 1 ? r + 1 : tlen - 1;
-    if (r > 0 && en0 > 0)
-      h_prev = en0 - 1 >= prev_st0 && en0 - 1 <= prev_en0
-                   ? slot_hp[par]
-                   : H[(en0 - 1) & mask];
-    long long key = LLONG_MIN;
-    int hi = st0 + 16 * ((en0 - st0) / 16 + 1);
-    if (hi > nbytes) hi = nbytes;
-    const int last = en > hi - 1 ? en : hi - 1;
-    uint8_t* prow = pf + row_off;
-    for (int t = st + tid; t <= last; t += nt) {
-      const int s = t & mask;
-      int8_t z;
-      if (t >= st0 && t < hi) {   // this row's score store span
-        const int tb = t < tlen ? ts[t] : 0;
-        const int qb = t <= r ? qs[r - t] : 0;
-        z = tb == qb ? mat0 : mat1;
-        if (tb == 4 || qb == 4) z = scn;
-        S[s] = z;
-      } else {
-        z = S[s];
-      }
-      if (t > en) continue;
-      const int s1 = (t - 1) & mask;
-      const int8_t xt1 = t == st ? x1 : xp[s1];
-      const int8_t vt1 = t == st ? v1 : vp[s1];
-      const int8_t x2t1 = t == st ? x21 : x2p[s1];
-      const bool rs = reset && t == r;
-      const int8_t ut = rs ? bv : U[s];
-      const int8_t yt = rs ? nqe : Y[s];
-      const int8_t dn = DN[s];
-      int8_t a = (int8_t)(xt1 + vt1);
-      int8_t b = (int8_t)(yt + ut);
-      int8_t a2 = (int8_t)(x2t1 + vt1);
-      const int8_t a2a = (int8_t)(a2 + AC[s]);
-      uint8_t d;
-      if (right) {
-        d = (z > a) ? 0 : 1;
-        z = z > a ? z : a;
-        d = (z > b) ? d : 2;
-        z = z > b ? z : b;
-        d = (z > a2a) ? d : 3;
-        z = z > a2a ? z : a2a;
-      } else {
-        d = (a > z) ? 1 : 0;
-        z = z > a ? z : a;
-        d = (b > z) ? 2 : d;
-        z = z > b ? z : b;
-        d = (a2a > z) ? 3 : d;
-        z = z > a2a ? z : a2a;
-      }
-      const int8_t un = (int8_t)(z - vt1), vn = (int8_t)(z - ut);
-      const int8_t tq = (int8_t)(z - q8);
-      a = (int8_t)(a - tq);
-      b = (int8_t)(b - tq);
-      a2 = (int8_t)(a2 - (int8_t)(z - q28));
-      const bool ta = right ? (a >= 0) : (a > 0);
-      const bool tb = right ? (b >= 0) : (b > 0);
-      const bool ta2 = right ? (a2 >= dn) : (a2 > dn);
-      U[s] = un;
-      vc[s] = vn;
-      xc[s] = (int8_t)((ta ? a : 0) - qe8);
-      Y[s] = (int8_t)((tb ? b : 0) - qe8);
-      x2c[s] = (int8_t)((ta2 ? a2 : dn) - q28);
-      d |= (ta ? 0x08 : 0) | (tb ? 0x10 : 0) | (ta2 ? 0x20 : 0);
-      prow[t - st] = d;
-      if (t >= st0 && t <= en0) {   // the H row (ksw2_splice.py:240-250)
-        int h;
-        if (r == 0)
-          h = vn - (c.q + c.e);
-        else if (t < en0)
-          h = H[s] + vn;
-        else
-          h = en0 > 0 ? h_prev + un : H[s] + vn;
-        H[s] = h;
-        const long long k = row_key(h, t, st0, en0);
-        key = k > key ? k : key;
-        if (t == st0) slot_hst0[par] = h;
-        if (t == en0) slot_hen0[par] = h;
-        if (t == next_en0 - 1) slot_hp[par ^ 1] = h;
-      }
-    }
-    // lanes the next row reaches for the first time: their slots held
-    // lanes below this row's st - 1, which no later row reads
-    if (r + 1 < n_rows) {
-      const int nl = row_last(r + 1, qlen, tlen, nbytes);
-      for (int t = exposed + 1 + tid; t <= nl; t += nt) {
-        const int s = t & mask;
-        U[s] = Y[s] = X0[s] = X1[s] = V0[s] = V1[s] = nqe;
-        X20[s] = X21[s] = nq2;
-        S[s] = 0;
-        site_scores(t, base_at, junc_at, has_j, tlen, flag, c, DN[s],
-                    AC[s]);
-        H[s] = kNegInf;
-      }
-      if (nl > exposed) exposed = nl;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const long long k = __shfl_xor_sync(0xffffffffu, key, o);
-      key = k > key ? k : key;
-    }
-    if ((tid & 31) == 0) slot_key[par][tid >> 5] = key;
-    __syncthreads();
-    // the row maximum, mte, mqe, Z-drop and the score
-    // (ksw2_splice.py:247-258), the same in every thread
-    for (int k = 0; k < (nt >> 5); ++k)
-      key = slot_key[par][k] > key ? slot_key[par][k] : key;
-    const int max_h = (int)(key >> 32);
-    const int mt = key_lane(key, st0, en0);
-    const int h_en0 = slot_hen0[par], h_st0 = slot_hst0[par];
-    if (en0 == tlen - 1 && h_en0 > mte) {
-      mte = h_en0;
-      mte_q = r - en;
-    }
-    if (r - st0 == qlen - 1 && h_st0 > mqe) {
-      mqe = h_st0;
-      mqe_t = st0;
-    }
-    // apply_zdrop with gap extension 0 (ksw2_splice.py:255)
-    if (max_h > mx) {
-      mx = max_h;
-      max_t = mt;
-      max_q = r - mt;
-    } else if (mt >= max_t && r - mt >= max_q) {
-      if (zdrop >= 0 && mx - max_h > zdrop) {
-        dropped = 1;
+      if (ez.row(m, mt, h_st0, h_en0, r, st0, en0, en, qlen, tlen, zdrop,
+                 0)) {
+        dropped = true;
         break;
       }
+      prev_st0 = st0;
+      prev_en0 = en0;
+    } else {
+      sync();
+      // the approx-max H0 walk (ksw2_splice.py:259-281); lh stays in
+      // [st0, en0] of the row, so the lanes it reads were written just now
+      const int vl = slot[par], ul = slot[2 + par];
+      if (r == 0) {
+        H0 = vl - (c.q + c.e);
+        lh = 0;
+      } else {
+        const bool in0 = lh >= st0 && lh <= en0;
+        const bool in1 = lh + 1 >= st0 && lh + 1 <= en0;
+        if (in0 && in1) {
+          if (vl > ul) {
+            H0 += vl;
+          } else {
+            H0 += ul;
+            ++lh;
+          }
+        } else if (in0) {
+          H0 += vl;
+        } else {
+          ++lh;
+          H0 += ul;
+        }
+      }
+      if (r == n_rows - 1 && en0 == tlen - 1) sc_final = H0;
     }
-    if (r == n_rows - 1 && en0 == tlen - 1) sc_final = h_en0;
-    prev_st0 = st0;
-    prev_en0 = en0;
     last_st = st;
     last_en = en;
     row_off += en - st + 1;
   }
   if (tid != 0) return;
+  if (!EXT) {
+    a.score[f] = sc_final;
+    return;
+  }
   // the backtrack start (ksw2_splice.py:284-291)
   int i0 = -1, j0 = -1;
   if (!dropped && !(flag & kExtzOnly)) {
     i0 = tlen - 1;
     j0 = qlen - 1;
-  } else if (max_t >= 0 && max_q >= 0) {
-    i0 = max_t;
-    j0 = max_q;
+  } else if (ez.max_t >= 0 && ez.max_q >= 0) {
+    i0 = ez.max_t;
+    j0 = ez.max_q;
   }
-  int* o = ext + 12LL * f;
-  o[0] = sc_final;
-  o[1] = mx;
-  o[2] = max_t;
-  o[3] = max_q;
-  o[4] = mqe;
-  o[5] = mqe_t;
-  o[6] = mte;
-  o[7] = mte_q;
+  int* o = a.ext + 12LL * f;
+  o[0] = ez.score;
+  o[1] = ez.mx;
+  o[2] = ez.max_t;
+  o[3] = ez.max_q;
+  o[4] = ez.mqe;
+  o[5] = ez.mqe_t;
+  o[6] = ez.mte;
+  o[7] = ez.mte_q;
   o[8] = dropped;
   o[9] = 0;   // reach_end: exts2 has no end bonus
   o[10] = i0;
   o[11] = j0;
+}
+
+// work[0 .. n_block): the block-class fills, one to a block; then the
+// warp-class fills, eight to a block (-1: none), each warp's rings at
+// warp * warp_stride of the block's shared memory smem (a warp-class
+// fill's rings are never in scratch)
+template <bool EXT>
+__device__ __forceinline__ void exts2_launch(const FillArgs& a,
+                                             const int* __restrict__ work,
+                                             int n_block, int warp_stride,
+                                             const SpliceConsts& c,
+                                             int8_t* smem, ExtSlots* xs) {
+  if ((int)blockIdx.x < n_block) {
+    const int f = work[blockIdx.x];
+    if (a.scr_off[f] >= 0)
+      exts2_one<kFillThreads, EXT>(a, f, threadIdx.x,
+                                   a.scratch + a.scr_off[f], c, xs);
+    else
+      exts2_one<kFillThreads, EXT>(a, f, threadIdx.x, smem, c, xs);
+    return;
+  }
+  const int w = threadIdx.x >> 5;
+  const int f = work[n_block + (blockIdx.x - n_block) * kFillWarps + w];
+  if (f < 0) return;
+  exts2_one<32, EXT>(a, f, threadIdx.x & 31, smem + w * warp_stride, c, xs);
+}
+
+__global__ void __launch_bounds__(kFillThreads, kFillBlocksPerSm)
+exts2_fill_kernel(FillArgs a, const int* __restrict__ work, int n_block,
+                  int warp_stride, SpliceConsts c) {
+  extern __shared__ __align__(16) int8_t smem[];
+  exts2_launch<false>(a, work, n_block, warp_stride, c, smem, nullptr);
+}
+
+// extension mode: the fill kernel's classes and body, with the H ring
+__global__ void __launch_bounds__(kFillThreads, kExtBlocksPerSm)
+exts2_ext_kernel(FillArgs a, const int* __restrict__ work, int n_block,
+                 int warp_stride, SpliceConsts c) {
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ ExtSlots xs;
+  exts2_launch<true>(a, work, n_block, warp_stride, c, smem, &xs);
+}
+
+// the fill or the extension kernel over work (block-class fills first)
+template <class K>
+int launch_fills(K kernel, const FillArgs& a, const void* work, int n_block,
+                 int n_warp, const SpliceConsts& c, int warp_stride,
+                 int smem_bytes, void* stream) {
+  if (n_block + n_warp <= 0) return 0;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  const int blocks = n_block + (n_warp + kFillWarps - 1) / kFillWarps;
+  kernel<<<blocks, kFillThreads, smem_bytes, (cudaStream_t)stream>>>(
+      a, (const int*)work, n_block, warp_stride, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -846,55 +702,44 @@ int mm2_exts2_fill(const void* qblob, const void* tblob, const void* jblob,
                    int junc_bonus, int mat0, int mat1, int sc_n,
                    int long_thres, int long_diff, int warp_stride,
                    int smem_bytes, void* stream) {
-  if (n_block + n_warp <= 0) return 0;
-  cudaError_t rc = cudaFuncSetAttribute(
-      exts2_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (rc != cudaSuccess) return (int)rc;
-  SpliceConsts c{q, e, q2, noncan, junc_bonus, mat0, mat1, sc_n,
-                 long_thres, long_diff};
   FillArgs a{(const uint8_t*)qblob, (const uint8_t*)tblob,
              (const uint8_t*)jblob, (const long long*)qoff,
              (const long long*)toff, (const long long*)joff,
              (const int*)qlen, (const int*)tlen, (const int*)flags,
              (const long long*)p_off, (const long long*)scr_off,
-             (int8_t*)scratch, (uint8_t*)p, (int*)score};
-  const int blocks = n_block + (n_warp + kMaxWarps - 1) / kMaxWarps;
-  exts2_fill_kernel<<<blocks, kFillThreads, smem_bytes,
-                      (cudaStream_t)stream>>>(a, (const int*)work, n_block,
-                                              warp_stride, c);
-  return (int)cudaGetLastError();
+             (int8_t*)scratch, (uint8_t*)p, (int*)score, nullptr, nullptr};
+  return launch_fills(exts2_fill_kernel, a, work, n_block, n_warp,
+                      SpliceConsts{q, e, q2, noncan, junc_bonus, mat0, mat1,
+                                   sc_n, long_thres, long_diff},
+                      warp_stride, smem_bytes, stream);
 }
 
 // Extension mode (no KSW_EZ_APPROX_MAX; KSW_EZ_EXTZ_ONLY per fill) of the
-// n splice fills: operands as the first port's mm2_exts2_fill (a block of
-// `threads` per fill, scr_off[k] >= 0 for a ring in scratch, smem_bytes
-// at least 15 x the ring lanes of every other fill), with Z-drop zdrop[k]
-// (< 0: none); fill k's [score, max, max_t, max_q, mqe, mqe_t, mte,
-// mte_q, zdropped, reach_end (0), i0, j0] into ext[12k ...], (i0, j0) the
-// backtrack start (-1: none).  The ring takes 15 x its lanes (the int32 H
-// row after the 11 int8 rows).  threads is a multiple of 32, at most 256.
+// splice fills: operands and classes as mm2_exts2_fill's (the rings of
+// ksw2s_gpu.ext_ring_bytes: the fill's and the int32 H ring), with
+// Z-drop zdrop[k] (< 0: none); fill k's [score, max, max_t, max_q, mqe,
+// mqe_t, mte, mte_q, zdropped, reach_end (0), i0, j0] into ext[12k ...],
+// (i0, j0) the backtrack start (-1: none).
 int mm2_exts2_ext(const void* qblob, const void* tblob, const void* jblob,
                   const void* qoff, const void* toff, const void* joff,
                   const void* qlen, const void* tlen, const void* flags,
                   const void* zdrop, const void* p_off, const void* scr_off,
-                  int n, void* scratch, void* p, void* ext, int q, int e,
-                  int q2, int noncan, int junc_bonus, int mat0, int mat1,
-                  int sc_n, int long_thres, int long_diff, int threads,
+                  const void* work, int n_block, int n_warp, void* scratch,
+                  void* p, void* ext, int q, int e, int q2, int noncan,
+                  int junc_bonus, int mat0, int mat1, int sc_n,
+                  int long_thres, int long_diff, int warp_stride,
                   int smem_bytes, void* stream) {
-  if (n <= 0) return 0;
-  if (threads <= 0 || threads > 32 * kMaxWarps || threads % 32)
-    return (int)cudaErrorInvalidValue;
-  SpliceConsts c{q, e, q2, noncan, junc_bonus, mat0, mat1, sc_n,
-                 long_thres, long_diff};
-  exts2_ext_kernel<<<n, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const uint8_t*)qblob, (const uint8_t*)tblob, (const uint8_t*)jblob,
-      (const long long*)qoff, (const long long*)toff,
-      (const long long*)joff, (const int*)qlen, (const int*)tlen,
-      (const int*)flags, (const long long*)p_off,
-      (const long long*)scr_off, (int8_t*)scratch, (uint8_t*)p, c,
-      (const int*)zdrop, (int*)ext);
-  return (int)cudaGetLastError();
+  FillArgs a{(const uint8_t*)qblob, (const uint8_t*)tblob,
+             (const uint8_t*)jblob, (const long long*)qoff,
+             (const long long*)toff, (const long long*)joff,
+             (const int*)qlen, (const int*)tlen, (const int*)flags,
+             (const long long*)p_off, (const long long*)scr_off,
+             (int8_t*)scratch, (uint8_t*)p, nullptr, (const int*)zdrop,
+             (int*)ext};
+  return launch_fills(exts2_ext_kernel, a, work, n_block, n_warp,
+                      SpliceConsts{q, e, q2, noncan, junc_bonus, mat0, mat1,
+                                   sc_n, long_thres, long_diff},
+                      warp_stride, smem_bytes, stream);
 }
 
 }  // extern "C"

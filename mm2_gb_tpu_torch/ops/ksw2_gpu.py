@@ -14,8 +14,9 @@ CUDA kernels do the work (csrc/extd2_kernel.cu):
   or long one in one launch (`fill_shape`).  It writes each row's
   direction bytes over [st, en] into the fill's own region of `p` (rows
   packed at a running sum of their widths) and the score.
-- `extd2_ext`: the same kernel in extension mode: the H row, the ranked
-  row maximum, mqe, mte, Z-drop and the backtrack start of each fill.
+- `extd2_ext`: the same kernel in extension mode, in the same classes
+  (`ext_shape`): the H row, the ranked row maximum, mqe, mte, Z-drop and
+  the backtrack start of each fill.
 - `ksw2_backtrack`: ksw_backtrack with is_rot (ksw2.h:126-158), a
   warp per fill walking tiles of direction bytes it stages in shared
   memory, run-length CIGAR words into a slot of qlen + tlen words per
@@ -51,15 +52,9 @@ ext_launches = 0        # extd2_ext kernel launches (CUDA tensors)
 backtrack_launches = 0  # ksw2_backtrack kernel launches (CUDA tensors)
 start_backtrack_launches = 0   # of those, the ones from per-fill starts
 
-# extension mode (extd2_ext, a block per fill): fills whose state
-# (EXT_STATE_ROWS rows of nbytes) exceeds this run with their state in a
-# global scratch region instead of shared memory (the default 48 KiB of a
-# block, less the kernel's static slots)
-SMEM_STATE_MAX = 44 * 1024
-# the kernel's state rows: u, y, y2, the score row, and x, v, x2 twice
-# (double-buffered by row parity); extension mode adds the int32 H row
+# the fill kernel's state rows: u, y, y2, the score row, and x, v, x2
+# twice (double-buffered by row parity)
 STATE_ROWS = 10
-EXT_STATE_ROWS = STATE_ROWS + 4
 # fill mode (extd2_fill): the state rows and the target row of nbytes
 # lanes, the reversed query (QUERY_PAD zero bytes before it, 32 after)
 # and the H0 walk's four int32 slots (fill_bytes).  A fill of at most
@@ -76,6 +71,15 @@ QUERY_PAD = 16
 # (both fill kernels)
 LONG_FILLS = 132
 FILL_SMEM_MAX = 72 * 1024   # three blocks an SM share its 227 KB
+# extension mode (extd2_ext): the fill kernel's classes and state with
+# the int32 H row beside it (ext_bytes).  An extension of at most
+# WARP_LANES lanes whose state fits WARP_EXT_MAX takes a warp (eight
+# warps' state stays within 96 KiB of a block), a wider one a block,
+# with its state in global scratch past EXT_SMEM_MAX.  No LONG_FILLS
+# rule: a warp runs a short extension's row faster than a block
+# (PERF.md, `chip_smoke.py --dp-probe`).
+WARP_EXT_MAX = 12 * 1024
+EXT_SMEM_MAX = 44 * 1024
 # extd2_ext's per-fill output: the Extz fields, then the backtrack start
 EXT_FIELDS = ("score", "max", "max_t", "max_q", "mqe", "mqe_t", "mte",
               "mte_q", "zdropped", "reach_end")
@@ -222,12 +226,13 @@ class FillShape:
     smem: int             # dynamic shared memory of a block
 
 
-def class_shape(need, rows, warp_ok, smem_max: int) -> FillShape:
-    """Each fill's class and the launch's shape, for the gap-fill and the
-    splice-fill kernels (numpy arrays of the n fills in launch order:
+def class_shape(need, rows, warp_ok, smem_max: int,
+                long_fills: int = LONG_FILLS) -> FillShape:
+    """Each fill's class and the launch's shape, for the fill and the
+    extension kernels (numpy arrays of the n fills in launch order:
     need, the bytes of its state; rows, its rows; warp_ok, whether it is
     narrow enough for a warp): a warp for a narrow fill, else a block,
-    and a block for the LONG_FILLS longest fills with at least half the
+    and a block for the long_fills longest fills with at least half the
     longest one's rows; a block-class fill past smem_max keeps its state
     in scratch.  One launch holds both classes, block-class blocks
     first, so that every fill of a chunk runs at once; its shared memory
@@ -237,7 +242,7 @@ def class_shape(need, rows, warp_ok, smem_max: int) -> FillShape:
     rows = np.asarray(rows, np.int64)
     long = np.zeros(rows.shape[0], bool)
     if rows.shape[0]:
-        top = np.argsort(-rows, kind="stable")[:LONG_FILLS]
+        top = np.argsort(-rows, kind="stable")[:long_fills]
         long[top[rows[top] * 2 >= rows.max()]] = True
     warp = np.asarray(warp_ok, bool) & ~long
     big = ~warp & (need > smem_max)
@@ -262,6 +267,34 @@ def fill_shape(qlen, tlen) -> FillShape:
     tlen = np.asarray(tlen, np.int64)
     return class_shape(fill_bytes(qlen, tlen), qlen + tlen - 1,
                        (tlen + 15) // 16 * 16 <= WARP_LANES, FILL_SMEM_MAX)
+
+
+def ext_bytes(qlen, tlen):
+    """Bytes of an extension's state in the extension kernel: the fill
+    kernel's and the int32 H row of nbytes lanes (numpy arrays)."""
+    return fill_bytes(qlen, tlen) + 4 * ((np.asarray(tlen, np.int64) + 15)
+                                         // 16 * 16)
+
+
+def ext_shape(qlen, tlen) -> FillShape:
+    """extd2_ext's launch over n extensions (numpy arrays, in launch
+    order, longest first): a warp for an extension of at most WARP_LANES
+    lanes whose state fits WARP_EXT_MAX, else a block (class_shape, with
+    EXT_SMEM_MAX and no LONG_FILLS rule)."""
+    qlen = np.asarray(qlen, np.int64)
+    tlen = np.asarray(tlen, np.int64)
+    need = ext_bytes(qlen, tlen)
+    return class_shape(need, qlen + tlen - 1,
+                       ((tlen + 15) // 16 * 16 <= WARP_LANES)
+                       & (need <= WARP_EXT_MAX), EXT_SMEM_MAX, 0)
+
+
+def shape_operands(sh: FillShape, dev):
+    """(scr_off, work, scratch) of a fill shape on the device."""
+    scr_off, work = (torch.from_numpy(a).to(dev) for a in (sh.scr_off,
+                                                           sh.work))
+    return scr_off, work, torch.empty(max(sh.scratch, 1), dtype=torch.int8,
+                                      device=dev)
 
 
 def _c8(v: int) -> int:
@@ -623,9 +656,7 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     if n == 0:
         return score, p
     sh = fill_shape(qlen.cpu().numpy(), tlen.cpu().numpy())
-    scr_off, work = (torch.from_numpy(a).to(dev)
-                     for a in (sh.scr_off, sh.work))
-    scratch = torch.empty(max(sh.scratch, 1), dtype=torch.int8, device=dev)
+    scr_off, work, scratch = shape_operands(sh, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _record(events, 0)
     rc = lib.mm2_extd2_fill(
@@ -639,28 +670,6 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     kernels.check(rc, "extd2_fill")
     fill_launches += 1
     return score, p
-
-
-def _launch_shape(qlen, tlen, w, rows: int):
-    """(scr_off, scratch, smem bytes, threads) of an extension launch over
-    fills of `rows` x nbytes of state: shared memory per block holds the
-    largest state that fits; larger fills keep theirs in a global scratch
-    region of their own (scr_off >= 0)."""
-    dev = qlen.device
-    n = qlen.shape[0]
-    tl = tlen.to(torch.int64)
-    need = rows * ((tl + 15) // 16 * 16)
-    big = need > SMEM_STATE_MAX
-    scr_off = torch.where(big, torch.cumsum(torch.where(big, need, 0), 0)
-                          - need, -1)
-    n_big = int(big.sum())
-    scratch = torch.empty(int(need[big].sum()) if n_big else 1,
-                          dtype=torch.int8, device=dev)
-    smem = int(need[~big].max()) if n_big < n else 16
-    wv = torch.where(w < 0, torch.maximum(qlen, tlen), w).to(torch.int64)
-    m = torch.minimum(torch.minimum(qlen.to(torch.int64), tl), wv + 1)
-    threads = min(256, max(32, (int(m.max()) + 47) // 32 * 32))
-    return scr_off, scratch, smem, threads
 
 
 def extd2_ext(qblob, tblob, qoff, toff, qlen, tlen, w, zdrop, p_off,
@@ -699,17 +708,18 @@ def extd2_ext(qblob, tblob, qoff, toff, qlen, tlen, w, zdrop, p_off,
     p = torch.zeros(p_total, dtype=torch.uint8, device=dev)
     if n == 0:
         return ext, p
-    scr_off, scratch, smem, threads = _launch_shape(qlen, tlen, w,
-                                                    EXT_STATE_ROWS)
+    sh = ext_shape(qlen.cpu().numpy(), tlen.cpu().numpy())
+    scr_off, work, scratch = shape_operands(sh, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _record(events, 0)
     rc = lib.mm2_extd2_ext(
         qblob.data_ptr(), tblob.data_ptr(), qoff.data_ptr(), toff.data_ptr(),
         qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), zdrop.data_ptr(),
-        p_off.data_ptr(), scr_off.data_ptr(), n, scratch.data_ptr(),
-        p.data_ptr(), ext.data_ptr(), prm.qq, prm.ee, prm.qq2, prm.ee2,
-        prm.mat0, prm.mat1, prm.sc_n, prm.long_thres, prm.long_diff,
-        int(bool(right)), int(end_bonus), threads, smem,
-        torch.cuda.current_stream(dev).cuda_stream)
+        p_off.data_ptr(), scr_off.data_ptr(), work.data_ptr(), sh.n_block,
+        sh.n_warp, scratch.data_ptr(), p.data_ptr(), ext.data_ptr(), prm.qq,
+        prm.ee, prm.qq2, prm.ee2, prm.mat0, prm.mat1, prm.sc_n,
+        prm.long_thres, prm.long_diff, int(bool(right)), int(end_bonus),
+        sh.warp_stride, sh.smem, stream)
     _record(events, 1)
     kernels.check(rc, "extd2_ext")
     ext_launches += 1
@@ -1056,12 +1066,13 @@ def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
         def launch(c64, c32, po, p_total, events):
             nonlocal n_scr
             (qo, to), (ql, tl, wd, zd) = c64, c32
+            shape = (ext_shape if ext else fill_shape)(ql.cpu().numpy(),
+                                                      tl.cpu().numpy())
+            n_scr += int((shape.scr_off >= 0).sum())
             if ext:
                 return extd2_ext(qb_d, tb_d, qo, to, ql, tl, wd, zd, po,
                                  p_total, prm, right, end_bonus,
                                  events=events)
-            shape = fill_shape(ql.cpu().numpy(), tl.cpu().numpy())
-            n_scr += int((shape.scr_off >= 0).sum())
             return extd2_fill(qb_d, tb_d, qo, to, ql, tl, wd, po, p_total,
                               prm, right, events=events)
 
@@ -1070,13 +1081,10 @@ def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
                                   starts=out[:, 10:] if ext else None,
                                   events=events)
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        if ext:
-            scr = EXT_STATE_ROWS * ((tl + 15) // 16 * 16)
-            scr = np.where(scr > SMEM_STATE_MAX, scr, 0)
-            n_scr = int((scr > 0).sum())
-        else:   # the block-class fills past FILL_SMEM_MAX, at most
-            scr = fill_bytes(ql, tl)
-            scr = np.where(scr > FILL_SMEM_MAX, scr, 0)
+        # the block-class fills past the shared-memory cap, at most
+        scr = (ext_bytes if ext else fill_bytes)(ql, tl)
+        scr = np.where(scr > (EXT_SMEM_MAX if ext else FILL_SMEM_MAX), scr,
+                       0)
         # regions 16-aligned: the fill kernel stores 4 direction bytes at
         # once where its region allows
         out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(

@@ -20,7 +20,8 @@ hand-written CUDA kernels do the work:
   row windows are the unbanded ones.
 
 The same file's extension kernel, `exts2_ext` (the JAX package's
-`exts2_fwd_tpu(track_h=True)`; a block per fill), runs the splice DP
+`exts2_fwd_tpu(track_h=True)`; the fill kernel's classes and rings,
+`ext_ring_shape`), runs the splice DP
 without KSW_EZ_APPROX_MAX: the H row, the ranked row maximum, mqe, mte,
 Z-drop with gap extension 0, and the backtrack start picked on the card;
 `exts2_ext_batch` solves a batch of such calls (splice extensions, with
@@ -50,7 +51,8 @@ from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, FILL_WARPS,
                                            _record, _track_h_row,
                                            assemble_cigars, class_shape,
                                            ksw2_backtrack, p_bound,
-                                           solve_chunks, upload)
+                                           shape_operands, solve_chunks,
+                                           upload)
 from mm2_gb_tpu_torch.utils import kernels
 
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
@@ -76,14 +78,11 @@ FILL_LANE_BYTES = 13
 FILL_RING_PAD = 80     # the kernel's kRingPad: kBatch (32) + 34 and more
 WARP_RING = 256
 FILL_SMEM_MAX = FILL_LANE_BYTES * 2048 + 16   # rings of 2048 lanes
-# extension mode (exts2_ext): the first port's ring rows (u, y, the score
-# row, x, v, x2 twice by row parity, donor and acceptor) and the int32 H
-# row; a fill whose ring exceeds SMEM_RING_MAX keeps it in a global
-# scratch region of its own (it stays under the 48 KB a block gets
-# without an opt-in)
-RING_ROWS = 11
-SMEM_RING_MAX = 24 * 1024
-EXT_RING_ROWS = RING_ROWS + 4
+# extension mode (exts2_ext): the fill kernel's classes and rings with
+# the int32 H ring beside them (ext_ring_bytes); a block-class ring past
+# EXT_SMEM_MAX (1024 lanes) stays in a global scratch region of its own.
+# No LONG_FILLS rule, as for ksw2_gpu.ext_shape.
+EXT_SMEM_MAX = 24 * 1024
 
 
 @dataclass
@@ -127,9 +126,8 @@ def splice_params(opt) -> SpliceParams:
 
 
 def ring_lanes(qlen, tlen, pad: int = 32, least: int = 32):
-    """Lanes of a fill's state ring in the extension kernel: the least
-    power of two, at least `least`, not below min(qlen, tlen) + pad
-    (numpy arrays or tensors)."""
+    """Lanes of a state ring: the least power of two, at least `least`,
+    not below min(qlen, tlen) + pad (numpy arrays or tensors)."""
     if isinstance(qlen, torch.Tensor):
         m = torch.minimum(qlen, tlen).to(torch.int64) + pad
         return torch.clamp(2 ** torch.ceil(torch.log2(m.double())).long(),
@@ -149,6 +147,24 @@ def fill_bytes(qlen, tlen):
     """Bytes of a fill's rings and slots in the fill kernel, a multiple
     of 16."""
     return FILL_LANE_BYTES * fill_ring_lanes(qlen, tlen) + 16
+
+
+def ext_ring_bytes(qlen, tlen):
+    """Bytes of an extension's rings in the extension kernel: the fill
+    kernel's and the int32 H ring."""
+    return fill_bytes(qlen, tlen) + 4 * fill_ring_lanes(qlen, tlen)
+
+
+def ext_ring_shape(qlen, tlen) -> FillShape:
+    """exts2_ext's launch over n extensions (numpy arrays, in launch
+    order, longest first): a warp for an extension whose rings have at
+    most WARP_RING lanes, else a block (ksw2_gpu.class_shape, with
+    EXT_SMEM_MAX and no LONG_FILLS rule)."""
+    qlen = np.asarray(qlen, np.int64)
+    tlen = np.asarray(tlen, np.int64)
+    return class_shape(ext_ring_bytes(qlen, tlen), qlen + tlen - 1,
+                       fill_ring_lanes(qlen, tlen) <= WARP_RING,
+                       EXT_SMEM_MAX, 0)
 
 
 def fill_shape(qlen, tlen) -> FillShape:
@@ -534,25 +550,21 @@ def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
     if n == 0:
         return out, p
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sh = (ext_ring_shape if ext else fill_shape)(qlen.cpu().numpy(),
+                                                 tlen.cpu().numpy())
+    scr_off, work, scratch = shape_operands(sh, dev)
+    _record(events, 0)
     if ext:
-        scr_off, scratch, smem, threads = _ring_launch(qlen, tlen,
-                                                       EXT_RING_ROWS)
-        _record(events, 0)
         rc = lib.mm2_exts2_ext(
             qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
             qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(),
             qlen.data_ptr(), tlen.data_ptr(), flags.data_ptr(),
-            zdrop.data_ptr(), p_off.data_ptr(), scr_off.data_ptr(), n,
-            scratch.data_ptr(), p.data_ptr(), out.data_ptr(), prm.q, prm.e,
-            prm.q2, prm.noncan, prm.junc_bonus, prm.mat0, prm.mat1,
-            prm.sc_n, prm.long_thres, prm.long_diff, threads, smem, stream)
+            zdrop.data_ptr(), p_off.data_ptr(), scr_off.data_ptr(),
+            work.data_ptr(), sh.n_block, sh.n_warp, scratch.data_ptr(),
+            p.data_ptr(), out.data_ptr(), prm.q, prm.e, prm.q2, prm.noncan,
+            prm.junc_bonus, prm.mat0, prm.mat1, prm.sc_n, prm.long_thres,
+            prm.long_diff, sh.warp_stride, sh.smem, stream)
     else:
-        sh = fill_shape(qlen.cpu().numpy(), tlen.cpu().numpy())
-        scr_off, work = (torch.from_numpy(a).to(dev)
-                         for a in (sh.scr_off, sh.work))
-        scratch = torch.empty(max(sh.scratch, 1), dtype=torch.int8,
-                              device=dev)
-        _record(events, 0)
         rc = lib.mm2_exts2_fill(
             qblob.data_ptr(), tblob.data_ptr(), jblob.data_ptr(),
             qoff.data_ptr(), toff.data_ptr(), joff.data_ptr(),
@@ -569,27 +581,6 @@ def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
     else:
         fill_launches += 1
     return out, p
-
-
-def _ring_launch(qlen, tlen, rows: int):
-    """(scr_off, scratch, smem bytes, threads) of an extension launch over
-    fills of `rows` x ring_lanes bytes of state: shared memory per block
-    holds the largest ring that fits; larger rings live in a global
-    scratch region of their own (scr_off >= 0)."""
-    i64 = torch.int64
-    dev = qlen.device
-    n = qlen.shape[0]
-    need = rows * ring_lanes(qlen.to(i64), tlen.to(i64))
-    big = need > SMEM_RING_MAX
-    scr_off = torch.where(big, torch.cumsum(torch.where(big, need, 0), 0)
-                          - need, -1)
-    n_big = int(big.sum())
-    scratch = torch.empty(int(need[big].sum()) if n_big else 1,
-                          dtype=torch.int8, device=dev)
-    smem = int(need[~big].max()) if n_big < n else 16
-    m = torch.minimum(qlen, tlen)
-    threads = min(256, max(32, (int(m.max()) + 47) // 32 * 32))
-    return scr_off, scratch, smem, threads
 
 
 # --------------------------------------------------------------------------
@@ -695,10 +686,9 @@ def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
     pieces, kms, bms, chunks, n_scr = [], 0.0, 0.0, 0, 0
     if dev_idx.shape[0]:
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        if ext:
-            ring = EXT_RING_ROWS * ring_lanes(ql, tl)
-            scr = np.where(ring > SMEM_RING_MAX, ring, 0)
-            n_scr = int((scr > 0).sum())
+        if ext:   # the block-class rings past EXT_SMEM_MAX, at most
+            scr = ext_ring_bytes(ql, tl)
+            scr = np.where(scr > EXT_SMEM_MAX, scr, 0)
         else:   # budgeted as if every fill's rings were in scratch
             scr = fill_bytes(ql, tl)
         qb_d, tb_d, jb_d = (upload(b, device) for b in (qblob, tblob, jblob))
@@ -706,11 +696,12 @@ def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
         def launch(c64, c32, po, p_total, events):
             nonlocal n_scr
             (qo, to, jo), (q_, t_, f_, _w, zd) = c64, c32
+            shape = (ext_ring_shape if ext else fill_shape)(
+                q_.cpu().numpy(), t_.cpu().numpy())
+            n_scr += int((shape.scr_off >= 0).sum())
             if ext:
                 return exts2_ext(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, zd,
                                  po, p_total, prm, events=events)
-            shape = fill_shape(q_.cpu().numpy(), t_.cpu().numpy())
-            n_scr += int((shape.scr_off >= 0).sum())
             return exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
                               p_total, prm, events=events)
 

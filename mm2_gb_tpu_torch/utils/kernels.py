@@ -34,10 +34,10 @@ _SIGNATURES = {
                            _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _vp],
     "mm2_mg_log2": [_vp, _vp, _i, _vp],
     "mm2_extd2_fill": [_vp] * 10 + [_i] * 2 + [_vp] * 3 + [_i] * 12 + [_vp],
-    "mm2_extd2_ext": [_vp] * 10 + [_i, _vp, _vp, _vp] + [_i] * 13 + [_vp],
+    "mm2_extd2_ext": [_vp] * 11 + [_i] * 2 + [_vp] * 3 + [_i] * 13 + [_vp],
     "mm2_ksw2_backtrack": [_vp] * 8 + [_i] * 4 + [_vp] * 3,
     "mm2_exts2_fill": [_vp] * 12 + [_i] * 2 + [_vp] * 3 + [_i] * 12 + [_vp],
-    "mm2_exts2_ext": [_vp] * 12 + [_i, _vp, _vp, _vp] + [_i] * 12 + [_vp],
+    "mm2_exts2_ext": [_vp] * 13 + [_i] * 2 + [_vp] * 3 + [_i] * 12 + [_vp],
 }
 
 

@@ -175,13 +175,14 @@ def test_extension_band_collapse_takes_the_host_route():
 
 
 def test_extension_past_the_shared_memory_budget():
-    """tlen past ~3.2 kb: the kernel keeps the fill's state (14 x nbytes)
-    in global scratch; the twin's answer is the same."""
+    """tlen past ~2.9 kb: the kernel keeps the fill's state (ext_bytes:
+    the fill kernel's and the int32 H row) in global scratch; the twin's
+    answer is the same."""
     rng = np.random.default_rng(59)
     t = rng.integers(0, 4, 3300).astype(np.uint8)
     q = t[:180].copy()
     q[rng.random(180) < 0.05] = 1
-    assert K.EXT_STATE_ROWS * 3312 > K.SMEM_STATE_MAX
+    assert K.ext_bytes(180, 3300) > K.EXT_SMEM_MAX
     st = _check([FillCall(q, t, -1, False, 400)], EXTO, end_bonus=5)
     assert st.scratch_fills == 1
 

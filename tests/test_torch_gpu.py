@@ -513,3 +513,78 @@ def test_chain_kernel_classes(cuda, name):
     assert np.array_equal(f.cpu().numpy(), fo)
     assert np.array_equal(np.where(prel > 0, np.arange(prel.shape[0]) - prel,
                                    -1), po)
+
+
+@pytest.mark.parametrize("right", [False, True], ids=["default", "right"])
+@pytest.mark.parametrize("in_scratch", [False, True],
+                         ids=["shared", "scratch"])
+def test_extd2_ext_warp_and_block_classes(cuda, monkeypatch, right,
+                                          in_scratch):
+    """The extension kernel on one launch that mixes warp-class
+    extensions (a Z-drop in a block of warps whose other warps run on,
+    periodic pairs whose row maxima tie across rank classes, reach_end
+    starts) with block-class ones past WARP_LANES lanes (one Z-dropped),
+    in both flag forms: equal to the twins (every field, direction bytes,
+    CIGARs) and to ksw2.extd2, also with fill regions that are not
+    4-aligned; with the shared-memory cap at 0, every block-class
+    extension keeps its state in global scratch.  The mix's cases are
+    checked on the CPU (tests/test_torch_ext_shapes.py)."""
+    from chip_smoke import ext_class_mix
+    if in_scratch:
+        monkeypatch.setattr(ksw2_gpu, "EXT_SMEM_MAX", 0)
+    meta, qb, tb, zd, prm, flag, eb = ext_class_mix(
+        808, 0x40 | (0x82 if right else 0))
+    st = ksw2_gpu.FillStats()
+    with recording_ext() as calls:
+        got = ksw2_gpu.extd2_ext_batch(meta, qb, tb, zd, prm, flag, eb, cuda,
+                                       st)
+    assert ext_result_err(got, ext_oracle(meta, qb, tb, zd, prm, flag,
+                                          eb)) == 0
+    assert len(calls) == 1
+    shape = ksw2_gpu.ext_shape(calls[0][0][4].cpu().numpy(),
+                               calls[0][0][5].cpu().numpy())
+    assert shape.n_block > 0 and shape.n_warp > 0
+    assert (st.scratch_fills == shape.n_block) == in_scratch
+    assert (st.scratch_fills > 0) == in_scratch
+    assert got[0][:, 8].any() and got[0][:, 9].any()
+    assert hold_ext_calls(calls, "mix", verbose=False)[0] == 0
+    # regions that are not 4-aligned take the kernel's byte stores
+    fa = list(calls[0][0])
+    fa[8], fa[9] = fa[8] + 1, fa[9] + 1
+    e, p = ksw2_gpu.extd2_ext(*fa)
+    et, pt = ksw2_gpu.extd2_ext_torch(*fa)
+    assert torch.equal(e, et) and torch.equal(p, pt)
+
+
+@pytest.mark.parametrize("in_scratch", [False, True],
+                         ids=["shared", "scratch"])
+def test_exts2_ext_warp_and_block_classes(cuda, monkeypatch, in_scratch):
+    """The splice extension kernel on one launch that mixes warp-class
+    read ends (a Z-drop in a block of warps whose other warps run on,
+    periodic pairs whose row maxima tie across rank classes) with
+    block-class ones, in both flag forms and with whole-matrix starts:
+    equal to the twins and to ksw2_splice.exts2, also with fill regions
+    that are not 4-aligned; with the shared-memory cap at 0, every
+    block-class extension keeps its rings in global scratch."""
+    from chip_smoke import splice_ext_class_mix
+    if in_scratch:
+        monkeypatch.setattr(ksw2s_gpu, "EXT_SMEM_MAX", 0)
+    meta, qb, tb, jb, fl, zd, prm = splice_ext_class_mix(909)
+    st = ksw2_gpu.FillStats()
+    with recording_splice_ext() as calls:
+        got = ksw2s_gpu.exts2_ext_batch(meta, qb, tb, jb, fl, zd, prm, cuda,
+                                        st)
+    assert ext_result_err(got, splice_ext_oracle(meta, qb, tb, jb, fl, zd,
+                                                 prm)) == 0
+    assert len(calls) == 1
+    shape = ksw2s_gpu.ext_ring_shape(calls[0][0][6].cpu().numpy(),
+                                     calls[0][0][7].cpu().numpy())
+    assert shape.n_block > 0 and shape.n_warp > 0
+    assert (st.scratch_fills == shape.n_block) == in_scratch
+    assert (st.scratch_fills > 0) == in_scratch
+    assert hold_splice_ext_calls(calls, "mix", verbose=False)[0] == 0
+    fa = list(calls[0][0])
+    fa[10], fa[11] = fa[10] + 1, fa[11] + 1
+    e, p = ksw2s_gpu.exts2_ext(*fa)
+    et, pt = ksw2s_gpu.exts2_ext_torch(*fa)
+    assert torch.equal(e, et) and torch.equal(p, pt)

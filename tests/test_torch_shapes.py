@@ -43,9 +43,16 @@ def _const(source, name):
 
 def test_python_constants_match_the_kernels():
     """The shapes Python computes assume the kernels' block sizes, warps
-    to a block, blocks an SM and the reversed query's pad."""
+    to a block, blocks an SM, the reversed query's pad, the splice ring's
+    pad and the extension kernels' slots for a block's warps."""
+    from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     assert _const("extd2_kernel.cu", "kFillThreads") == 32 * K.FILL_WARPS
+    assert _const("exts2_kernel.cu", "kFillThreads") == 32 * K.FILL_WARPS
     assert _const("extd2_kernel.cu", "kQPad") == K.QUERY_PAD
+    assert _const("exts2_kernel.cu", "kRingPad") == KS.FILL_RING_PAD
+    with open(os.path.join(CSRC, "ksw2_row_max.cuh")) as f:
+        assert re.search(r"long long key\[2\]\[(\d+)\];",
+                         f.read()).group(1) == str(K.FILL_WARPS)
     assert _const("chain_kernel.cu", "kChainThreads") == G.CHAIN_THREADS
     assert _const("chain_kernel.cu", "kGroupThreads") == G.GROUP_THREADS
     assert (_const("chain_kernel.cu", "kChainBlocksPerSm")

@@ -225,8 +225,8 @@ def test_splice_params_match_exts2_batch_device():
 
 
 def test_ring_lanes():
-    """The kernel's ring: the least power of two >= min(qlen, tlen) + 32
-    (csrc/exts2_kernel.cu), the same from numpy and from tensors."""
+    """A state ring's lanes: by default the least power of two >=
+    min(qlen, tlen) + 32, the same from numpy and from tensors."""
     ql = np.array([1, 31, 32, 33, 200, 224, 225, 5000, 7])
     tl = np.array([9, 500, 40, 40, 20000, 224, 300, 2500, 1])
     want = []

@@ -197,13 +197,12 @@ def test_chunks_split_by_budget(monkeypatch):
 
 
 def test_ext_ring_lanes_and_scratch():
-    """The extension ring adds the int32 H row to the fill's eleven int8
-    rows; a read end past ~1 kb keeps it in global scratch."""
-    assert KS.EXT_RING_ROWS == KS.RING_ROWS + 4 == 15
-    ring = KS.EXT_RING_ROWS * KS.ring_lanes(np.array([900, 1100]),
-                                            np.array([3000, 3000]))
-    assert ring.tolist() == [15 * 1024, 15 * 2048]
-    assert (ring > KS.SMEM_RING_MAX).tolist() == [False, True]
+    """The extension rings add the int32 H ring to the fill kernel's
+    thirteen byte rings; a read end past ~940 bases keeps them in global
+    scratch."""
+    ring = KS.ext_ring_bytes(np.array([900, 1100]), np.array([3000, 3000]))
+    assert ring.tolist() == [17 * 1024 + 16, 17 * 2048 + 16]
+    assert (ring > KS.EXT_SMEM_MAX).tolist() == [False, True]
 
 
 def test_every_kernel_entry_has_its_ctypes_signature():
