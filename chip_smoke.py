@@ -26,7 +26,10 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    REV_CIGAR on and off, N bases, indel-rich and unrelated pairs, bands
    from 16 to the whole matrix, the q/e swap, pairs to 5 kb and one of 7
    kb (the fill kernel's state in global scratch), warp- and block-class
-   fills in one launch, and the host routes (collapse, mat gate);
+   fills in one launch, and the host routes (collapse, mat gate); one
+   launch in which queries of 4,000 to 72,000 bases beside targets of at
+   most 512 take blocks (one from global scratch) beside warp-class
+   fills, against ksw2.extd2;
 3. end to end through the CLI entry point, `--gpu-chain
    --max-chain-skip=2147483647`: byte-identical to the sim200 goldens
    (with and without --cs -c, and with --gpu-align for --cs -c and
@@ -73,6 +76,13 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    port's mergeshards byte-identical to one process (PAF; SAM but @PG);
    per-part device mapping of multi-part indexes against the sim200 and
    multi3 goldens; a --tpu-profile trace that names the chain kernel;
+   Then the host modules: `MM2TPU_TIMELINE=1 python -m mm2_gb_tpu_torch
+   --gpu-chain --gpu-align -c` on the flowcell in a subprocess, its
+   stdout equal to the in-process run's, its phase marks printed beside
+   the card's name and power limit; the Python API (host mapping) on
+   the flowcell's first 100 reads, each primary hit equal to the card's
+   -c PAF line; the port's paftools `stat` on that PAF and `sam2paf` on
+   the cDNA run's SAM;
 4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
    the inputs it was given, re-run and held against its recorded result
    and against its twin, exact, and both timed (CUDA events; a kernel's
@@ -132,6 +142,8 @@ SKIP_INF = "--max-chain-skip=2147483647"
 # the port's CLI as a subprocess (after the interpreter)
 PORT = ["-m", "mm2_gb_tpu_torch", SKIP_INF, "-t", str(THREADS)]
 KERNEL_REPS = 3
+CARD = ""           # the card's name and power limit (phase 1)
+N_API = 100         # the flowcell's reads the Python API maps
 
 
 def log(msg: str) -> None:
@@ -150,7 +162,9 @@ def phase1():
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
     from mm2_gb_tpu_torch.utils import kernels
@@ -428,6 +442,29 @@ def fill_workloads(n_pairs=96, max_len=600, long_len=5000, huge_len=0):
            am)
 
 
+def long_query_mix(rng, n_short=40):
+    """(pairs, ws) of gap fills for one launch in which queries of tens
+    of kb meet narrow targets: n_short fill_pairs of 20-400 bp (warp
+    class); a 4,000 x 512 and a 24,500 x 500 fill under the flowcell's
+    band (30001) whose state passes a warp's share of FILL_SMEM_MAX
+    (ksw2_gpu.WARP_FILL_MAX), so each takes a block though it is not
+    among the launch's longest; a 72,000 x 300 fill over the whole
+    matrix, the launch's longest, whose state passes FILL_SMEM_MAX
+    (global scratch).  Each long query holds its target's bases in
+    order, apart from 5% substitutions, among random bases."""
+    import numpy as np
+    pairs, ws = fill_pairs(rng, n_short, 20, 400)
+    for ql, tl, w in ((4_000, 512, 30001), (24_500, 500, 30001),
+                      (72_000, 300, -1)):
+        t = rng.integers(0, 4, tl).astype(np.uint8)
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        at = np.sort(rng.choice(ql, tl, replace=False))
+        q[at] = np.where(rng.random(tl) < 0.05, rng.integers(0, 4, tl), t)
+        pairs.append((q, t))
+        ws.append(w)
+    return pairs, ws
+
+
 def fill_oracle(meta, qblob, tblob, prm, flag, extd2=None):
     """extd2 (the port's ksw2.extd2 unless given) of every fill: (scores,
     cig_off, cig_blob)."""
@@ -579,6 +616,50 @@ def phase2_fills():
         if name == "long" and not st.scratch_fills:
             fail("no fill took the global-scratch state")
         err = max(err, e_tw)
+    return err
+
+
+def phase2_long_query():
+    """The gap-fill kernel on long_query_mix's launch, under RIGHT and
+    without: the long-query fills take blocks (one from global scratch),
+    the short ones warps, and the batch equals ksw2.extd2 (the native
+    kit), exact.  The twins are not run: their row loop would step the
+    longest fill's 72,299 rows.  Returns the max_abs_err."""
+    import numpy as np
+    import torch
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import opts as O
+    dev = torch.device("cuda")
+    prm = K.fill_params(O.set_preset(None)[1])
+    err = 0
+    for right in (0, ksw2.KSW_EZ_RIGHT):
+        flag = ksw2.KSW_EZ_APPROX_MAX | right
+        meta, qb, tb = _pack_fills(*long_query_mix(
+            np.random.default_rng(2024 + right)))
+        st = K.FillStats()
+        with recording_fills() as calls:
+            got = K.extd2_fill_batch(meta, qb, tb, prm, dev, flag, st)
+        e = fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag))
+        if len(calls) != 1:
+            fail(f"long-query fills: {len(calls)} launches, not one")
+        fa, _sc, fp = calls[0][:3]
+        (_sck, pk), tk = _timed_launch(K.extd2_fill, *fa)
+        e = max(e, 0 if _fingerprint(pk) == fp else 2**31)
+        ql, tl = fa[4].cpu().numpy(), fa[5].cpu().numpy()
+        sh = K.fill_shape(ql, tl)
+        block = np.isin(np.arange(ql.shape[0]), sh.work[:sh.n_block])
+        long = ql >= 4_000
+        log(f"long-query fills {flag:#x}: {ql.shape[0]} fills in one "
+            f"launch, {sh.n_block} blocks ({int(long.sum())} long queries, "
+            f"{st.scratch_fills} in scratch) and {sh.n_warp} warps, smem "
+            f"{sh.smem} B, warp stride {sh.warp_stride} B; fill {tk:.3f} ms "
+            f"for {int(ql.max() + tl[ql.argmax()] - 1)} rows of the longest; "
+            f"batch==ksw2.extd2 max_abs_err={e}")
+        if e or long.sum() != 3 or not block[long].all() \
+                or sh.n_warp == 0 or st.scratch_fills == 0:
+            fail("the long-query gap fills")
+        err = max(err, e)
     return err
 
 
@@ -1592,6 +1673,7 @@ def phase3():
     --gpu-align flowcell run's fill and backtrack launches and its
     recorded fill calls, and the two runs' outputs (equal to the host
     path's) and walls."""
+    import numpy as np
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
@@ -1681,8 +1763,115 @@ def phase3():
         f"to host path {same}")
     if not same or min(align_launches) == 0:
         fail("flowcell --gpu-align run")
+    ql, tl = (np.concatenate([c[0][k].cpu().numpy() for c in fcalls])
+              for k in (4, 5))
+    moved = ((K.fill_bytes(ql, tl) > K.WARP_FILL_MAX)
+             & ((tl + 15) // 16 * 16 <= K.WARP_LANES))
+    log(f"flowcell -c fills narrow enough for a warp whose state passes "
+        f"WARP_FILL_MAX (a block for their query): {int(moved.sum())} of "
+        f"{ql.shape[0]}; longest query {int(ql.max())}")
     return (launches, calls, align_launches, fcalls,
             {"chain": (host_out, gpu_wall), "align": (host_c, wall)})
+
+
+TIMELINE_MARKS = ("index build start", "index built", "mapping start",
+                  "mapping done", "exit")
+
+
+def phase3_timeline(paf):
+    """`MM2TPU_TIMELINE=1 python -m mm2_gb_tpu_torch --gpu-chain
+    --gpu-align -c -t 8` on the flowcell in a subprocess: its stdout
+    must equal the in-process run's (paf), and its stderr must hold the
+    phase marks in order.  Prints the seconds since the process started
+    at each mark beside the card's name and power limit, and the wall's
+    split into start-up (interpreter, imports), index build, CUDA
+    start-up and batch caps, mapping and exit."""
+    ref, reads = flowcell()
+    env = dict(os.environ, MM2TPU_TIMELINE="1")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, *PORT, "--gpu-chain", "--gpu-align",
+                        "-c", ref, reads], cwd=REPO, env=env, text=True,
+                       capture_output=True, timeout=600)
+    wall = time.perf_counter() - t0
+    marks = re.findall(r"^\[T::\s*([0-9.]+)s\] (.+)$", p.stderr, re.M)
+    got = [m for _t, m in marks]
+    at = {m: float(t) for t, m in marks}
+    if p.returncode != 0 or got != list(TIMELINE_MARKS):
+        sys.stderr.write(p.stderr[-3000:])
+        fail(f"timeline run: rc {p.returncode}, marks {got}")
+    same = p.stdout == paf
+    print("timeline (" + CARD + "): " + ", ".join(
+        f"{m} {at[m]:.2f} s" for m in TIMELINE_MARKS) + "; split: start-up "
+        f"{at['index build start']:.2f} s, index build "
+        f"{at['index built'] - at['index build start']:.2f} s, CUDA "
+        f"start-up and caps {at['mapping start'] - at['index built']:.2f} "
+        f"s, mapping {at['mapping done'] - at['mapping start']:.2f} s, exit "
+        f"{at['exit'] - at['mapping done']:.2f} s; wall {wall:.2f} s; "
+        f"stdout byte-identical to the in-process run {same}", flush=True)
+    if not same:
+        fail("the timeline run's stdout differs from the in-process run's")
+
+
+def phase3_api(paf, n_reads=N_API):
+    """The Python API (mm2_gb_tpu_torch.api, host mapping, as the JAX
+    package's) on the flowcell's first n_reads reads, under the CLI's
+    --max-chain-skip=2147483647: each read's primary hits (ctg, r_st,
+    r_en, strand, q_st, q_en, mapq, NM, mlen, blen, CIGAR) must equal its
+    tp:A:P and tp:A:I lines of the card's --gpu-align -c PAF (paf)."""
+    import mm2_gb_tpu_torch.api as mp
+    want = {}
+    for line in paf.splitlines():
+        t = line.split("\t")
+        tags = {x[:2]: x[5:] for x in t[12:]}
+        if tags["tp"] in ("P", "I"):
+            want.setdefault(t[0], []).append((
+                t[5], int(t[7]), int(t[8]), 1 if t[4] == "+" else -1,
+                int(t[2]), int(t[3]), int(t[11]), int(tags["NM"]),
+                int(t[9]), int(t[10]), tags["cg"]))
+    t0 = time.perf_counter()
+    a = mp.Aligner(flowcell()[0], preset="map-ont")
+    a.map_opt.max_chain_skip = 2**31 - 1
+    n = n_hits = bad = 0
+    for name, seq, _qual in mp.fastx_read(flowcell()[1]):
+        if n == n_reads:
+            break
+        got = [(h.ctg, h.r_st, h.r_en, h.strand, h.q_st, h.q_en, h.mapq,
+                h.NM, h.mlen, h.blen, h.cigar_str)
+               for h in a.map(seq) if h.is_primary]
+        n, n_hits = n + 1, n_hits + len(got)
+        if got != want.get(name, []):
+            bad += 1
+            log(f"API {name}: {got[:2]} against the PAF's "
+                f"{want.get(name, [])[:2]}")
+    log(f"API (host mapping): {n} reads, {n_hits} primary hits, "
+        f"{time.perf_counter() - t0:.2f} s; reads whose hits differ from the "
+        f"card's -c PAF: {bad}")
+    if bad or n_hits < n:
+        fail("the Python API disagrees with the card's PAF")
+
+
+def phase3_tools(paf):
+    """The port's paftools (`python -m mm2_gb_tpu_torch.tools.paftools`)
+    on the card's outputs: `stat` on the flowcell -c PAF, whose mapped
+    sequences must be the PAF's distinct query names, and `sam2paf` on
+    the cDNA run's SAM, a PAF line for each mapped record."""
+    path = os.path.join(WORK, "flowcell_gpu.c.paf")
+    with open(path, "w") as f:
+        f.write(paf)
+    tool = ["-m", "mm2_gb_tpu_torch.tools.paftools"]
+    out = _host([*tool, "stat", path], "paftools stat")
+    m = re.search(r"^Number of mapped sequences: (\d+)$", out, re.M)
+    names = len({line.split("\t", 1)[0] for line in paf.splitlines()})
+    sam = os.path.join(WORK, "cdna_gpu.sam")
+    conv = _host([*tool, "sam2paf", sam], "paftools sam2paf")
+    with open(sam) as f:
+        mapped = sum(1 for line in f if not line.startswith("@")
+                     and not int(line.split("\t")[1]) & 4)
+    log(f"paftools stat: {m.group(1) if m else None} mapped sequences "
+        f"(the PAF's query names: {names}); sam2paf: {conv.count(chr(10))} "
+        f"lines for {mapped} mapped SAM records")
+    if m is None or int(m.group(1)) != names or conv.count("\n") != mapped:
+        fail("paftools on the card's outputs")
 
 
 def cdna_set(n_reads=N_CDNA, genome_len=10_000_000, max_intron=20_000,
@@ -1802,6 +1991,8 @@ def phase3_splice():
         f"path but @PG {same}")
     if not same or min(launches) == 0 or int(m.group(3)) != 0:
         fail("cDNA --gpu-align -ax splice run")
+    with open(os.path.join(WORK, "cdna_gpu.sam"), "w") as f:
+        f.write(out)   # for phase3_tools
     return launches, calls, exts
 
 
@@ -2729,7 +2920,7 @@ def main() -> int:
         return out
     timed(phase1)
     err = timed(phase2)
-    fill_err = timed(phase2_fills)
+    fill_err = max(timed(phase2_fills), timed(phase2_long_query))
     splice_err, splice_later = timed(phase2_splice)
     ext_err = timed(phase2_ext)
     sext_err = timed(phase2_splice_ext)
@@ -2740,6 +2931,9 @@ def main() -> int:
         phase3_splice_ext, sexts)
     (n_ext, n_ebt), ecalls = timed(phase3_qstrand)
     timed(phase3_scale, single)
+    timed(phase3_timeline, single["align"][0])
+    timed(phase3_api, single["align"][0])
+    timed(phase3_tools, single["align"][0])
     e, ms, plain_ms = timed(phase4, calls)
     fe, fms, fpl, bms, bpl = timed(hold_fill_calls, fcalls, "main-path fill")
     if fe:

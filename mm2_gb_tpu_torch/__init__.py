@@ -18,7 +18,20 @@ stream, splitmerge), and replaces the modules that import JAX:
 - utils.kernels: builds csrc/*.cu on first use;
 - cli: `python -m mm2_gb_tpu_torch --gpu-chain ref.fa reads.fa`.
 
+Like the JAX package it also carries the mappy-compatible Python API
+(api, which maps on the host), paftools and mmphase (tools) and the
+MM2TPU_TIMELINE=1 phase marks (utils.timeline).
+
 Importing this package never imports JAX, nor any module of mm2_gb_tpu.
 """
 
 __version__ = "0.1.0"
+
+from mm2_gb_tpu_torch.utils.opts import IndexOptions, MapOptions, set_preset
+
+__all__ = [
+    "IndexOptions",
+    "MapOptions",
+    "set_preset",
+    "__version__",
+]

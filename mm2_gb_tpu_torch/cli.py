@@ -632,7 +632,10 @@ def _run(args, argv, io, mo, device="cuda") -> int:
                              "sequences.\n")  # main.c:406-408
             return 1
     else:
+        from mm2_gb_tpu_torch.utils.timeline import mark
+        mark("index build start")
         index = MinimizerIndex.from_fasta(args.target, io)
+        mark("index built")
     if args.dump_index:
         index.save(args.dump_index)
         if not args.query:
@@ -737,7 +740,9 @@ def _run_gpu(args, index, mo, rg_id, is_sam, out, device) -> int:
     from mm2_gb_tpu_torch.models.pipeline import (GpuMetrics,
                                                   map_file_gpu_records)
     from mm2_gb_tpu_torch.utils.gpucfg import derive_caps
+    from mm2_gb_tpu_torch.utils.timeline import mark
     derive_caps(device, args.verbose)
+    mark("mapping start")
     gmet = GpuMetrics()
     devices = run_devices(args.tpu_devices, device) \
         if args.tpu_devices != 1 else [device]
@@ -755,6 +760,7 @@ def _run_gpu(args, index, mo, rg_id, is_sam, out, device) -> int:
         for sr, regs in records:
             res_regs_out(out, index, mo, sr.rec, regs, sr.rep_len,
                          is_sam, rg_id, 0, 1, [regs])
+    mark("mapping done")
     gmet.report(args.verbose)
     return 0
 

@@ -58,10 +58,10 @@ STATE_ROWS = 10
 # fill mode (extd2_fill): the state rows and the target row of nbytes
 # lanes, the reversed query (QUERY_PAD zero bytes before it, 32 after)
 # and the H0 walk's four int32 slots (fill_bytes).  A fill of at most
-# WARP_LANES lanes (nbytes) takes a warp (FILL_WARPS to a block, here and
-# in the splice fill kernel), a wider one a block of 256 threads; a
-# block-class fill past FILL_SMEM_MAX bytes keeps its state in a global
-# scratch region of its own.
+# WARP_LANES lanes (nbytes) whose state fits WARP_FILL_MAX takes a warp
+# (FILL_WARPS to a block, here and in the splice fill kernel), any other
+# a block of 256 threads; a block-class fill past FILL_SMEM_MAX bytes
+# keeps its state in a global scratch region of its own.
 FILL_WARPS = 8
 WARP_LANES = 512
 QUERY_PAD = 16
@@ -71,6 +71,10 @@ QUERY_PAD = 16
 # (both fill kernels)
 LONG_FILLS = 132
 FILL_SMEM_MAX = 72 * 1024   # three blocks an SM share its 227 KB
+# the state holds the whole reversed query: a narrow fill beside a query
+# past ~3.5 kb takes a block, so that FILL_WARPS warps' state stays
+# within FILL_SMEM_MAX
+WARP_FILL_MAX = FILL_SMEM_MAX // FILL_WARPS
 # extension mode (extd2_ext): the fill kernel's classes and state with
 # the int32 H row beside it (ext_bytes).  An extension of at most
 # WARP_LANES lanes whose state fits WARP_EXT_MAX takes a warp (eight
@@ -259,14 +263,26 @@ def class_shape(need, rows, warp_ok, smem_max: int,
                      int(need[big].sum()), stride, smem)
 
 
+def scratch_bytes(need, smem_max: int) -> np.ndarray:
+    """The global scratch each fill's state takes in its launch: its
+    bytes past smem_max, else 0.  A warp-class fill's state is within
+    smem_max (WARP_FILL_MAX, WARP_EXT_MAX), so these are class_shape's
+    scratch regions whatever each fill's class (the chunker's budget)."""
+    need = np.asarray(need, np.int64)
+    return np.where(need > smem_max, need, 0)
+
+
 def fill_shape(qlen, tlen) -> FillShape:
     """extd2_fill's launch over n fills (numpy arrays, in launch order,
-    longest first): a warp for a fill of at most WARP_LANES lanes, else a
-    block (class_shape, with FILL_SMEM_MAX)."""
+    longest first): a warp for a fill of at most WARP_LANES lanes whose
+    state fits WARP_FILL_MAX, else a block (class_shape, with
+    FILL_SMEM_MAX)."""
     qlen = np.asarray(qlen, np.int64)
     tlen = np.asarray(tlen, np.int64)
-    return class_shape(fill_bytes(qlen, tlen), qlen + tlen - 1,
-                       (tlen + 15) // 16 * 16 <= WARP_LANES, FILL_SMEM_MAX)
+    need = fill_bytes(qlen, tlen)
+    return class_shape(need, qlen + tlen - 1,
+                       ((tlen + 15) // 16 * 16 <= WARP_LANES)
+                       & (need <= WARP_FILL_MAX), FILL_SMEM_MAX)
 
 
 def ext_bytes(qlen, tlen):
@@ -1081,10 +1097,8 @@ def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
                                   starts=out[:, 10:] if ext else None,
                                   events=events)
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        # the block-class fills past the shared-memory cap, at most
-        scr = (ext_bytes if ext else fill_bytes)(ql, tl)
-        scr = np.where(scr > (EXT_SMEM_MAX if ext else FILL_SMEM_MAX), scr,
-                       0)
+        scr = scratch_bytes((ext_bytes if ext else fill_bytes)(ql, tl),
+                            EXT_SMEM_MAX if ext else FILL_SMEM_MAX)
         # regions 16-aligned: the fill kernel stores 4 direction bytes at
         # once where its region allows
         out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(

@@ -51,8 +51,8 @@ from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, FILL_WARPS,
                                            _record, _track_h_row,
                                            assemble_cigars, class_shape,
                                            ksw2_backtrack, p_bound,
-                                           shape_operands, solve_chunks,
-                                           upload)
+                                           scratch_bytes, shape_operands,
+                                           solve_chunks, upload)
 from mm2_gb_tpu_torch.utils import kernels
 
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
@@ -686,9 +686,8 @@ def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
     pieces, kms, bms, chunks, n_scr = [], 0.0, 0.0, 0, 0
     if dev_idx.shape[0]:
         ql, tl = qlen[dev_idx], tlen[dev_idx]
-        if ext:   # the block-class rings past EXT_SMEM_MAX, at most
-            scr = ext_ring_bytes(ql, tl)
-            scr = np.where(scr > EXT_SMEM_MAX, scr, 0)
+        if ext:
+            scr = scratch_bytes(ext_ring_bytes(ql, tl), EXT_SMEM_MAX)
         else:   # budgeted as if every fill's rings were in scratch
             scr = fill_bytes(ql, tl)
         qb_d, tb_d, jb_d = (upload(b, device) for b in (qblob, tblob, jblob))

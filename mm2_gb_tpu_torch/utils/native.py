@@ -9,7 +9,10 @@ the two.
 This package builds its own copy of the kit, from its own sources, into
 <repo>/build/hostkit/libhostkit-<hash of the sources>.so, so it never
 shares a loaded library (and the C++ fill session's state) with another
-package in the same process.
+package in the same process.  MM2TPU_NATIVE_LIB names another library to
+load instead, as for the JAX package's loader: a sanitizer build,
+`python -m mm2_gb_tpu_torch.utils.native --sanitize {asan,ubsan}` (the
+asan and ubsan targets of the JAX package's csrc/Makefile).
 """
 
 from __future__ import annotations
@@ -27,17 +30,30 @@ SRC_DIR = os.path.join(_PKG, "csrc", "host")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hostkit")
 _SOURCES = ("hostkit.cpp", "ksw2kit.cpp", "rmqkit.cpp", "alignkit.cpp")
 _CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared"]
+# the sanitizer builds' extra flags (csrc/Makefile's asan and ubsan)
+SANITIZERS = {
+    "asan": ["-g", "-fsanitize=address", "-fno-omit-frame-pointer"],
+    "ubsan": ["-g", "-fsanitize=undefined", "-fno-sanitize-recover=all"],
+}
 
 
-def _lib_path() -> str:
-    """The library's path: its name holds a hash of the sources, so an
-    edited source never loads a stale build."""
+def _build_path(sanitizer: str = "") -> str:
+    """Where the kit is built: its name holds a hash of the sources, so an
+    edited source never loads a stale build (and a sanitizer's name for a
+    sanitizer build)."""
     import hashlib
     h = hashlib.sha1()
     for name in _SOURCES + ("krmq_avl.h",):
         with open(os.path.join(SRC_DIR, name), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libhostkit-{h.hexdigest()[:12]}.so")
+    tag = f"{sanitizer}-" if sanitizer else ""
+    return os.path.join(BUILD_DIR, f"libhostkit-{tag}{h.hexdigest()[:12]}.so")
+
+
+def _lib_path() -> str:
+    """The library to load: MM2TPU_NATIVE_LIB when it is set, else the
+    build's."""
+    return os.environ.get("MM2TPU_NATIVE_LIB") or _build_path()
 
 
 def _warn(why: str) -> None:
@@ -48,10 +64,11 @@ def _warn(why: str) -> None:
                      "--gpu-align -c runs take the Python fill session)\n")
 
 
-def _build(path: str) -> None:
-    """g++ the kit into `path` when it is missing: under a file lock (test
-    workers build at once), into a temporary name, then renamed.  A
-    failure is reported on stderr, with g++'s own messages."""
+def _build(path: str, flags=()) -> None:
+    """g++ the kit into `path` when it is missing, with the extra flags:
+    under a file lock (test workers build at once), into a temporary
+    name, then renamed.  A failure is reported on stderr, with g++'s own
+    messages."""
     import fcntl
     import shutil
     import subprocess
@@ -67,7 +84,7 @@ def _build(path: str) -> None:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run(["g++", *_CXXFLAGS, "-o", tmp,
+            subprocess.run(["g++", *_CXXFLAGS, *flags, "-o", tmp,
                             *(os.path.join(SRC_DIR, s) for s in _SOURCES)],
                            capture_output=True, text=True, timeout=300,
                            check=True)
@@ -87,10 +104,10 @@ def _load():
         return _LIB
     _TRIED = True
     path = _lib_path()
-    if not os.path.exists(path):
+    if path == _build_path() and not os.path.exists(path):
         _build(path)   # on first use, when a toolchain is available
-    if not os.path.exists(path):
-        return None
+        if not os.path.exists(path):
+            return None
     try:
         lib = ctypes.CDLL(path)
     except OSError as e:
@@ -680,3 +697,28 @@ def align1(ax, ay, n_a, seq_codes, offsets, lens, fwd, rc, mat, params):
             continue
         return out, cig[:n]
     raise RuntimeError("mmt_align1: cigar capacity retry failed")
+
+
+def build_sanitized(sanitizer: str) -> str | None:
+    """Build the kit with a sanitizer ("asan" or "ubsan") into BUILD_DIR,
+    once for each source hash; its path, or None if the build failed.
+    Load it with MM2TPU_NATIVE_LIB=<path> and the sanitizer's runtime in
+    LD_PRELOAD ($(g++ -print-file-name=libasan.so) or libubsan.so)."""
+    path = _build_path(sanitizer)
+    if not os.path.exists(path):
+        _build(path, SANITIZERS[sanitizer])
+    return path if os.path.exists(path) else None
+
+
+if __name__ == "__main__":
+    import argparse
+    import sys
+    ap = argparse.ArgumentParser(
+        prog="python -m mm2_gb_tpu_torch.utils.native",
+        description="Build the host kit with a sanitizer and print the "
+                    "library's path (for MM2TPU_NATIVE_LIB).")
+    ap.add_argument("--sanitize", choices=sorted(SANITIZERS), required=True)
+    built = build_sanitized(ap.parse_args().sanitize)
+    if built is None:
+        sys.exit(1)
+    print(built)

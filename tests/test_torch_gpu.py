@@ -483,6 +483,32 @@ def test_extd2_fill_warp_and_block_classes(cuda, monkeypatch, right,
     assert torch.equal(sc, sct) and torch.equal(p, pt)
 
 
+@pytest.mark.parametrize("right", [False, True], ids=["default", "right"])
+def test_extd2_fill_long_queries_beside_warps(cuda, right):
+    """Queries of 4,000 to 72,000 bases beside targets of at most 512
+    (chip_smoke.long_query_mix) in one launch with warp-class fills: each
+    long-query fill takes a block (the longest with its state in global
+    scratch), and the batch equals ksw2.extd2, exact."""
+    from chip_smoke import _pack_fills, long_query_mix
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.utils import opts as O
+    prm = ksw2_gpu.fill_params(O.set_preset(None)[1])
+    flag = ksw2.KSW_EZ_APPROX_MAX | (ksw2.KSW_EZ_RIGHT if right else 0)
+    meta, qb, tb = _pack_fills(*long_query_mix(
+        np.random.default_rng(31 + right)))
+    st = ksw2_gpu.FillStats()
+    with recording_fills() as calls:
+        got = ksw2_gpu.extd2_fill_batch(meta, qb, tb, prm, cuda, flag, st)
+    assert fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag)) == 0
+    assert len(calls) == 1
+    ql = calls[0][0][4].cpu().numpy()
+    shape = ksw2_gpu.fill_shape(ql, calls[0][0][5].cpu().numpy())
+    assert set(np.nonzero(ql >= 4_000)[0]) <= set(
+        shape.work[:shape.n_block].tolist())
+    assert (ql >= 4_000).sum() == 3 and shape.n_warp > 0
+    assert st.scratch_fills >= 1
+
+
 @pytest.mark.parametrize("name", ["every_class", "ties_across_warps",
                                   "dd_2p24"])
 def test_chain_kernel_classes(cuda, name):

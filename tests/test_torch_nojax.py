@@ -47,7 +47,9 @@ for mod in pkgutil.walk_packages(mm2_gb_tpu_torch.__path__,
     if mod.name != "mm2_gb_tpu_torch.__main__":   # that one runs the CLI
         importlib.import_module(mod.name)
 assert {"mm2_gb_tpu_torch.parallel.mesh",
-        "mm2_gb_tpu_torch.tools.mergeshards"} <= set(sys.modules)
+        "mm2_gb_tpu_torch.tools.mergeshards", "mm2_gb_tpu_torch.api",
+        "mm2_gb_tpu_torch.tools.paftools", "mm2_gb_tpu_torch.tools.mmphase",
+        "mm2_gb_tpu_torch.utils.timeline"} <= set(sys.modules)
 
 from mm2_gb_tpu_torch.models.index import MinimizerIndex
 from mm2_gb_tpu_torch.utils import opts as O
