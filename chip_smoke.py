@@ -465,6 +465,80 @@ def long_query_mix(rng, n_short=40):
     return pairs, ws
 
 
+def insertion_reads(work, inserts, seed=7):
+    """(ref, reads) FASTA paths under work: a random reference of 40 kb
+    plus the largest insert, and a read for each insert length, 10 kb of
+    the reference with 2% substitutions, that many random bases, then
+    the next 10 kb likewise.  The long join bridges the insert, whose
+    gap fill has the insert's bases as its query beside a target of a
+    few hundred (align.c's long-join band, max(qgap, tgap))."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = acgt[rng.integers(0, 4, 40_000 + max(inserts))]
+
+    def mut(s):
+        s = s.copy()
+        m = rng.random(s.shape[0]) < 0.02
+        s[m] = acgt[rng.integers(0, 4, int(m.sum()))]
+        return s
+    tag = "_".join(str(n) for n in inserts)
+    ref_p = os.path.join(work, f"ins{tag}_ref.fa")
+    reads_p = os.path.join(work, f"ins{tag}_reads.fa")
+    with open(ref_p, "w") as f:
+        f.write(">ref\n" + ref.tobytes().decode() + "\n")
+    with open(reads_p, "w") as f:
+        for i, n in enumerate(inserts):
+            st = 2_000 + 3_000 * i
+            read = np.concatenate([mut(ref[st:st + 10_000]),
+                                   acgt[rng.integers(0, 4, n)],
+                                   mut(ref[st + 10_000:st + 20_000])])
+            f.write(f">ins{n}\n" + read.tobytes().decode() + "\n")
+    return ref_p, reads_p
+
+
+def insertion_run(inserts, extra, device, work=WORK):
+    """Map insertion_reads(work, inserts) with -c and the extra options at
+    --max-chain-skip=2147483647, in this process: on the port's device
+    path on `device` (--gpu-chain --gpu-align) and on its host path.
+    Returns the two runs' (rc, stdout, stderr, wall) and the (qlen, tlen,
+    FillShape) of every ksw2_gpu.fill_shape call of the device run."""
+    import numpy as np
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import opts as O
+    ref, reads = insertion_reads(work, inserts)
+    shapes, fill_shape = [], K.fill_shape
+
+    def recorded(ql, tl):
+        sh = fill_shape(ql, tl)
+        shapes.append((np.asarray(ql).copy(), np.asarray(tl).copy(), sh))
+        return sh
+
+    def run(flags):
+        argv, args = cli.parse_args([*flags, "-c", SKIP_INF, *extra, ref,
+                                     reads])
+        io_, mo = O.set_preset(args.preset)
+        return _cli(lambda _argv: cli._run(args, argv, io_, mo, device),
+                    None)
+    K.fill_shape = recorded
+    try:
+        dev = run(["--gpu-chain", "--gpu-align"])
+    finally:
+        K.fill_shape = fill_shape
+    return dev, run([]), shapes
+
+
+def warp_rule_shape(ql, tl):
+    """extd2_fill's launch shape under the rule before WARP_FILL_MAX: a
+    warp for every fill of at most WARP_LANES target lanes, whatever its
+    query."""
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    return K.class_shape(K.fill_bytes(ql, tl), ql + tl - 1,
+                         (tl + 15) // 16 * 16 <= K.WARP_LANES,
+                         K.FILL_SMEM_MAX)
+
+
 def fill_oracle(meta, qblob, tblob, prm, flag, extd2=None):
     """extd2 (the port's ksw2.extd2 unless given) of every fill: (scores,
     cig_off, cig_blob)."""
@@ -1813,12 +1887,17 @@ def phase3_timeline(paf):
 
 
 def phase3_api(paf, n_reads=N_API):
-    """The Python API (mm2_gb_tpu_torch.api, host mapping, as the JAX
-    package's) on the flowcell's first n_reads reads, under the CLI's
-    --max-chain-skip=2147483647: each read's primary hits (ctg, r_st,
-    r_en, strand, q_st, q_en, mapq, NM, mlen, blen, CIGAR) must equal its
-    tp:A:P and tp:A:I lines of the card's --gpu-align -c PAF (paf)."""
+    """The Python API (mm2_gb_tpu_torch.api) on the card, on the
+    flowcell's first n_reads reads: each read maps through the device
+    pipeline (the chain, fill and backtrack kernels, whose counts must
+    grow), and its primary hits (ctg, r_st, r_en, strand, q_st, q_en,
+    mapq, NM, mlen, blen, CIGAR) must equal its tp:A:P and tp:A:I lines
+    of the card's --gpu-align -c PAF (paf).  The host route
+    (device="cpu", the JAX package's) maps the same reads for its
+    time."""
     import mm2_gb_tpu_torch.api as mp
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     want = {}
     for line in paf.splitlines():
         t = line.split("\t")
@@ -1828,26 +1907,76 @@ def phase3_api(paf, n_reads=N_API):
                 t[5], int(t[7]), int(t[8]), 1 if t[4] == "+" else -1,
                 int(t[2]), int(t[3]), int(t[11]), int(tags["NM"]),
                 int(t[9]), int(t[10]), tags["cg"]))
-    t0 = time.perf_counter()
-    a = mp.Aligner(flowcell()[0], preset="map-ont")
-    a.map_opt.max_chain_skip = 2**31 - 1
-    n = n_hits = bad = 0
+    reads = []
     for name, seq, _qual in mp.fastx_read(flowcell()[1]):
-        if n == n_reads:
+        if len(reads) == n_reads:
             break
-        got = [(h.ctg, h.r_st, h.r_en, h.strand, h.q_st, h.q_en, h.mapq,
-                h.NM, h.mlen, h.blen, h.cigar_str)
-               for h in a.map(seq) if h.is_primary]
-        n, n_hits = n + 1, n_hits + len(got)
-        if got != want.get(name, []):
-            bad += 1
-            log(f"API {name}: {got[:2]} against the PAF's "
-                f"{want.get(name, [])[:2]}")
-    log(f"API (host mapping): {n} reads, {n_hits} primary hits, "
-        f"{time.perf_counter() - t0:.2f} s; reads whose hits differ from the "
-        f"card's -c PAF: {bad}")
-    if bad or n_hits < n:
-        fail("the Python API disagrees with the card's PAF")
+        reads.append((name, seq))
+    walls = {}
+    for device in ("cuda", "cpu"):
+        a = mp.Aligner(flowcell()[0], preset="map-ont", device=device)
+        a.map_opt.max_chain_skip = 2**31 - 1
+        G.launches = K.fill_launches = K.backtrack_launches = 0
+        t0 = time.perf_counter()
+        got = {name: [(h.ctg, h.r_st, h.r_en, h.strand, h.q_st, h.q_en,
+                       h.mapq, h.NM, h.mlen, h.blen, h.cigar_str)
+                      for h in a.map(seq) if h.is_primary]
+               for name, seq in reads}
+        walls[device] = time.perf_counter() - t0
+        counts = (G.launches, K.fill_launches, K.backtrack_launches)
+        if device == "cuda":
+            on_card, card_counts = got, counts
+        elif any(counts):
+            fail(f"the API's host route launched kernels: {counts}")
+    bad = [n for n, _s in reads if on_card[n] != want.get(n, [])]
+    for n in bad[:3]:
+        log(f"API {n}: {on_card[n][:2]} against the PAF's "
+            f"{want.get(n, [])[:2]}")
+    n_hits = sum(map(len, on_card.values()))
+    host_bad = sum(got[n] != on_card[n] for n, _s in reads)
+    log(f"API on the card ({CARD}): {len(reads)} reads, {n_hits} primary "
+        f"hits, {walls['cuda']:.2f} s (host route {walls['cpu']:.2f} s); "
+        f"chain, fill, backtrack launches {card_counts}; reads whose hits "
+        f"differ from the card's -c PAF: {len(bad)}, from the host "
+        f"route: {host_bad}")
+    if bad or host_bad or n_hits < len(reads) or min(card_counts) == 0:
+        fail("the Python API on the card")
+
+
+def phase3_long_inserts(inserts=(30_000, 61_000),
+                        extra=("-r", "500,80000", "-v", "3")):
+    """--gpu-chain --gpu-align -c with a wide long join (-r 500,80000) on
+    reads with a 30 kb and a 61 kb insert (insertion_run): the long
+    joins make gap fills of ~30,200 and ~61,200 query bases beside ~200
+    target bases in one launch, the first of which would take a warp by
+    its width alone and put the launch past the shared memory a block
+    may have.  The run must equal the host path, with fill launches, and
+    every launch within the block's and FILL_SMEM_MAX's rule.  Prints
+    the fill kernel's time from the run's `[M::gpu] fills:` line."""
+    import torch
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    K.fill_launches = K.backtrack_launches = 0
+    dev, host, shapes = insertion_run(inserts, list(extra),
+                                      torch.device("cuda"))
+    counts = (K.fill_launches, K.backtrack_launches)
+    ok = all(sh.smem <= 232_448 and K.FILL_WARPS * sh.warp_stride
+             <= K.FILL_SMEM_MAX for _q, _t, sh in shapes)
+    old = max(warp_rule_shape(q, t).smem for q, t, _sh in shapes)
+    widest = max((int(q[i]), int(t[i])) for q, t, _sh in shapes
+                 for i in range(q.shape[0])
+                 if (t[i] + 15) // 16 * 16 <= K.WARP_LANES)
+    same = dev[1] == host[1]
+    smem = max(sh.smem for _q, _t, sh in shapes)
+    kms = re.search(r"fill kernel ([0-9.]+) ms", dev[2])
+    log(f"long inserts {' '.join(extra)} ({'+'.join(map(str, inserts))} "
+        f"bp): rc {dev[0]}/{host[0]}, {dev[3]:.2f} s on the card, fill and "
+        f"backtrack launches {counts}, fill kernel "
+        f"{kms.group(1) if kms else None} ms; the narrow fill of the longest query "
+        f"{widest[0]} x {widest[1]}; largest smem {smem} B (by width "
+        f"alone {old} B); byte-identical to the host path {same}")
+    if dev[0] or host[0] or not same or not ok or min(counts) == 0:
+        sys.stderr.write(dev[2][-3000:])
+        fail("the long-insert mapping run")
 
 
 def phase3_tools(paf):
@@ -2933,6 +3062,7 @@ def main() -> int:
     timed(phase3_scale, single)
     timed(phase3_timeline, single["align"][0])
     timed(phase3_api, single["align"][0])
+    timed(phase3_long_inserts)
     timed(phase3_tools, single["align"][0])
     e, ms, plain_ms = timed(phase4, calls)
     fe, fms, fpl, bms, bpl = timed(hold_fill_calls, fcalls, "main-path fill")

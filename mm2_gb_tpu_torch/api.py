@@ -10,12 +10,17 @@ Usage mirrors the reference binding (python/README.rst):
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
+
+import torch
 
 from mm2_gb_tpu_torch.models.index import MinimizerIndex
 from mm2_gb_tpu_torch.models.mapper import map_frag
+from mm2_gb_tpu_torch.models.pipeline import map_batch_gpu
 from mm2_gb_tpu_torch.utils import opts as O
-from mm2_gb_tpu_torch.utils.fastx import read_fastx
+from mm2_gb_tpu_torch.utils.fastx import SeqRecord, read_fastx
+from mm2_gb_tpu_torch.utils.gpucfg import derive_caps
 from mm2_gb_tpu_torch.utils.sam import _revcomp_str, write_cs_or_md
 
 
@@ -73,7 +78,15 @@ class Alignment:
 
 
 class Aligner:
-    """Index + mapping front end (mappy.Aligner, python/mappy.pyx:110-236)."""
+    """Index + mapping front end (mappy.Aligner, python/mappy.pyx:110-236).
+
+    It maps on the card (device="cuda", the default): a single read goes
+    through the port's device pipeline (models.pipeline.map_batch_gpu),
+    its chain on the chain kernel and its gap fills on the fill kernels,
+    as `--gpu-chain --gpu-align` maps it.  A read pair maps on the host
+    (models.mapper), as the CLI maps multi-segment reads: the device
+    chain takes one segment.  device="cpu" maps every read on the host,
+    as the JAX package's API does."""
 
     def __init__(self, fn_idx_in: str | None = None, preset: str | None = None,
                  k: int | None = None, w: int | None = None,
@@ -82,7 +95,13 @@ class Aligner:
                  best_n: int | None = None, n_threads: int = 3,
                  fn_idx_out: str | None = None, max_frag_len: int | None = None,
                  extra_flags: int | None = None, seq: str | None = None,
-                 scoring=None):
+                 scoring=None, device: torch.device | str = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device='cpu' to "
+                                   "map on the host")
+            derive_caps(self.device, 0)
         io, mo = O.set_preset(preset)
         mo.flag |= O.MM_F_CIGAR  # always perform alignment
         if k is not None:
@@ -161,6 +180,18 @@ class Aligner:
         codes = self._idx.get_seq(rid, start, end)
         return "".join("ACGTN"[c] for c in codes)
 
+    def _map_device(self, seq: str, opt: O.MapOptions,
+                    device: torch.device) -> list:
+        """The regions of one unnamed read through the port's device
+        pipeline on `device` (a card, or the CPU's plain twins of its
+        kernels): the chain kernel, then the gap fills where --gpu-align
+        puts them."""
+        opt = copy.copy(opt)
+        opt.flag |= O.MM_F_TPU_CHAIN | O.MM_F_TPU_ALIGN
+        [(_sr, regs)] = map_batch_gpu(self._idx, opt,
+                                      [SeqRecord(0, None, seq)], device)
+        return regs
+
     def map(self, seq: str, seq2: str | None = None, buf=None,
             cs: bool = False, MD: bool = False,
             max_frag_len: int | None = None, extra_flags: int | None = None):
@@ -168,7 +199,6 @@ class Aligner:
         (mm_map_aux semantics, python/cmappy.h:74-106)."""
         if self._idx is None:
             return
-        import copy
         opt = self.map_opt
         if max_frag_len is not None or extra_flags is not None:
             opt = copy.copy(opt)
@@ -177,7 +207,10 @@ class Aligner:
             if extra_flags is not None:
                 opt.flag |= extra_flags
 
-        if seq2 is None:
+        if seq2 is None and self.device.type == "cuda":
+            seg_regs = [self._map_device(seq, opt, self.device)]
+            seqs = [seq]
+        elif seq2 is None:
             res = map_frag(self._idx, opt, [seq], None)
             seg_regs = [res.seg_regs[0]]
             seqs = [seq]

@@ -11,8 +11,9 @@ This package builds its own copy of the kit, from its own sources, into
 shares a loaded library (and the C++ fill session's state) with another
 package in the same process.  MM2TPU_NATIVE_LIB names another library to
 load instead, as for the JAX package's loader: a sanitizer build,
-`python -m mm2_gb_tpu_torch.utils.native --sanitize {asan,ubsan}` (the
-asan and ubsan targets of the JAX package's csrc/Makefile).
+`python -c "from mm2_gb_tpu_torch.utils import native;
+print(native.build_sanitized('ubsan'))"` (or 'asan'; the targets of the
+JAX package's csrc/Makefile).
 """
 
 from __future__ import annotations
@@ -703,22 +704,11 @@ def build_sanitized(sanitizer: str) -> str | None:
     """Build the kit with a sanitizer ("asan" or "ubsan") into BUILD_DIR,
     once for each source hash; its path, or None if the build failed.
     Load it with MM2TPU_NATIVE_LIB=<path> and the sanitizer's runtime in
-    LD_PRELOAD ($(g++ -print-file-name=libasan.so) or libubsan.so)."""
+    LD_PRELOAD ($(g++ -print-file-name=libasan.so) or libubsan.so); under
+    asan also ASAN_OPTIONS=detect_leaks=0, as the interpreter's own
+    allocations live until exit."""
     path = _build_path(sanitizer)
     if not os.path.exists(path):
         _build(path, SANITIZERS[sanitizer])
     return path if os.path.exists(path) else None
 
-
-if __name__ == "__main__":
-    import argparse
-    import sys
-    ap = argparse.ArgumentParser(
-        prog="python -m mm2_gb_tpu_torch.utils.native",
-        description="Build the host kit with a sanitizer and print the "
-                    "library's path (for MM2TPU_NATIVE_LIB).")
-    ap.add_argument("--sanitize", choices=sorted(SANITIZERS), required=True)
-    built = build_sanitized(ap.parse_args().sanitize)
-    if built is None:
-        sys.exit(1)
-    print(built)

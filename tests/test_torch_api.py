@@ -1,12 +1,17 @@
 """The port's Python API (mm2_gb_tpu_torch.api) against the JAX package's,
 and the port's MM2TPU_TIMELINE phase marks.
 
-Both APIs map on the host (models.mapper.map_frag), each on its own
+With device="cpu" the port's Aligner maps on the host
+(models.mapper.map_frag), as the JAX package's does, each on its own
 copy of the host layer: every Alignment field (cs and MD among them)
 must be equal on the same inputs, as must seq, seq_names and revcomp.
+Its default route, on the card, maps a read through the device pipeline;
+here that route runs on the kernels' plain twins and must give the host
+route's every field.
 """
 
 import contextlib
+import copy
 import dataclasses
 import gzip
 import io
@@ -47,7 +52,7 @@ def sim200():
     """Both packages' Aligners on the sim200 reference, and its reads."""
     reads = list(mp.fastx_read(golden_path("simreads.fa.gz")))
     assert reads == list(jmp.fastx_read(golden_path("simreads.fa.gz")))
-    return (mp.Aligner(golden_path("simref.fa.gz")),
+    return (mp.Aligner(golden_path("simref.fa.gz"), device="cpu"),
             jmp.Aligner(golden_path("simref.fa.gz")), reads)
 
 
@@ -92,13 +97,60 @@ def test_seq_mode_read_pair_matches_the_jax_package():
     r1 = SEQ_REF[100:250]
     r2 = mp.revcomp(SEQ_REF[400:550])
     got = []
-    for pkg in (mp, jmp):
-        a = pkg.Aligner(seq=SEQ_REF, preset="sr")
+    for pkg, kw in ((mp, {"device": "cpu"}), (jmp, {})):
+        a = pkg.Aligner(seq=SEQ_REF, preset="sr", **kw)
         assert a.seq_names == ["N/A"]
         got.append([(dataclasses.astuple(h), str(h))
                     for h in a.map(r1, r2, cs=True, MD=True)])
     assert got[0] == got[1]
     assert {h[0][14] for h in got[0]} == {1, 2}   # read_num
+
+
+def _on_the_twins(aligner, monkeypatch):
+    """A copy of a host-route Aligner that takes the card's route, the
+    device pipeline, with its kernels' plain twins on the CPU."""
+    route = mp.Aligner._map_device
+    monkeypatch.setattr(mp.Aligner, "_map_device",
+                        lambda self, seq, opt, _device: route(
+                            self, seq, opt, torch.device("cpu")))
+    a = copy.copy(aligner)
+    a.device = torch.device("cuda")
+    return a
+
+
+def test_the_aligner_maps_on_the_card_unless_asked(monkeypatch):
+    """The default device is the card: without one the Aligner refuses,
+    and names device="cpu" for the host route."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mp.Aligner(seq=SEQ_REF)
+    assert mp.Aligner(seq=SEQ_REF, device="cpu").device.type == "cpu"
+
+
+def test_the_card_route_matches_the_host_route(sim200, monkeypatch):
+    """The card's route on the twins against the host route, every field
+    with cs and MD: the first 8 sim200 reads at
+    --max-chain-skip=2147483647 (the device chain's), and reads of the
+    seq= reference under sr and map-ont.  A read pair stays on the host
+    route on the card."""
+    a, _ja, reads = sim200
+    monkeypatch.setattr(a.map_opt, "max_chain_skip", 2**31 - 1)
+    card = _on_the_twins(a, monkeypatch)
+    reads = reads[:8]
+    got = _hits(card, reads, cs=True, MD=True)
+    assert got == _hits(a, reads, cs=True, MD=True)
+    assert len(got) >= len(reads)
+    for preset in ("sr", "map-ont"):
+        host = mp.Aligner(seq=SEQ_REF, preset=preset, device="cpu")
+        card = _on_the_twins(host, monkeypatch)
+        rs = [("r1", SEQ_REF[100:250], None),
+              ("r2", mp.revcomp(SEQ_REF[400:550]), None),
+              ("r3", SEQ_REF[300:1100], None)]
+        got = _hits(card, rs, cs=True, MD=True)
+        assert got == _hits(host, rs, cs=True, MD=True) and got
+    r1, r2 = SEQ_REF[100:250], mp.revcomp(SEQ_REF[400:550])
+    assert ([dataclasses.astuple(h) for h in card.map(r1, r2)]
+            == [dataclasses.astuple(h) for h in host.map(r1, r2)])
 
 
 def test_timeline_marks_in_order(monkeypatch):

@@ -4,12 +4,14 @@ host kit builds and runs under a sanitizer.
 The port keeps its own copy of each host module it needs (the JAX
 package is the reference and is never imported by the port).  Apart from
 the import statements, each copy equals its original once the port's
-package name is read as the JAX package's; the C++ sources of the
-port's host kit equal the JAX package's csrc/ byte for byte.  The
-ubsan build of the port's kit (`native.build_sanitized`, the JAX
-package's `make -C csrc ubsan`) maps the sim200 reads on the host path
-in a child, with MM2TPU_NATIVE_LIB pointing at it, to the golden bytes
-and without a runtime error.
+package name is read as the JAX package's (and, in a copy with changes
+of its own, once the definitions listed for it are left out); the C++
+sources of the port's host kit equal the JAX package's csrc/ byte for
+byte.  The ubsan and asan builds of the port's kit
+(`native.build_sanitized`, the JAX package's `make -C csrc ubsan` and
+`asan`) map the sim200 reads on the host path in a child, with
+MM2TPU_NATIVE_LIB pointing at them, to the golden bytes and without a
+sanitizer's report.
 """
 
 import ast
@@ -44,20 +46,34 @@ EXCEPTIONS = {
     "utils/native.py": {"_lib_path", "_load"},
     # per-part mapping takes the device to map on
     "models/splitmerge.py": {"map_multipart"},
+    # the Aligner maps on the card unless the caller asks for the host
+    # (device="cpu"), where the JAX package's maps on the host only
+    "api.py": {"Aligner"},
 }
 
 
-def _body(path):
-    """The module's source lines without its import statements, the
-    port's package name read as the JAX package's."""
+def _body(path, skip=()):
+    """The module's source lines without its import statements (and the
+    blank lines between their groups) and the top-level definitions
+    named in skip, the port's package name read as the JAX package's."""
     with open(path) as f:
         src = f.read()
     drop = set()
-    for node in ast.walk(ast.parse(src, path)):
+    tree = ast.parse(src, path)
+    for node in ast.walk(tree):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             drop.update(range(node.lineno, node.end_lineno + 1))
+    lines = src.splitlines()
+    for n in range(2, len(lines)):   # a blank line n between import groups
+        if not lines[n - 1].strip() and n - 1 in drop and n + 1 in drop:
+            drop.add(n)
+    for node in tree.body:
+        if getattr(node, "name", None) in skip:
+            start = min([node.lineno] + [d.lineno
+                                         for d in node.decorator_list])
+            drop.update(range(start, node.end_lineno + 1))
     return [line.replace("mm2_gb_tpu_torch", "mm2_gb_tpu")
-            for i, line in enumerate(src.splitlines(), 1) if i not in drop]
+            for i, line in enumerate(lines, 1) if i not in drop]
 
 
 def _defs(path):
@@ -76,16 +92,16 @@ def _defs(path):
     return out
 
 
-def test_the_sanitizer_build_maps_the_goldens():
-    """The ubsan build of the port's host kit in a child on the host path
-    (--cs -c at --max-chain-skip=2147483647, sim200): the golden bytes,
-    and no `runtime error:` on stderr."""
+def _sanitized_run(sanitizer, env_extra=()):
+    """Build the port's host kit with the sanitizer and map sim200 with it
+    on the host path (--cs -c at --max-chain-skip=2147483647) in a child,
+    the sanitizer's runtime preloaded: the child's CompletedProcess."""
     from mm2_gb_tpu_torch.utils import native
-    lib = native.build_sanitized("ubsan")
+    lib = native.build_sanitized(sanitizer)
     assert lib and os.path.dirname(lib) == native.BUILD_DIR
-    assert os.path.basename(lib).startswith("libhostkit-ubsan-")
-    assert lib == native._build_path("ubsan") != native._build_path()
-    runtime = subprocess.run(["g++", "-print-file-name=libubsan.so"],
+    assert os.path.basename(lib).startswith(f"libhostkit-{sanitizer}-")
+    assert lib == native._build_path(sanitizer) != native._build_path()
+    runtime = subprocess.run(["g++", f"-print-file-name=lib{sanitizer}.so"],
                              capture_output=True, text=True,
                              check=True).stdout.strip()
     child = (
@@ -98,23 +114,46 @@ def test_the_sanitizer_build_maps_the_goldens():
         "sys.exit(cli._run(args, argv, io_, mo))\n")
     env = dict(os.environ, MM2TPU_NATIVE_LIB=lib, LD_PRELOAD=runtime,
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
+                                                             ""),
+               **dict(env_extra))
     env.pop("MM2TPU_FORCE_CPU", None)
-    r = subprocess.run([sys.executable, "-c", child, lib,
-                        "--max-chain-skip=2147483647", "--cs", "-c", "-t", "2",
-                        golden_path("simref.fa.gz"),
-                        golden_path("simreads.fa.gz")],
-                       capture_output=True, text=True, env=env, cwd=ROOT,
-                       timeout=300)
+    return subprocess.run([sys.executable, "-c", child, lib,
+                           "--max-chain-skip=2147483647", "--cs", "-c", "-t",
+                           "2", golden_path("simref.fa.gz"),
+                           golden_path("simreads.fa.gz")],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+
+
+def _golden_cs():
+    with gzip.open(golden_path("sim200.skipinf.cs.paf.gz"), "rt") as f:
+        return f.read()
+
+
+def test_the_sanitizer_build_maps_the_goldens():
+    """The ubsan build of the port's host kit in a child on the host path
+    (--cs -c at --max-chain-skip=2147483647, sim200): the golden bytes,
+    and no `runtime error:` on stderr."""
+    r = _sanitized_run("ubsan")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "runtime error:" not in r.stderr
-    with gzip.open(golden_path("sim200.skipinf.cs.paf.gz"), "rt") as f:
-        assert r.stdout == f.read()
+    assert r.stdout == _golden_cs()
+
+
+def test_the_asan_build_maps_the_goldens():
+    """The asan build likewise: the golden bytes, and no AddressSanitizer
+    report (one would also end the child with an error)."""
+    r = _sanitized_run("asan", {"ASAN_OPTIONS": "detect_leaks=0"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "AddressSanitizer" not in r.stderr
+    assert r.stdout == _golden_cs()
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_equals_its_original_but_imports(rel):
-    assert _body(os.path.join(PORT, rel)) == _body(os.path.join(JAX, rel))
+    skip = EXCEPTIONS.get(rel, ())
+    assert (_body(os.path.join(PORT, rel), skip)
+            == _body(os.path.join(JAX, rel), skip))
 
 
 @pytest.mark.parametrize("rel", sorted(EXCEPTIONS))

@@ -127,3 +127,35 @@ def test_a_narrow_fill_beside_a_long_query_takes_a_block():
                                           False]
     assert sh.warp_stride == int(need[1])
     assert sh.smem == max(K.FILL_WARPS * int(need[1]), int(need[3]))
+
+
+def test_a_mapping_run_gives_a_long_insert_fill_a_block(tmp_path):
+    """A mapping run that makes narrow fills past WARP_FILL_MAX, at the
+    default -r: reads with an 8 kb and a 17 kb insert
+    (chip_smoke.insertion_reads), whose long joins make gap fills of
+    ~8,200 and ~17,200 query bases beside ~200 target bases in one
+    launch.  The first has less than half the longest's rows, so by its
+    width alone it would take a warp and put eight warps' state past
+    FILL_SMEM_MAX; every launch keeps within it, and --gpu-chain
+    --gpu-align -c on the twins equals the host path."""
+    import torch
+
+    from chip_smoke import insertion_run, warp_rule_shape
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        dev, host, shapes = insertion_run((8_000, 17_000), [],
+                                          torch.device("cpu"), str(tmp_path))
+    finally:
+        torch.set_num_threads(n)
+    assert dev[0] == host[0] == 0
+    assert dev[1] == host[1]
+    assert "\tcg:Z:10000M8000I10000M" in dev[1]
+    assert "\tcg:Z:10000M17000I10000M" in dev[1]
+    past = 0
+    for ql, tl, sh in shapes:
+        assert sh.smem <= BLOCK_SMEM
+        assert K.FILL_WARPS * sh.warp_stride <= K.FILL_SMEM_MAX
+        old = warp_rule_shape(ql, tl)
+        past += K.FILL_WARPS * old.warp_stride > K.FILL_SMEM_MAX
+    assert past >= 1

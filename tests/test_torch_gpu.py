@@ -509,6 +509,26 @@ def test_extd2_fill_long_queries_beside_warps(cuda, right):
     assert st.scratch_fills >= 1
 
 
+def test_a_mapping_run_with_long_inserts_at_a_wide_long_join(cuda,
+                                                            tmp_path):
+    """--gpu-chain --gpu-align -c -r 500,80000 on reads with a 30 kb and a
+    61 kb insert (chip_smoke.insertion_run): their gap fills have ~30,200
+    and ~61,200 query bases beside ~200 target bases.  By its width alone
+    the first would take a warp and eight warps' state would pass the
+    232,448 B a block may have (the launch would raise); the run equals
+    the host path, every launch within FILL_SMEM_MAX's rule."""
+    from chip_smoke import insertion_run, warp_rule_shape
+    dev, host, shapes = insertion_run((30_000, 61_000), ["-r", "500,80000"],
+                                      cuda, str(tmp_path))
+    assert dev[0] == host[0] == 0
+    assert dev[1] == host[1] and "\tcg:Z:10000M61000I10000M" in dev[1]
+    assert shapes
+    assert all(sh.smem <= 232_448 and ksw2_gpu.FILL_WARPS * sh.warp_stride
+               <= ksw2_gpu.FILL_SMEM_MAX for _ql, _tl, sh in shapes)
+    assert any(warp_rule_shape(ql, tl).smem > 232_448
+               for ql, tl, _sh in shapes)
+
+
 @pytest.mark.parametrize("name", ["every_class", "ties_across_warps",
                                   "dd_2p24"])
 def test_chain_kernel_classes(cuda, name):
