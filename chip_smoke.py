@@ -6,6 +6,8 @@
     python3 chip_smoke.py --scale-walls  # two devices, two ranks vs one
     python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
     python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
+    python3 chip_smoke.py --fuzz N SEED0      # the fuzz campaign alone
+    python3 chip_smoke.py --fuzz-asan K SEED0  # genomic -c seeds, asan kit
 
 Run from the root of a checkout, on a machine with a CUDA GPU, nvcc and
 a CUDA build of PyTorch.  Phases (any failure exits non-zero):
@@ -100,6 +102,14 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    --qstrand run's extension launches and the cDNA run's splice
    extensions are each held against one twin run over all of their
    fills.
+5. the differential campaign of mm2_gb_tpu_torch.tools.fuzz_diff on
+   seeds FUZZ_SEED0 .. FUZZ_SEED0+N_FUZZ-1 (genomic, splice, paired-end
+   and long-read workloads under random flag sets, each at a drawn -t):
+   every seed's `--gpu-chain` run (with `--gpu-align` where its flags
+   align) in this process byte-identical to the JAX package's host path
+   in a subprocess, both exiting 0, and the chain kernel, the genomic and
+   splice fill kernels and the backtrack in its genomic and intron modes
+   launched through the CLI; its counts are a JSON line of their own.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the twin, both times and the least time the
@@ -3007,6 +3017,127 @@ def dp_turns(parent):
         fail("the turns' outputs differ")
 
 
+# the differential campaign's seeds (phase5_fuzz): FUZZ_SEED0 on, N_FUZZ
+# of them, a number fixed from the phase's wall on the card
+FUZZ_SEED0 = 1000
+N_FUZZ = 64
+# ASan inside a CUDA process: CUDA maps memory in ASan's shadow
+# gap, and the interpreter's allocations live until exit
+FUZZ_ASAN_OPTIONS = "protect_shadow_gap=0:detect_leaks=0"
+
+
+def fuzz_campaign(seeds):
+    """The port's differential campaign (mm2_gb_tpu_torch.tools.fuzz_diff)
+    on the card: each seed's `--gpu-chain` run (with `--gpu-align` where
+    its flags align) in this process against the JAX package's host path
+    in a subprocess, byte for byte; returns the campaign and its wall."""
+    import torch
+    from mm2_gb_tpu_torch.tools import fuzz_diff as F
+    t0 = time.perf_counter()
+    c = F.campaign(seeds, torch.device("cuda"))
+    return c, time.perf_counter() - t0
+
+
+def phase5_fuzz(n=N_FUZZ, seed0=FUZZ_SEED0):
+    """The campaign on seeds seed0 .. seed0+n-1.  Fails on any divergence,
+    non-zero exit or exception, and unless the CLI launched the chain
+    kernel, the genomic and the splice fill kernels and the backtrack in
+    its genomic and its intron mode.  Prints the campaign's counts as a
+    JSON line.  The launch counters are set to 0 before the campaign and
+    must equal the sum of its seeds' launches after it."""
+    from mm2_gb_tpu_torch.tools import fuzz_diff as F
+    for m, a in F.COUNTERS.values():
+        setattr(m, a, 0)
+    c, wall = fuzz_campaign(range(seed0, seed0 + n))
+    t = c.totals()
+    read = {k: getattr(m, a) for k, (m, a) in F.COUNTERS.items()}
+    if read != {k: t["launches"].get(k, 0) for k in F.COUNTERS}:
+        fail(f"the fuzz campaign's launch counters {read} differ from its "
+             f"seeds' launches {t['launches']}")
+    log(c.summary().replace("\n", "\n[smoke] "))
+    log(f"fuzz campaign ({CARD}): seeds {seed0}..{seed0 + n - 1}, "
+        f"{t['matched']} of {t['seeds']} byte-identical to the host path, "
+        f"{wall:.1f} s")
+    print(json.dumps({"fuzz": {"card": CARD, "seed0": seed0,
+                               "wall_s": round(wall, 3), **t}}), flush=True)
+    if c.failed:
+        fail(f"fuzz seeds {[r.w.seed for r in c.failed]} differ from the "
+             "host path")
+    k = t["launches"]
+    need = {"chain_segments": k.get("chain_segments", 0),
+            "extd2_fill": k.get("extd2_fill", 0),
+            "exts2_fill": k.get("exts2_fill", 0),
+            "ksw2_backtrack (genomic)": k.get("ksw2_backtrack", 0)
+            - k.get("ksw2_backtrack_intron", 0),
+            "ksw2_backtrack (intron)": k.get("ksw2_backtrack_intron", 0)}
+    missing = [name for name, v in need.items() if v <= 0]
+    if missing:
+        fail(f"the fuzz campaign launched no {', '.join(missing)}")
+    return t
+
+
+def fuzz_only(n, seed0):
+    """`python3 chip_smoke.py --fuzz N SEED0`: the campaign alone, for
+    longer runs; exits 1 on any FAIL."""
+    phase1()
+    c, wall = fuzz_campaign(range(seed0, seed0 + n))
+    print(c.summary(), flush=True)
+    print(json.dumps({"fuzz": {"card": CARD, "seed0": seed0,
+                               "wall_s": round(wall, 3), **c.totals()}}),
+          flush=True)
+    return 1 if c.failed else 0
+
+
+def fuzz_asan(k, seed0):
+    """`python3 chip_smoke.py --fuzz-asan K SEED0`: the first K genomic
+    seeds from seed0 on whose flags take -c without --qstrand (the C++
+    fill session's collect pass feeding the fill kernels), mapped with
+    `--gpu-chain --gpu-align` in a child that loads the port's asan
+    host kit (MM2TPU_NATIVE_LIB, LD_PRELOAD of libasan, ASan's options
+    for a CUDA process) beside the CUDA kernels, against the host path.
+    Prints the child's summary and any AddressSanitizer report; exits 1
+    on a FAIL or a report."""
+    from mm2_gb_tpu_torch.tools import fuzz_diff as F
+    from mm2_gb_tpu_torch.utils import native
+    phase1()
+    lib = native.build_sanitized("asan")
+    if lib is None:
+        fail("the asan build of the host kit failed")
+    runtime = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                             capture_output=True, text=True).stdout.strip()
+    seeds, seed = [], seed0
+    while len(seeds) < k:
+        if F.draw_kind(seed) == "genomic":
+            w = F.make_workload(seed)
+            if "-c" in w.flags and "--qstrand" not in w.flags:
+                seeds.append(seed)
+        seed += 1
+    log(f"asan fuzz seeds {seeds} ({lib}, LD_PRELOAD={runtime}, "
+        f"ASAN_OPTIONS={FUZZ_ASAN_OPTIONS})")
+    code = ("import sys, torch\n"
+            "from mm2_gb_tpu_torch.tools import fuzz_diff as F\n"
+            "from mm2_gb_tpu_torch.utils import native\n"
+            "assert native.available(), 'the asan host kit did not load'\n"
+            "c = F.campaign([int(s) for s in sys.argv[1:]], "
+            "torch.device('cuda'))\n"
+            "print(c.summary())\n"
+            "print('native library', native._lib_path())\n"
+            "sys.exit(1 if c.failed else 0)\n")
+    env = dict(os.environ, MM2TPU_NATIVE_LIB=lib, LD_PRELOAD=runtime,
+               ASAN_OPTIONS=FUZZ_ASAN_OPTIONS)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", code, *map(str, seeds)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=3000)
+    print(p.stdout, flush=True)
+    report = "AddressSanitizer" in p.stderr
+    if report or p.returncode != 0:
+        print(p.stderr[-20000:], flush=True)
+    log(f"asan fuzz ({CARD}): rc {p.returncode}, AddressSanitizer report "
+        f"{report}, {time.perf_counter() - t0:.1f} s")
+    return 1 if report or p.returncode != 0 else 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-launches"]:
         root, budget, *paths = sys.argv[2:]
@@ -3035,6 +3166,10 @@ def main() -> int:
     if sys.argv[1:] == ["--dp-probe"]:
         dp_probe()
         return 0
+    if sys.argv[1:2] in (["--fuzz"], ["--fuzz-asan"]) and len(sys.argv) == 4:
+        n, seed0 = int(sys.argv[2]), int(sys.argv[3])
+        return (fuzz_only if sys.argv[1] == "--fuzz" else fuzz_asan)(n,
+                                                                      seed0)
     if sys.argv[1:2] == ["--dp-turns"] and len(sys.argv) <= 3:
         dp_turns(os.path.abspath(sys.argv[2]) if len(sys.argv) == 3
                  else None)
@@ -3082,6 +3217,7 @@ def main() -> int:
     xe, xms, xpl, xbms, xbpl = timed(hold_ext_calls, ecalls, "main-path ext")
     if xe:
         fail("a main-path extension launch differs from its twins")
+    timed(phase5_fuzz)
     if "jax" in sys.modules:
         fail("jax was imported")
     if any(m == "mm2_gb_tpu" or m.startswith("mm2_gb_tpu.")

@@ -566,6 +566,8 @@ def _run(args, argv, io, mo, device="cuda") -> int:
                              "and PyTorch sees none; `python -m "
                              "mm2_gb_tpu` maps on the host.\n")
             return 1
+        if args.tpu_nproc > 1:
+            device = rank_device(device, args.tpu_rank)
     # -o (main.c:197-204 freopen); the ranks of a multi-process run write
     # shard files instead, with -o as the prefix
     if args.output and args.output != "-" and args.tpu_nproc <= 1:
@@ -734,6 +736,17 @@ def run_devices(n: int, device) -> list:
             for i in range(avail if n == 0 else min(n, avail))]
 
 
+def rank_device(device, rank: int):
+    """The device of --tpu-rank `rank`: on a CUDA run without a device
+    index, cuda:(rank % the CUDA devices PyTorch sees), as each JAX
+    process maps on its own local device (mm2_gb_tpu/cli.py:775-779);
+    else `device`."""
+    import torch
+    if device.type != "cuda" or device.index is not None:
+        return device
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
 def _run_gpu(args, index, mo, rg_id, is_sam, out, device) -> int:
     """Map every query file on the device, or with --tpu-devices on
     several (parallel.mesh.map_file_multichip)."""
@@ -779,6 +792,8 @@ def _run_gpu_multihost(args, index, mo, rg_id, is_sam, sam_header,
     once the shard is written."""
     import io as _io
 
+    import torch
+
     from mm2_gb_tpu_torch.models.pipeline import (GpuMetrics,
                                                   map_file_gpu_records)
     from mm2_gb_tpu_torch.parallel import mesh
@@ -791,6 +806,8 @@ def _run_gpu_multihost(args, index, mo, rg_id, is_sam, sam_header,
     if args.tpu_coord:
         mesh.init_distributed(args.tpu_coord, nproc, rank)
     try:
+        if device.type == "cuda":   # the kernels launch on the current card
+            torch.cuda.set_device(device)
         derive_caps(device, args.verbose)
         gmet = GpuMetrics()
         shard_path = f"{args.output}.shard{rank}"

@@ -4,7 +4,9 @@ Port of the chain-only part of mm2_gb_tpu/models/pipeline.py (the
 reference's split pipeline, map.c worker_for under __AMD_SPLIT_KERNELS__):
 reads are seeded on the host, their anchors accumulated into a
 macro-batch, chain-scored on the device in one launch, then backtracked
-and post-processed on the host and written in input order.
+and post-processed on the host and written in input order.  RMQ
+chaining (--rmq, the asm presets) is not the kernel's DP: those batches
+chain on the host in finish_read, as the host path chains them.
 
 `seed_read` and `finish_read` are copies of the JAX package's: their
 module imports the TPU chain kernel, and with it JAX.
@@ -42,6 +44,7 @@ from mm2_gb_tpu_torch.ops import chain as chain_ops
 from mm2_gb_tpu_torch.ops import chain_gpu, ksw2, ksw2_gpu, ksw2s_gpu
 from mm2_gb_tpu_torch.ops import chain_rmq as rmq_ops
 from mm2_gb_tpu_torch.ops import seed as seed_ops
+from mm2_gb_tpu_torch.ops.sdust import dust_minier
 from mm2_gb_tpu_torch.ops.sketch import sketch
 from mm2_gb_tpu_torch.utils import ksort, native
 from mm2_gb_tpu_torch.utils.fastx import SeqRecord, read_batches
@@ -70,6 +73,8 @@ def seed_read(index: MinimizerIndex, opt: MapOptions, rec: SeqRecord
               ) -> SeededRead:
     """Host seeding stage (mm_map_seed analog, map.c:355-391)."""
     mm = sketch(rec.seq, index.w, index.k, 0, bool(index.flag & MM_I_HPC))
+    if opt.sdust_thres > 0:  # as mapper.collect_minimizers (map.c:194-195)
+        mm = dust_minier(mm, rec.seq, opt.sdust_thres)
     if opt.q_occ_frac > 0.0:
         mm = seed_ops.seed_mz_flt(mm, opt.mid_occ, opt.q_occ_frac)
     collect = (seed_ops.collect_seed_hits_heap
@@ -96,16 +101,25 @@ def finish_read(index: MinimizerIndex, opt: MapOptions, sr: SeededRead,
     """Backtrack device scores and run the standard post-chain path.
     `dump` False (the fill collect pass) writes no debug dump."""
     qlen = sr.rec.length
-    max_drop = opt.bw if opt.bw < INT32_MAX else INT32_MAX
-    u, v = chain_ops.chain_backtrack(f, p, opt.min_cnt, opt.min_chain_score,
-                                     max_drop)
-    if u.shape[0] == 0:
-        u = np.empty(0, np.uint64)
-        cx = cy = np.empty(0, np.uint64)
-    else:
-        u, cx, cy = chain_ops.compact_chains(u, v, sr.ax, sr.ay)
-
     chn_pen_gap, chn_pen_skip = _chain_penalties(index, opt)
+    if opt.flag & MM_F_RMQ:
+        # RMQ chaining (--rmq, the asm presets) is not the kernel's DP: it
+        # runs here, as on the host path (mapper.chain_anchors); the batch
+        # launched nothing for it (_dispatch_batch) and f, p are unused
+        u, cx, cy = rmq_ops.chain_rmq(
+            sr.ax, sr.ay, opt.max_gap, opt.rmq_inner_dist, opt.bw,
+            opt.max_chain_skip, opt.rmq_size_cap, opt.min_cnt,
+            opt.min_chain_score, chn_pen_gap, chn_pen_skip)
+    else:
+        max_drop = opt.bw if opt.bw < INT32_MAX else INT32_MAX
+        u, v = chain_ops.chain_backtrack(f, p, opt.min_cnt,
+                                         opt.min_chain_score, max_drop)
+        if u.shape[0] == 0:
+            u = np.empty(0, np.uint64)
+            cx = cy = np.empty(0, np.uint64)
+        else:
+            u, cx, cy = chain_ops.compact_chains(u, v, sr.ax, sr.ay)
+
     # long-join rescue on the host (post_chaining_helper analog,
     # map.c:428-484 — the reference also re-chains on the CPU after GPU).
     # The OUTER condition makes the max_occ re-chain an else-if
@@ -183,6 +197,7 @@ class GpuMetrics:
     n_batches: int = 0
     n_spills: int = 0        # batches cut by anchor/read caps
     n_host_hpc: int = 0      # batches chained on the host: non-uniform span
+    n_host_rmq: int = 0      # batches chained on the host: RMQ chaining
     n_scanned: int = 0       # input records seen (incl. other ranks' in
     #                          a sharded run): multi-process completeness
     # --gpu-align gap fills (_prefill_native, _prefill_device)
@@ -211,7 +226,8 @@ class GpuMetrics:
           f"{self.n_segs} segments in {self.n_batches} batches "
           f"({self.n_spills} cap-split), {self.n_dispatch} kernel "
           f"dispatches\n")
-        w(f"[M::gpu] host route: {self.n_host_hpc} HPC batches\n")
+        w(f"[M::gpu] host route: {self.n_host_hpc} HPC batches, "
+          f"{self.n_host_rmq} RMQ batches\n")
         w(f"[M::gpu] pairs: {self.n_pairs}; kernel {self.t_kernel:.4f}s "
           f"({rate:.3f} Gpairs/s)\n")
         w(f"[M::gpu] time: seed {self.t_seed:.3f}s, "
@@ -316,6 +332,11 @@ def _dispatch_batch(index: MinimizerIndex, opt: MapOptions,
         bounds[i + 1] = bounds[i] + sr.ax.shape[0]
     if bounds[-1] == 0:
         return acc, bounds, chain_gpu.PendingScores(0)
+    if opt.flag & MM_F_RMQ:   # RMQ chaining: on the host (finish_read)
+        metrics.n_host_rmq += 1
+        pend = chain_gpu.PendingScores(int(bounds[-1]))
+        pend.collected = True
+        return acc, bounds, pend
     ax = np.concatenate([sr.ax for sr in acc])
     ay = np.concatenate([sr.ay for sr in acc])
     pend = chain_gpu.dispatch_scores(ax, ay, bounds, metrics=metrics,

@@ -24,6 +24,7 @@ its successor ranges, chains on the device.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -34,6 +35,10 @@ from mm2_gb_tpu_torch.utils import kernels
 INT32_MIN = -(2**31)
 
 launches = 0  # chain kernel launches (chain_segments on CUDA tensors)
+# the segments those launches gave each class: ("chain_segments", "warp" |
+# "group" | "block" | "block_global"), block_global a block-class segment
+# whose window is read from global memory
+launch_classes = Counter()
 
 # the kernel's block (kChainThreads) and a mid segment's group of warps
 # (kGroupThreads); the block's ring of RING_SLOTS anchors (16 bytes each
@@ -119,6 +124,7 @@ class SegmentShape:
     n_long: int
     n_mid: int
     n_short: int
+    n_global: int = 0   # long segments whose window is in global memory
 
 
 def segment_shape(starts: np.ndarray, ends: np.ndarray,
@@ -150,7 +156,8 @@ def segment_shape(starts: np.ndarray, ends: np.ndarray,
     work[:, 0], work[:, 1] = starts[pick], ends[pick]
     work[:, 2], work[:, 3] = wide[pick], ring[pick]
     n = np.bincount(cls, minlength=3)
-    return SegmentShape(work, int(n[0]), int(n[1]), int(n[2]))
+    return SegmentShape(work, int(n[0]), int(n[1]), int(n[2]),
+                        int((~ring).sum()))
 
 
 # --------------------------------------------------------------------------
@@ -344,6 +351,9 @@ def chain_segments(x, y, rng, seg_start, seg_end, *, span, max_dist_x,
         events[1].record()
     kernels.check(rc, "chain_segments")
     launches += 1
+    for cls, n in (("warp", shape.n_short), ("group", shape.n_mid),
+                   ("block", shape.n_long), ("block_global", shape.n_global)):
+        launch_classes["chain_segments", cls] += n
     return f, p
 
 
@@ -450,8 +460,15 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
     span32 = ((ay >> np.uint64(32)) & np.uint64(0xFF)).astype(np.int32)
     span = int(span32[0])
     if not np.all(span32 == span):
-        pend.f, pend.p = chain_scores_host(ax, ay, max_dist_x, max_dist_y,
-                                           bw, max_iter, cg, cs, is_cdna)
+        # each read on its own: the oracle's windows and max_iter hold
+        # within one read's sorted anchors (a batch's are not sorted)
+        for s, e in zip(read_bounds[:-1].tolist(), read_bounds[1:].tolist()):
+            if e > s:
+                f, p = chain_scores_host(ax[s:e], ay[s:e], max_dist_x,
+                                         max_dist_y, bw, max_iter, cg, cs,
+                                         is_cdna)
+                pend.f[s:e] = f
+                pend.p[s:e] = np.where(p >= 0, p + s, -1)
         pend.collected = True
         if metrics is not None:
             metrics.n_host_hpc += 1
@@ -467,9 +484,17 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
         metrics.n_segs += int(n_segs)
         metrics.n_pairs += int(rng.sum(dtype=np.int64))
 
+    m = starts.shape[0]
+    if m == 0:
+        # no anchor has a successor: each keeps its span and no
+        # predecessor, and nothing goes to the device (chain_segments
+        # would return before its launch, its events unrecorded)
+        pend.f[:] = span
+        pend.collected = True
+        return pend
+
     t0 = time.perf_counter()
     cuda = device.type == "cuda"
-    m = starts.shape[0]
     # the kernel's work rows first, where the buffer is 16-aligned
     shape = segment_shape(starts, ends, rng) if cuda else None
     w = 4 * m if cuda else 0

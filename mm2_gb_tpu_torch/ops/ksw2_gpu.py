@@ -36,6 +36,7 @@ extensions.  Host route (ksw2.extd2, counted): band collapse, the
 from __future__ import annotations
 
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -51,6 +52,11 @@ fill_launches = 0       # extd2_fill kernel launches (CUDA tensors)
 ext_launches = 0        # extd2_ext kernel launches (CUDA tensors)
 backtrack_launches = 0  # ksw2_backtrack kernel launches (CUDA tensors)
 start_backtrack_launches = 0   # of those, the ones from per-fill starts
+intron_backtrack_launches = 0  # of those, the ones in intron mode
+# the fills the DP kernels' launches (CUDA tensors) gave each class:
+# (kernel, "warp" | "block" | "scratch"), scratch a block-class fill whose
+# state is in global scratch (count_classes; here and in ksw2s_gpu)
+launch_classes = Counter()
 
 # the fill kernel's state rows: u, y, y2, the score row, and x, v, x2
 # twice (double-buffered by row parity)
@@ -303,6 +309,13 @@ def ext_shape(qlen, tlen) -> FillShape:
     return class_shape(need, qlen + tlen - 1,
                        ((tlen + 15) // 16 * 16 <= WARP_LANES)
                        & (need <= WARP_EXT_MAX), EXT_SMEM_MAX, 0)
+
+
+def count_classes(kernel: str, sh: FillShape) -> None:
+    """Add one launch's fills to launch_classes by class."""
+    launch_classes[kernel, "warp"] += sh.n_warp
+    launch_classes[kernel, "block"] += sh.n_block
+    launch_classes[kernel, "scratch"] += int((sh.scr_off >= 0).sum())
 
 
 def shape_operands(sh: FillShape, dev):
@@ -685,6 +698,7 @@ def extd2_fill(qblob, tblob, qoff, toff, qlen, tlen, w, p_off,
     _record(events, 1)
     kernels.check(rc, "extd2_fill")
     fill_launches += 1
+    count_classes("extd2_fill", sh)
     return score, p
 
 
@@ -739,6 +753,7 @@ def extd2_ext(qblob, tblob, qoff, toff, qlen, tlen, w, zdrop, p_off,
     _record(events, 1)
     kernels.check(rc, "extd2_ext")
     ext_launches += 1
+    count_classes("extd2_ext", sh)
     return ext, p
 
 
@@ -868,6 +883,7 @@ def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
     (start, end) pair of CUDA events recorded right around the launch,
     or None."""
     global backtrack_launches, start_backtrack_launches
+    global intron_backtrack_launches
     for name, t, dt in (("p", p, torch.uint8), ("p_off", p_off, torch.int64),
                         ("qlen", qlen, torch.int32),
                         ("tlen", tlen, torch.int32), ("w", w, torch.int32),
@@ -922,6 +938,7 @@ def ksw2_backtrack(p, p_off, qlen, tlen, w, cig_off, rev_cigar,
     kernels.check(rc, "ksw2_backtrack")
     backtrack_launches += 1
     start_backtrack_launches += starts is not None
+    intron_backtrack_launches += min_intron_len > 0
     return cig, n_cig
 
 

@@ -50,9 +50,10 @@ from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, FILL_WARPS,
                                            FillShape, FillStats, _c8,
                                            _record, _track_h_row,
                                            assemble_cigars, class_shape,
-                                           ksw2_backtrack, p_bound,
-                                           scratch_bytes, shape_operands,
-                                           solve_chunks, upload)
+                                           count_classes, ksw2_backtrack,
+                                           p_bound, scratch_bytes,
+                                           shape_operands, solve_chunks,
+                                           upload)
 from mm2_gb_tpu_torch.utils import kernels
 
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
@@ -580,6 +581,7 @@ def _exts2_launch(what, qblob, tblob, jblob, qoff, toff, joff, qlen, tlen,
         ext_launches += 1
     else:
         fill_launches += 1
+    count_classes(what, sh)
     return out, p
 
 

@@ -117,6 +117,59 @@ def test_chain_scores_match_jax_and_oracle(name, make, mdx, mdy, bw,
         assert rng.max() > 5120
 
 
+def test_an_hpc_batch_chains_each_read_alone():
+    """HPC anchors of two reads in one batch take the host route read by
+    read: each read's scores and predecessors are the oracle's on that
+    read alone, as on the host path.  The first read lies past the second
+    on the reference, so a batch chained as one read (the JAX package's
+    dispatch_scores) keeps the second read's window open from the first
+    read on, and joins its two runs of anchors across a gap of 5,210
+    reference bases (more than max_dist_x) and 4,810 query bases."""
+    from mm2_gb_tpu_torch.models.pipeline import GpuMetrics
+    k = np.arange(100, dtype=np.uint64)
+    xs = [20_000 + 10 * k[:50], 10 * k, 6_200 + 10 * k]
+    qs = [10 * k[:50], 10 * k, 5_800 + 10 * k]
+    ax = np.concatenate(xs)
+    q = np.concatenate(qs)
+    spans = np.random.default_rng(30).integers(15, 30, q.shape[0])
+    ay = (spans.astype(np.uint64) << np.uint64(32)) | q
+    bounds = np.array([0, 50, 250], np.int64)
+    met = GpuMetrics()
+    f, p = chain_gpu.dispatch_scores(ax, ay, bounds, 5000, 5000, 500, 5000,
+                                     CG, 0.0, metrics=met,
+                                     device="cpu").collect()
+    assert met.n_host_hpc == 1 and met.n_dispatch == 0
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        fo, po = chain_ops._chain_dp_scores(
+            ax[s:e], ay[s:e], 5000, 5000, 500, 2**31 - 1, 5000,
+            np.float32(CG), np.float32(0.0), False, 1)
+        assert np.array_equal(f[s:e], fo)
+        assert np.array_equal(p[s:e], np.where(po >= 0, po + s, -1))
+    assert p[150] == -1   # the second run starts a chain of its own
+
+
+def test_a_batch_without_segments_stays_on_the_host():
+    """Anchors that have no successor (one anchor a read, or anchors
+    farther apart than max_dist_x) make no segment: every anchor keeps
+    its span and no predecessor, as on the host path, and nothing goes
+    to the device (on the card the chain wrapper returned before its
+    launch, its timing events unrecorded, and collect raised)."""
+    from mm2_gb_tpu_torch.models.pipeline import GpuMetrics
+    ax = np.arange(4, dtype=np.uint64) * np.uint64(20_000)
+    ay = (np.uint64(15) << np.uint64(32)) | np.arange(4, dtype=np.uint64)
+    bounds = np.array([0, 1, 3, 4], np.int64)
+    met = GpuMetrics()
+    pend = chain_gpu.dispatch_scores(ax, ay, bounds, 5000, 5000, 500, 5000,
+                                     CG, 0.0, metrics=met, device="cpu")
+    assert pend.collected and met.n_dispatch == 0
+    f, p = pend.collect()
+    assert f.tolist() == [15] * 4 and p.tolist() == [-1] * 4
+    fo, po = chain_ops._chain_dp_scores(ax, ay, 5000, 5000, 500, 2**31 - 1,
+                                        5000, np.float32(CG),
+                                        np.float32(0.0), False, 1)
+    assert np.array_equal(f, fo) and np.array_equal(p, po)
+
+
 def test_multi_segment_workload_cuts():
     ax, _ = _multi_segment()
     rng = chain_gpu.compute_ranges(ax, np.array([0, ax.shape[0]], np.int64),

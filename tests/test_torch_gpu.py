@@ -67,6 +67,38 @@ def test_kernel_matches_twin_and_oracle(cuda, name, ax, ay, a):
                                    -1), po)
 
 
+def test_a_batch_without_segments_on_the_card(cuda):
+    """A batch whose anchors make no segment (a part of a multi-part index
+    can give one) collects on the card: every anchor keeps its span and
+    no predecessor, and no launch is made (the wrapper used to return
+    before its launch with its timing events unrecorded, and collect
+    raised)."""
+    from mm2_gb_tpu_torch.models.pipeline import GpuMetrics
+    ax = np.arange(4, dtype=np.uint64) * np.uint64(20_000)
+    ay = (np.uint64(15) << np.uint64(32)) | np.arange(4, dtype=np.uint64)
+    met = GpuMetrics()
+    before = chain_gpu.launches
+    f, p = chain_gpu.dispatch_scores(
+        ax, ay, np.array([0, 1, 3, 4], np.int64), 5000, 5000, 500, 5000,
+        0.12, 0.0, metrics=met, device=cuda).collect()
+    assert chain_gpu.launches == before
+    assert f.tolist() == [15] * 4 and p.tolist() == [-1] * 4
+
+
+@pytest.mark.parametrize("seed", [1020, 1063, 2126, 2230])
+def test_the_fuzz_seeds_the_card_found(cuda, seed, tmp_path):
+    """The seeds on which the port's fuzzer found the card's run apart
+    from the JAX package's host path (RMQ chaining, an HPC batch, a part
+    of a multi-part index without a segment, -T), each against that
+    host path in a subprocess, byte for byte, with its drawn flags."""
+    import io
+
+    from mm2_gb_tpu_torch.tools import fuzz_diff
+    out = io.StringIO()
+    c = fuzz_diff.campaign([seed], cuda, str(tmp_path), out=out)
+    assert not c.failed, out.getvalue()
+
+
 def test_mg_log2_kernel_bits(cuda):
     dd = np.concatenate([np.arange(1, 4096),
                          np.random.default_rng(0).integers(1, 2**24, 5000)])

@@ -9,7 +9,8 @@ through the CLI's host path and through the CLI's `--gpu-chain
 --gpu-align -c` run path on CPU tensors, for the default preset, for
 `-x splice` (the exts2 fills) and for `--qstrand` (the Python fill
 session's gap fills and extensions), and runs the two ranks of a
-`--tpu-nproc 2` run and the port's mergeshards.  A static check reads
+`--tpu-nproc 2` run and the port's mergeshards, and runs the device side
+of a seed of the port's fuzzer.  A static check reads
 every import of the port's sources (the parallel/ and tools/
 subpackages among them) and of chip_smoke.py.  A last check holds the
 port's host path against the JAX package's on the same seeded input.
@@ -49,7 +50,8 @@ for mod in pkgutil.walk_packages(mm2_gb_tpu_torch.__path__,
 assert {"mm2_gb_tpu_torch.parallel.mesh",
         "mm2_gb_tpu_torch.tools.mergeshards", "mm2_gb_tpu_torch.api",
         "mm2_gb_tpu_torch.tools.paftools", "mm2_gb_tpu_torch.tools.mmphase",
-        "mm2_gb_tpu_torch.utils.timeline"} <= set(sys.modules)
+        "mm2_gb_tpu_torch.utils.timeline",
+        "mm2_gb_tpu_torch.tools.fuzz_diff"} <= set(sys.modules)
 
 from mm2_gb_tpu_torch.models.index import MinimizerIndex
 from mm2_gb_tpu_torch.utils import opts as O
@@ -119,6 +121,13 @@ with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
     assert cli._run(args, argv, io_, mo, torch.device("cpu")) == 0
 assert buf.getvalue().count("\tcg:Z:") >= 3
 assert "; extensions: 0 " not in err.getvalue()
+
+from mm2_gb_tpu_torch.tools import fuzz_diff
+w = fuzz_diff.make_workload(4, tmp, 0.1)   # genomic -c, a tenth of its size
+rc, out, _ = fuzz_diff.run_device(fuzz_diff.device_argv(w),
+                                  torch.device("cpu"))
+assert rc == 0 and "--gpu-align" in fuzz_diff.device_argv(w)
+assert out.count("\tcg:Z:") >= 1
 
 pre = os.path.join(tmp, "rk")
 for rank in ("0", "1"):
