@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke, below
     python3 chip_smoke.py --walls    # --qstrand walls: port vs host path
     python3 chip_smoke.py --scale-walls  # two devices, two ranks vs one
+    python3 chip_smoke.py --e2e      # the e2e bench stage: every config
     python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
     python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
     python3 chip_smoke.py --fuzz N SEED0      # the fuzz campaign alone
@@ -81,10 +82,16 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    Then the host modules: `MM2TPU_TIMELINE=1 python -m mm2_gb_tpu_torch
    --gpu-chain --gpu-align -c` on the flowcell in a subprocess, its
    stdout equal to the in-process run's, its phase marks printed beside
-   the card's name and power limit; the Python API (host mapping) on
+   the card's name and power limit; the Python API on the card on
    the flowcell's first 100 reads, each primary hit equal to the card's
-   -c PAF line; the port's paftools `stat` on that PAF and `sam2paf` on
-   the cDNA run's SAM;
+   -c PAF line and to the host route's, then the same reads from two
+   threads through one card Aligner, each thread's hits equal to the
+   single thread's; the port's paftools `stat` on that PAF and
+   `sam2paf` on the cDNA run's SAM; the e2e bench stage
+   (mm2_gb_tpu_torch/utils/e2ebench.py) on the flowcell at --gpu-chain,
+   one untimed run a side and two timed runs a side in turns beside the
+   JAX package's host path (`python -m mm2_gb_tpu`, a subprocess), every
+   output byte-identical, its record a JSON line;
 4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
    the inputs it was given, re-run and held against its recorded result
    and against its twin, exact, and both timed (CUDA events; a kernel's
@@ -130,7 +137,9 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "smoke")
@@ -1904,7 +1913,13 @@ def phase3_api(paf, n_reads=N_API):
     mapq, NM, mlen, blen, CIGAR) must equal its tp:A:P and tp:A:I lines
     of the card's --gpu-align -c PAF (paf).  The host route
     (device="cpu", the JAX package's) maps the same reads for its
-    time."""
+    time.  Then two threads map the same reads through the one card
+    Aligner at once; each thread's hits must equal the single thread's.
+    Then four threads map a quarter of the reads each on the host route,
+    under the API's route lock and under a plain lock in its place, for
+    the lock's cost; every hit must equal the single thread's."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import mm2_gb_tpu_torch.api as mp
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
@@ -1922,20 +1937,23 @@ def phase3_api(paf, n_reads=N_API):
         if len(reads) == n_reads:
             break
         reads.append((name, seq))
+
+    def map_all(a, reads=reads):
+        return {name: [(h.ctg, h.r_st, h.r_en, h.strand, h.q_st, h.q_en,
+                        h.mapq, h.NM, h.mlen, h.blen, h.cigar_str)
+                       for h in a.map(seq) if h.is_primary]
+                for name, seq in reads}
     walls = {}
     for device in ("cuda", "cpu"):
         a = mp.Aligner(flowcell()[0], preset="map-ont", device=device)
         a.map_opt.max_chain_skip = 2**31 - 1
         G.launches = K.fill_launches = K.backtrack_launches = 0
         t0 = time.perf_counter()
-        got = {name: [(h.ctg, h.r_st, h.r_en, h.strand, h.q_st, h.q_en,
-                       h.mapq, h.NM, h.mlen, h.blen, h.cigar_str)
-                      for h in a.map(seq) if h.is_primary]
-               for name, seq in reads}
+        got = map_all(a)
         walls[device] = time.perf_counter() - t0
         counts = (G.launches, K.fill_launches, K.backtrack_launches)
         if device == "cuda":
-            on_card, card_counts = got, counts
+            on_card, card_counts, card = got, counts, a
         elif any(counts):
             fail(f"the API's host route launched kernels: {counts}")
     bad = [n for n, _s in reads if on_card[n] != want.get(n, [])]
@@ -1944,12 +1962,46 @@ def phase3_api(paf, n_reads=N_API):
             f"{want.get(n, [])[:2]}")
     n_hits = sum(map(len, on_card.values()))
     host_bad = sum(got[n] != on_card[n] for n, _s in reads)
+    # two threads through the one card Aligner: its maps take turns
+    # under the API's route lock, and each thread's hits must be the
+    # single thread's
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        futs = [ex.submit(map_all, card) for _ in range(2)]
+        two = [f.result(timeout=600) for f in futs]
+    walls["two"] = time.perf_counter() - t0
+    two_bad = sum(g[n] != on_card[n] for g in two for n, _s in reads)
+    # four host-route threads, a quarter of the reads each, under the
+    # API's route lock (host maps share it) and under a plain lock in
+    # its place (they take turns), in turns A, B, B, A: the lock's cost
+    host_walls, host_bad_threads = {"route": [], "plain": []}, 0
+    route_lock = mp._ROUTE_LOCK
+    plain = types.SimpleNamespace(held=lambda sole, lk=threading.Lock(): lk)
+    for name in ("route", "plain", "plain", "route"):
+        mp._ROUTE_LOCK = route_lock if name == "route" else plain
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(max_workers=4) as ex:
+                part = [ex.submit(map_all, a, reads[i::4]) for i in range(4)]
+                parts = [f.result(timeout=600) for f in part]
+        finally:
+            mp._ROUTE_LOCK = route_lock
+        host_walls[name].append(time.perf_counter() - t0)
+        host_bad_threads += sum(g[n] != got[n] for g in parts for n in g)
     log(f"API on the card ({CARD}): {len(reads)} reads, {n_hits} primary "
         f"hits, {walls['cuda']:.2f} s (host route {walls['cpu']:.2f} s); "
         f"chain, fill, backtrack launches {card_counts}; reads whose hits "
         f"differ from the card's -c PAF: {len(bad)}, from the host "
-        f"route: {host_bad}")
-    if bad or host_bad or n_hits < len(reads) or min(card_counts) == 0:
+        f"route: {host_bad}; two threads through one card Aligner "
+        f"{walls['two']:.2f} s, reads whose hits differ from the single "
+        f"thread's: {two_bad} of {2 * len(reads)}")
+    log(f"API host route, four threads over the {len(reads)} reads "
+        f"(turns A, B, B, A): under the route lock "
+        f"{', '.join(f'{w:.3f}' for w in host_walls['route'])} s, under a "
+        f"plain lock {', '.join(f'{w:.3f}' for w in host_walls['plain'])} "
+        f"s; reads whose hits differ from one thread's: {host_bad_threads}")
+    if (bad or host_bad or two_bad or host_bad_threads
+            or n_hits < len(reads) or min(card_counts) == 0):
         fail("the Python API on the card")
 
 
@@ -2064,12 +2116,6 @@ def cdna_set(n_reads=N_CDNA, genome_len=10_000_000, max_intron=20_000,
     return ref_p, reads_p
 
 
-def _no_pg(sam):
-    """SAM text without its @PG line (it holds each side's command)."""
-    return "".join(line for line in sam.splitlines(keepends=True)
-                   if not line.startswith("@PG"))
-
-
 def phase3_splice():
     """The splice slice end to end, `--gpu-chain --gpu-align -x splice`:
     byte-identical to the splice40 goldens (with and without --junc-bed)
@@ -2083,6 +2129,7 @@ def phase3_splice():
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
+    from mm2_gb_tpu_torch.utils import e2ebench
     gold = os.path.join(REPO, "tests", "golden")
     for flags, ref, query, golden in (
             (["-c"], "splice_genome.fa.gz", "splice_reads.fa.gz",
@@ -2122,7 +2169,7 @@ def phase3_splice():
     m = re.search(r"fills: (\d+) \((\d+) device, (\d+) host-routed\)", err)
     if rc != 0 or m is None:
         fail("--gpu-chain --gpu-align -ax splice on the cDNA set")
-    same = _no_pg(out) == _no_pg(host_sam)
+    same = e2ebench._no_pg(out) == e2ebench._no_pg(host_sam)
     log(f"cDNA --gpu-chain --gpu-align -ax splice (-t {THREADS}, in "
         f"process): {wall:.3f} s, fills {m.group(1)} ({m.group(3)} "
         f"host-routed), exts2 launches {launches[0]}, backtrack launches "
@@ -2230,15 +2277,17 @@ def splice_ext_bound(calls):
     return _bound(nbytes, ops)
 
 
-def _two_ranks(flags, ref, reads, name):
-    """Two concurrent `--tpu-nproc 2` rank subprocesses of the port into
-    WORK/name, then its mergeshards: (merged output, wall of both)."""
+def _two_ranks(args, name):
+    """Two concurrent `--tpu-nproc 2` rank subprocesses of the port on the
+    CLI arguments args into WORK/name, then its mergeshards: (merged
+    output, rank 0's stderr, wall of both)."""
     pre = os.path.join(WORK, name)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, *PORT, *flags, "--tpu-nproc", "2", "--tpu-rank",
-         str(r), "-o", pre, ref, reads], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+        [sys.executable, "-m", "mm2_gb_tpu_torch", "--tpu-nproc", "2",
+         "--tpu-rank", str(r), "-o", pre, *args], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
     try:
         errs = [p.communicate(timeout=600)[1] for p in procs]
     finally:
@@ -2249,7 +2298,18 @@ def _two_ranks(flags, ref, reads, name):
         fail(f"a rank of the {name} run")
     merged = _host(["-m", "mm2_gb_tpu_torch.tools.mergeshards", pre, "2"],
                    f"mergeshards of the {name} ranks")
-    return merged, time.perf_counter() - t0
+    return merged, errs[0], time.perf_counter() - t0
+
+
+def two_ranks_main(args):
+    """`python3 chip_smoke.py --two-ranks ARGS`: the port's CLI on ARGS as
+    two concurrent ranks and their mergeshards, as one command (the card
+    side of --scale-walls' e2ebench configuration): the merged output on
+    stdout, rank 0's stderr on stderr."""
+    merged, err, _wall = _two_ranks(args, "walls_ranks")
+    sys.stderr.write(err)
+    sys.stdout.write(merged)
+    return 0
 
 
 def phase3_scale(single):
@@ -2271,6 +2331,7 @@ def phase3_scale(single):
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import e2ebench
     ref, reads = flowcell()
     chain_segments, run_devices = G.chain_segments, cli.run_devices
     for name, flags in (("chain", []), ("align", ["--gpu-align", "-c"])):
@@ -2309,9 +2370,11 @@ def phase3_scale(single):
     if rc_ != 0:
         fail("the single-process -a run")
     for name, flags, want in (("PAF", [], single_p), ("SAM", ["-a"], sam)):
-        merged, w2 = _two_ranks(flags, ref, reads, f"ranks_{name}")
+        merged, _err, w2 = _two_ranks(
+            [SKIP_INF, "-t", str(THREADS), *flags, ref, reads],
+            f"ranks_{name}")
         same = (merged == want if name == "PAF" else
-                _no_pg(merged) == _no_pg(want)
+                e2ebench._no_pg(merged) == e2ebench._no_pg(want)
                 and merged.count("\n@PG\t") == 1 and merged.startswith("@"))
         log(f"flowcell two ranks {name} (-t {THREADS} each, concurrent "
             f"subprocesses): {w2:.3f} s (single process "
@@ -2595,63 +2658,67 @@ def require_host_kit():
     log(f"host kit {native._lib_path()}")
 
 
+JAX_HOST = [sys.executable, "-m", "mm2_gb_tpu"]   # the tie-breaker
+E2E_BEST_OF = 5     # --e2e: timed runs a side
+E2E_BUDGET_S = 1500.0   # --e2e after phase1; run it with a longer limit
+
+
+def e2e_config(tag, extra, ref, reads, n_reads, best_of, **kw):
+    """One configuration of the e2e bench stage (utils/e2ebench.py) at
+    -t THREADS: its record as a JSON line beside the card's name and
+    power limit, a summary line, and the record.  It fails on a run
+    that failed, differed in bytes or did not fit the budget."""
+    from mm2_gb_tpu_torch.utils import e2ebench
+    rec = e2ebench.run_config(tag, extra, ref, reads, n_reads, THREADS,
+                              best_of=best_of, **kw)
+    print(json.dumps({"card": CARD, **rec}), flush=True)
+    p = f"e2e_{tag}_"
+    if p + "wall_s" in rec:
+        share = rec.get(p + "kernel_share")
+        log(f"e2e {tag} ({' '.join(extra)}, {n_reads} reads, -t {THREADS}, "
+            f"{CARD}): best {rec[p + 'wall_s']:.3f} s, median "
+            f"{rec[p + 'wall_median_s']:.3f} s, spread "
+            f"{rec[p + 'spread'] * 100:.1f}%; baseline best "
+            f"{rec.get(p + 'base_wall_s', 0.0):.3f} s, median "
+            f"{rec.get(p + 'base_wall_median_s', 0.0):.3f} s, spread "
+            f"{rec.get(p + 'base_spread', 0.0) * 100:.1f}%; byte_match "
+            f"{rec[p + 'byte_match']}"
+            + ("" if share is None else f"; kernels {share * 100:.2f}% of "
+               "the wall"))
+    if (p + "error" in rec or p + "incomplete" in rec
+            or rec.get(p + "byte_match") is not True):
+        fail(f"e2e {tag}: " + rec.get(p + "error", rec.get(
+            p + "incomplete", "the outputs differ")))
+    return rec
+
+
 def walls():
     """`python3 chip_smoke.py --walls`: the wall of `--gpu-chain
     --gpu-align --qstrand -c -t 8` on the N_QSTRAND-read flowcell draw
-    beside the JAX package's host path at the same flags, each a
-    subprocess (interpreter start, imports and index build in both; the
-    kernels and both host kits built first), in turns host, port, port,
-    host; every output byte-compared; each port run's kernel time (the
-    CUDA-event sums of its -v 3 lines) as a share of its wall."""
+    beside the JAX package's host path at the same flags, through the
+    e2e bench stage (one untimed run a side, then turns host, port,
+    port, host; every output byte-compared; the kernels' share of the
+    port's best wall from its -v 3 lines; both host kits built first)."""
     phase1()
     require_host_kit()
     _host(["-c", "from mm2_gb_tpu.utils import native\n"
            "assert native.available()"], "building the JAX package's kit")
     ref, reads = flowcell(N_QSTRAND)
-    flags = [SKIP_INF, "--qstrand", "-c", "-t", str(THREADS), ref, reads]
-    host = ("host", ["-m", "mm2_gb_tpu", *flags])
-    port = ("port", ["-m", "mm2_gb_tpu_torch", "--gpu-chain", "--gpu-align",
-                     "-v", "3", *flags])
-    outs = []
-    for name, args in (host, port, port, host):
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, *args], cwd=REPO, text=True,
-                           capture_output=True, timeout=900)
-        wall = time.perf_counter() - t0
-        if p.returncode != 0:
-            sys.stderr.write(p.stderr[-3000:])
-            fail(f"the {name} run")
-        outs.append(p.stdout)
-        msg = f"{name} --qstrand -c -t {THREADS}: wall {wall:.3f} s"
-        if name == "port":
-            dev = [line for line in p.stderr.splitlines()
-                   if line.startswith("[M::gpu]")]
-            for line in dev:
-                log(line)
-            chain = re.search(r"kernel ([\d.]+)s \(", p.stderr)
-            ms = sum(float(x) for x in re.findall(r"kernel ([\d.]+) ms",
-                                                   p.stderr))
-            busy = ms / 1e3 + (float(chain.group(1)) if chain else 0.0)
-            msg += (f", kernels {busy:.3f} s ({busy / wall * 100:.2f}% of "
-                    "the wall)")
-        log(msg)
-    same = all(o == outs[0] for o in outs)
-    log(f"{N_QSTRAND}-read flowcell: {outs[0].count(chr(10))} lines, all "
-        f"four outputs byte-identical {same}")
-    if not same:
-        fail("the --qstrand walls' outputs differ")
+    e2e_config("qstrand", ["--gpu-chain", "--gpu-align", "--qstrand", "-c"],
+               ref, reads, N_QSTRAND, 2, base_cmd=JAX_HOST)
 
 
 def scale_walls():
     """`python3 chip_smoke.py --scale-walls`: the scale-out walls on the
-    N_READS-read flowcell draw, each pair in turns A, B, B, A after one
-    untimed in-process run (the process's first mapping run pays one-time
-    costs), every output byte-compared:
+    N_READS-read flowcell draw, every output byte-compared:
     - in process, `--gpu-chain` and `--gpu-chain --gpu-align -c` on one
-      device against `--tpu-devices 2` over [cuda:0, cuda:0];
-    - one `--gpu-chain` subprocess against two concurrent `--tpu-nproc 2`
-      rank subprocesses and the port's mergeshards (each subprocess pays
-      its interpreter start, imports, CUDA start and index build)."""
+      device against `--tpu-devices 2` over [cuda:0, cuda:0], in turns
+      A, B, B, A after one untimed in-process run (the process's first
+      mapping run pays one-time costs);
+    - through the e2e bench stage, one `--gpu-chain` subprocess against
+      two concurrent `--tpu-nproc 2` rank subprocesses and the port's
+      mergeshards (`--two-ranks`; each subprocess pays its interpreter
+      start, imports, CUDA start and index build)."""
     import torch
     from mm2_gb_tpu_torch import cli
     phase1()
@@ -2679,22 +2746,44 @@ def scale_walls():
                 f"process): wall {wall:.3f} s")
         if any(o != outs[0] for o in outs):
             fail("the device walls' outputs differ")
-    outs = []
-    for mode in ("one process", "two ranks", "two ranks", "one process"):
-        t0 = time.perf_counter()
-        if mode == "one process":
-            out = _host([*PORT, ref, reads], "the single-process run")
-            wall = time.perf_counter() - t0
-        else:
-            out, wall = _two_ranks([], ref, reads, "walls_ranks")
-        outs.append(out)
-        log(f"flowcell --gpu-chain, {mode} (-t {THREADS} each, "
-            f"subprocesses): wall {wall:.3f} s")
-    same = all(o == outs[0] for o in outs)
-    log(f"{N_READS}-read flowcell: every scale-out wall's output "
-        f"byte-identical {same}")
-    if not same:
-        fail("the rank walls' outputs differ")
+    e2e_config("ranks", ["--gpu-chain"], ref, reads, N_READS, 2,
+               base_cmd=[sys.executable, "-m", "mm2_gb_tpu_torch"],
+               cmd=[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                    "--two-ranks"])
+
+
+def e2e_configs():
+    """The configurations of PERF.md section 4 for the e2e bench stage:
+    (tag, flags, ref, reads, reads' count)."""
+    fc = flowcell()
+    return [("chain", ["--gpu-chain"], *fc, N_READS),
+            ("align", ["--gpu-chain", "--gpu-align", "-c"], *fc, N_READS),
+            ("qstrand", ["--gpu-chain", "--gpu-align", "--qstrand", "-c"],
+             *flowcell(N_QSTRAND_CHECK), N_QSTRAND_CHECK),
+            ("cdna", ["-ax", "splice", "--gpu-chain", "--gpu-align"],
+             *cdna_set(), N_CDNA)]
+
+
+def e2e_all():
+    """`python3 chip_smoke.py --e2e`: every configuration of e2e_configs
+    through the e2e bench stage at -t 8 beside the JAX package's host
+    path (JAX_HOST, a subprocess), E2E_BEST_OF timed runs a side, the
+    phase marks on (MM2TPU_TIMELINE=1): one JSON line each."""
+    phase1()
+    require_host_kit()
+    end = time.perf_counter() + E2E_BUDGET_S
+    for tag, extra, ref, reads, n in e2e_configs():
+        e2e_config(tag, extra, ref, reads, n, E2E_BEST_OF, base_cmd=JAX_HOST,
+                   remaining=lambda: end - time.perf_counter(),
+                   env={"MM2TPU_TIMELINE": "1"})
+
+
+def phase3_e2e():
+    """The e2e bench stage on the flowcell at --gpu-chain, two timed runs
+    a side beside the JAX package's host path (JAX_HOST, a subprocess):
+    byte-identical, and its record a JSON line."""
+    e2e_config("chain", ["--gpu-chain"], *flowcell(), N_READS, 2,
+               base_cmd=JAX_HOST, env={"MM2TPU_TIMELINE": "1"})
 
 
 def _walk_steps(cig, n_cig, cig_off):
@@ -3147,6 +3236,9 @@ def main() -> int:
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--two-ranks"]:   # a subprocess of --scale-walls
+        os.makedirs(WORK, exist_ok=True)
+        return two_ranks_main(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -3159,6 +3251,9 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     if sys.argv[1:] == ["--walls"]:
         walls()
+        return 0
+    if sys.argv[1:] == ["--e2e"]:
+        e2e_all()
         return 0
     if sys.argv[1:] == ["--scale-walls"]:
         scale_walls()
@@ -3199,6 +3294,7 @@ def main() -> int:
     timed(phase3_api, single["align"][0])
     timed(phase3_long_inserts)
     timed(phase3_tools, single["align"][0])
+    timed(phase3_e2e)
     e, ms, plain_ms = timed(phase4, calls)
     fe, fms, fpl, bms, bpl = timed(hold_fill_calls, fcalls, "main-path fill")
     if fe:

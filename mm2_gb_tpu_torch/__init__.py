@@ -19,8 +19,10 @@ stream, splitmerge), and replaces the modules that import JAX:
 - cli: `python -m mm2_gb_tpu_torch --gpu-chain ref.fa reads.fa`.
 
 Like the JAX package it also carries the mappy-compatible Python API
-(api, which maps on the host), paftools and mmphase (tools) and the
-MM2TPU_TIMELINE=1 phase marks (utils.timeline).
+(api, which maps on the card unless device="cpu" asks for the host; its
+maps take turns under one lock), paftools and mmphase (tools) and the
+MM2TPU_TIMELINE=1 phase marks (utils.timeline).  utils.e2ebench times
+the CLI against a baseline command, byte for byte.
 
 Importing this package never imports JAX, nor any module of mm2_gb_tpu.
 """

@@ -10,7 +10,9 @@ Usage mirrors the reference binding (python/README.rst):
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -22,6 +24,62 @@ from mm2_gb_tpu_torch.utils import opts as O
 from mm2_gb_tpu_torch.utils.fastx import SeqRecord, read_fastx
 from mm2_gb_tpu_torch.utils.gpucfg import derive_caps
 from mm2_gb_tpu_torch.utils.sam import _revcomp_str, write_cs_or_md
+
+
+class _RouteLock:
+    """A reader-writer lock for the API's maps.  The card route's fill
+    session is state of the whole process: the align driver's collect
+    list and fill cache (ops.align) and the host kit's C++ FillSession
+    (utils.native.fill_mode).  While a card-route pass holds it, any
+    alignment on the host would be answered from it.  So a card-route
+    pass holds the lock alone (sole=True), and host maps hold it shared,
+    beside each other but never beside a card pass; a card pass that
+    waits goes before host maps that come after it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0        # host maps holding the lock
+        self._sole = False      # a card pass holds it
+        self._waiting = 0       # card passes waiting for it
+
+    def acquire(self, sole: bool, timeout: float | None = None) -> bool:
+        """Take the lock, alone or shared; False if timeout (seconds)
+        passed first."""
+        with self._cond:
+            if not sole:
+                ok = self._cond.wait_for(
+                    lambda: not (self._sole or self._waiting), timeout)
+                self._shared += ok
+                return ok
+            self._waiting += 1
+            try:
+                ok = self._cond.wait_for(
+                    lambda: not (self._sole or self._shared), timeout)
+            finally:
+                self._waiting -= 1
+            self._sole = ok
+            if not ok:   # host maps held back for this pass may go on
+                self._cond.notify_all()
+            return ok
+
+    def release(self, sole: bool) -> None:
+        with self._cond:
+            if sole:
+                self._sole = False
+            else:
+                self._shared -= 1
+            self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def held(self, sole: bool):
+        self.acquire(sole)
+        try:
+            yield
+        finally:
+            self.release(sole)
+
+
+_ROUTE_LOCK = _RouteLock()
 
 
 def revcomp(seq: str) -> str:
@@ -86,7 +144,15 @@ class Aligner:
     as `--gpu-chain --gpu-align` maps it.  A read pair maps on the host
     (models.mapper), as the CLI maps multi-segment reads: the device
     chain takes one segment.  device="cpu" maps every read on the host,
-    as the JAX package's API does."""
+    as the JAX package's API does.
+
+    Threads may share Aligners.  Every map holds one lock of the process
+    (_ROUTE_LOCK) while it chains and aligns, because the card route's
+    fill session is state of the whole process: a card-route pass holds
+    it alone, so card passes take turns and no host map runs beside one;
+    host maps hold it shared and run beside each other.  The cs/MD
+    strings and the Alignment objects are made outside it.  Mapping runs
+    that do not go through the API (the CLI) do not take it."""
 
     def __init__(self, fn_idx_in: str | None = None, preset: str | None = None,
                  k: int | None = None, w: int | None = None,
@@ -188,8 +254,9 @@ class Aligner:
         puts them."""
         opt = copy.copy(opt)
         opt.flag |= O.MM_F_TPU_CHAIN | O.MM_F_TPU_ALIGN
-        [(_sr, regs)] = map_batch_gpu(self._idx, opt,
-                                      [SeqRecord(0, None, seq)], device)
+        with _ROUTE_LOCK.held(sole=True):
+            [(_sr, regs)] = map_batch_gpu(self._idx, opt,
+                                          [SeqRecord(0, None, seq)], device)
         return regs
 
     def map(self, seq: str, seq2: str | None = None, buf=None,
@@ -211,12 +278,14 @@ class Aligner:
             seg_regs = [self._map_device(seq, opt, self.device)]
             seqs = [seq]
         elif seq2 is None:
-            res = map_frag(self._idx, opt, [seq], None)
+            with _ROUTE_LOCK.held(sole=False):
+                res = map_frag(self._idx, opt, [seq], None)
             seg_regs = [res.seg_regs[0]]
             seqs = [seq]
         else:
             seqs = [seq, revcomp(seq2)]
-            res = map_frag(self._idx, opt, seqs, None)
+            with _ROUTE_LOCK.held(sole=False):
+                res = map_frag(self._idx, opt, seqs, None)
             seg_regs = res.seg_regs
             # flip the second end back to its original strand
             for r in seg_regs[1]:
