@@ -5,6 +5,8 @@
     python3 chip_smoke.py --walls    # --qstrand walls: port vs host path
     python3 chip_smoke.py --scale-walls  # two devices, two ranks vs one
     python3 chip_smoke.py --e2e      # the e2e bench stage: every config
+    python3 chip_smoke.py --ultralong  # the ultra-long mapping phase alone
+    python3 chip_smoke.py --cfg-sweep  # max_anchors_batch sweep, two sets
     python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
     python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
     python3 chip_smoke.py --fuzz N SEED0      # the fuzz campaign alone
@@ -92,6 +94,16 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    one untimed run a side and two timed runs a side in turns beside the
    JAX package's host path (`python -m mm2_gb_tpu`, a subprocess), every
    output byte-identical, its record a JSON line;
+   Then the over50k path (phase3_ultralong): the ultra-long set
+   (simulate.materialize_ultralong: 40 reads of 100-300 kb over an 8 Mbp
+   reference with planted tandem arrays) at `-x map-ont --gpu-chain
+   --gpu-cfg mm2_gb_tpu_torch/configs/h100_over50k.json` and its first 12
+   reads at `--gpu-align -c`, each byte-identical to the JAX package's
+   host path, with at least one segment whose window is read from global
+   memory (block_global); every chain launch of both runs equal to the
+   host oracle (chain_scores_host) read by read, the longest
+   block_global segment to the twin alone, the -c run's fill and
+   backtrack launches to the twins;
 4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
    the inputs it was given, re-run and held against its recorded result
    and against its twin, exact, and both timed (CUDA events; a kernel's
@@ -163,6 +175,9 @@ PORT = ["-m", "mm2_gb_tpu_torch", SKIP_INF, "-t", str(THREADS)]
 KERNEL_REPS = 3
 CARD = ""           # the card's name and power limit (phase 1)
 N_API = 100         # the flowcell's reads the Python API maps
+N_ULTRALONG = 40    # the ultra-long set: 8 Mbp repeat-rich reference,
+                    # 100-300 kb reads (the over50k configuration's case)
+N_ULTRALONG_C = 12  # its first reads, mapped with --gpu-align -c
 
 
 def log(msg: str) -> None:
@@ -1804,20 +1819,12 @@ def phase3():
 
     # keep every kernel call of the main path for phase 4; the wrapper
     # itself still counts the launches
-    calls, chain_segments = [], G.chain_segments
-
-    def recorded(*args, **kw):
-        f, p = chain_segments(*args, **kw)
-        calls.append((args, kw, f, p))
-        return f, p
-    G.chain_segments = recorded
-    try:
+    with recording_chain() as batches:
         G.launches = 0           # the chain path's run counted in the JSON
         rc, out, err, gpu_wall = _cli(cli.main, [
             "--gpu-chain", SKIP_INF, "-t", str(THREADS), ref, reads])
         launches = G.launches
-    finally:
-        G.chain_segments = chain_segments
+    calls = [c for _b, c in batches if c is not None]
     sys.stderr.write(err)
     if rc != 0:
         fail("--gpu-chain on the flowcell")
@@ -2039,6 +2046,306 @@ def phase3_long_inserts(inserts=(30_000, 61_000),
     if dev[0] or host[0] or not same or not ok or min(counts) == 0:
         sys.stderr.write(dev[2][-3000:])
         fail("the long-insert mapping run")
+
+
+def ultralong(n_reads=N_ULTRALONG):
+    """(ref, reads) FASTA paths of the ultra-long set's first n_reads
+    reads (simulate.materialize_ultralong: seeds 11 and 12, an 8 Mbp
+    reference with 60 planted tandem arrays and N_ULTRALONG reads of
+    100-300 kb), written once under WORK."""
+    from mm2_gb_tpu_torch.utils.simulate import materialize_ultralong
+    ref, reads = materialize_ultralong(N_ULTRALONG, WORK)
+    if n_reads == N_ULTRALONG:
+        return ref, reads
+    path = os.path.join(os.path.dirname(reads), f"reads{n_reads}.fa")
+    if not os.path.exists(path):
+        with open(reads) as f:   # a header line and a sequence line a read
+            lines = f.read().split("\n")[:2 * n_reads]
+        with open(path + ".tmp", "w") as f:
+            f.write("\n".join(lines) + "\n")
+        os.replace(path + ".tmp", path)
+    return ref, path
+
+
+ORACLE_KEYS = ("max_dist_x", "max_dist_y", "bw", "max_iter", "cg", "cs",
+               "is_cdna")
+
+
+@contextlib.contextmanager
+def recording_chain():
+    """Record every batch that dispatch_scores chains inside, and the
+    chain_segments launch it made (the wrapper still counts it): a list
+    of [(ax, ay, read bounds, the oracle's parameters), (args, kw, f, p)
+    or None for a batch without a launch].  The batches are dispatched
+    from one worker thread, one after another."""
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    batches, dispatch, chain = [], G.dispatch_scores, G.chain_segments
+
+    def rec_chain(*a, **kw):
+        f, p = chain(*a, **kw)
+        batches[-1][1] = (a, kw, f, p)
+        return f, p
+
+    def rec_dispatch(ax, ay, bounds, **kw):
+        batches.append([(ax, ay, bounds, {k: kw[k] for k in ORACLE_KEYS}),
+                        None])
+        return dispatch(ax, ay, bounds, **kw)
+    G.dispatch_scores, G.chain_segments = rec_dispatch, rec_chain
+    try:
+        yield batches
+    finally:
+        G.dispatch_scores, G.chain_segments = dispatch, chain
+
+
+def hold_chain_oracle(batches):
+    """Each recorded batch's chain launch against the host oracle
+    (chain_gpu.chain_scores_host, the port's native chain_dp at max_skip
+    = 2**31 - 1), read by read, on THREADS threads: f equal, and p (a
+    distance, 0 for none) equal to the oracle's predecessor turned into
+    a distance; tolerance 0.  (max_abs_err, anchors held, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def one(ax, ay, prm, f, p):
+        fo, po = G.chain_scores_host(ax, ay, *(prm[k] for k in ORACLE_KEYS))
+        d = np.where(po >= 0, np.arange(po.shape[0]) - po, 0)
+        return max(int(np.abs(f - fo).max(initial=0)),
+                   int(np.abs(p - d).max(initial=0)))
+    futs, n = [], 0
+    with ThreadPoolExecutor(max_workers=THREADS) as ex:
+        for (ax, ay, rb, prm), call in batches:
+            if call is None:
+                continue
+            f, p = (t.cpu().numpy().astype(np.int64) for t in call[2:4])
+            for s, e in zip(rb[:-1].tolist(), rb[1:].tolist()):
+                if e > s:
+                    futs.append(ex.submit(one, ax[s:e], ay[s:e], prm,
+                                          f[s:e], p[s:e]))
+            n += int(rb[-1])
+        err = max((fu.result() for fu in futs), default=0)
+    return err, n, time.perf_counter() - t0
+
+
+def hold_longest_global(calls):
+    """The longest segment of the recorded chain launches that read its
+    window from global memory (block_global), alone: the twin
+    (chain_segments_torch) on the host's copy of the launch's operands
+    (its one serial step an anchor costs less there than on the card's
+    stream), and the kernel in a launch of that segment alone, both
+    against the launch's recorded (f, p) over the segment; exact.
+    Returns (max_abs_err, anchors, widest range, twin s, kernel ms)."""
+    import numpy as np
+    import torch
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    best = None
+    for i, (_args, kw, _f, _p) in enumerate(calls):
+        sh = kw["shape"]
+        w = sh.work[:sh.n_long].cpu().numpy()
+        g = w[w[:, 3] == 0]
+        if g.shape[0]:
+            k = int(np.argmax(g[:, 1] - g[:, 0]))
+            if best is None or g[k, 1] - g[k, 0] > best[0]:
+                best = (int(g[k, 1] - g[k, 0]), i, g[k])
+    if best is None:
+        fail("no block_global segment among the recorded chain launches")
+    n, i, (s, e, wide, _ring) = best
+    args, kw, f, p = calls[i]
+    prm = {k: v for k, v in kw.items() if k not in ("events", "shape")}
+
+    def seg(dev):
+        return (torch.tensor([s], dtype=torch.int32, device=dev),
+                torch.tensor([e], dtype=torch.int32, device=dev))
+    host = [a.cpu() for a in args[:3]]
+    t0 = time.perf_counter()
+    ft, pt = G.chain_segments_torch(*host, *seg("cpu"), **prm)
+    t_twin = time.perf_counter() - t0
+    ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fk, pk = G.chain_segments(*args[:3], *seg(args[0].device), events=ev,
+                              **prm)
+    torch.cuda.synchronize()
+    fr, pr = f[s:e].cpu(), p[s:e].cpu()
+    err = max(_max_err(ft[s:e], fr), _max_err(pt[s:e], pr),
+              _max_err(fk[s:e].cpu(), fr), _max_err(pk[s:e].cpu(), pr))
+    return err, n, int(wide), t_twin, ev[0].elapsed_time(ev[1])
+
+
+def _gpu_fields(err, what):
+    """The -v 3 `[M::gpu]` fields of a run's stderr (e2ebench's parser)."""
+    from mm2_gb_tpu_torch.utils import e2ebench
+    fields = e2ebench.parse_gpu_report(err)
+    if "anchors" not in fields:
+        sys.stderr.write(err[-3000:])
+        fail(f"no device metrics report from {what}")
+    return fields
+
+
+def phase3_ultralong():
+    """The over50k path: the ultra-long set (ultralong()) mapped on the
+    card, against the JAX package's host path (`python -m mm2_gb_tpu`,
+    a subprocess) at the same flags, byte for byte:
+
+    - all N_ULTRALONG reads at `-x map-ont --gpu-chain -t 8 --gpu-cfg
+      configs/h100_over50k.json -v 3`; at least one segment of the run
+      must read its window from global memory (block_global);
+    - the first N_ULTRALONG_C reads at `--gpu-chain --gpu-align -c`.
+
+    Every chain launch of both runs is held against the host oracle
+    (hold_chain_oracle) and re-run on its recorded operands
+    (hold_chain_calls); the longest block_global segment against the
+    twin alone (hold_longest_global); the -c run's fill and backtrack
+    launches against the twins (hold_fill_calls).  Prints the anchors,
+    batches, segments per class, the longest segment's anchors and
+    widest range, each launch's ms, pairs and rate, spills, the
+    allocator's peak, and the -c run's fills, cells, scratch and
+    host-routed fills and largest fill shapes, beside the card's name
+    and power limit, and the chain launches' record as a JSON line.
+    Returns {"chain": (launches, the recorded launches [(args, kw, f,
+    p)], max_abs_err, kernel ms), "fills": the recorded fill launches, "fill": (launches,
+    max_abs_err, ms, twin ms), "backtrack": (launches, ms, twin ms)}."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import gpucfg
+    ref, reads = ultralong()
+    reads_c = ultralong(N_ULTRALONG_C)[1]
+    cfg = os.path.join(gpucfg.CONFIG_DIR, "h100_over50k.json")
+    t0 = time.perf_counter()
+    host = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-x", "map-ont", "-t",
+                  str(THREADS), ref, reads], "host path on the ultra-long set")
+    t1 = time.perf_counter()
+    host_c = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-c", "-t", str(THREADS),
+                    ref, reads_c], "host path -c on the ultra-long set")
+    log(f"ultra-long host path (-t {THREADS}, subprocess): {N_ULTRALONG} "
+        f"reads {t1 - t0:.3f} s, {host.count(chr(10))} lines; "
+        f"{N_ULTRALONG_C} reads -c {time.perf_counter() - t1:.3f} s, "
+        f"{host_c.count(chr(10))} lines")
+
+    # --gpu-cfg installs its caps for the process: restored after the run
+    saved = gpucfg.current_config()
+    classes0 = Counter(G.launch_classes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # earlier phases' tensors
+    try:
+        with recording_chain() as batches:
+            G.launches = 0
+            rc, out, err, wall = _cli(cli.main, [
+                "--gpu-chain", SKIP_INF, "-x", "map-ont", "-t", str(THREADS),
+                "--gpu-cfg", cfg, "-v", "3", ref, reads])
+            launches = G.launches
+    finally:
+        gpucfg.apply_gpu_config(saved)
+    peak = torch.cuda.max_memory_allocated() - held
+    classes = {c: n for (k, c), n in (G.launch_classes - classes0).items()
+               if k == "chain_segments"}
+    if rc != 0:
+        sys.stderr.write(err[-3000:])
+        fail("--gpu-chain on the ultra-long set")
+    m = _gpu_fields(err, "the ultra-long --gpu-chain run")
+    calls = [c for _b, c in batches if c is not None]
+    big = max(b[0][0].shape[0] for b in batches)
+    same = out == host
+    log(f"ultra-long --gpu-chain -x map-ont --gpu-cfg h100_over50k.json "
+        f"({CARD}; -t {THREADS}, in process): {wall:.3f} s, {m['reads']} "
+        f"reads, {m['anchors']} anchors, {m['segments']} segments in "
+        f"{m['batches']} chain batches ({m['cap_split']} cap-split, "
+        f"largest {big} anchors), launches {launches}, host-routed "
+        f"batches {m['host_hpc_batches']}; segments per class "
+        + ", ".join(f"{c} {classes.get(c, 0)}" for c in
+                    ("warp", "group", "block", "block_global"))
+        + f"; chain kernel {m['chain_kernel_s'] * 1e3:.3f} ms over "
+        f"{m['pairs']} pairs ({m['chain_gpairs_s']:.3f} Gpairs/s); "
+        f"allocator peak {peak} B above what was held before the run "
+        f"({peak / big:.1f} B per anchor of the "
+        f"largest batch; BYTES_PER_ANCHOR {gpucfg.BYTES_PER_ANCHOR}); "
+        f"byte-identical to the host path {same}")
+    if (not same or launches == 0 or m["host_hpc_batches"]
+            or len(calls) != launches):
+        fail("the ultra-long --gpu-chain run")
+
+    ql = tl = np.zeros(0, np.int64)
+    G.launches = K.fill_launches = K.backtrack_launches = 0
+    with recording_fills() as fcalls, recording_chain() as cbatches:
+        rc, out, err, wall = _cli(cli.main, [
+            "--gpu-chain", "--gpu-align", SKIP_INF, "-c", "-t", str(THREADS),
+            "-v", "3", ref, reads_c])
+        counts = (G.launches, K.fill_launches, K.backtrack_launches)
+    if rc != 0:
+        sys.stderr.write(err[-3000:])
+        fail("--gpu-chain --gpu-align -c on the ultra-long set")
+    fm = _gpu_fields(err, "the ultra-long -c run")
+    if fcalls:
+        ql, tl = (np.concatenate([c[0][k].cpu().numpy() for c in fcalls])
+                  .astype(np.int64) for k in (4, 5))
+    top = np.argsort(-(ql + tl), kind="stable")[:3]
+    narrow = np.nonzero((tl + 15) // 16 * 16 <= K.WARP_LANES)[0]
+    nq = (int(narrow[np.argmax(ql[narrow])]) if narrow.shape[0] else None)
+    need = K.fill_bytes(ql, tl)
+    same = out == host_c
+    log(f"ultra-long {N_ULTRALONG_C} reads --gpu-chain --gpu-align -c "
+        f"({CARD}; -t {THREADS}, in process): {wall:.3f} s, "
+        f"{fm['anchors']} anchors in {fm['batches']} chain batches; fills "
+        f"{fm.get('fills', 0)} ({fm.get('fills_host_routed', 0)} "
+        f"host-routed), {fm.get('fill_cells', 0)} cells, "
+        f"{fm.get('scratch_fills', 0)} with state in global scratch, fill "
+        f"kernel {fm.get('fill_kernel_ms', 0.0)} ms, backtrack kernel "
+        f"{fm.get('backtrack_ms', 0.0)} ms, collect "
+        f"{fm.get('collect_s', 0.0)} s; chain, fill, backtrack launches "
+        f"{counts}; largest fills (query x target) "
+        + ", ".join(f"{int(ql[k])} x {int(tl[k])}" for k in top)
+        + ("" if nq is None else
+           f"; the narrow fill of the longest query {int(ql[nq])} x "
+           f"{int(tl[nq])}")
+        + f"; fills past WARP_FILL_MAX {int((need > K.WARP_FILL_MAX).sum())},"
+        f" past FILL_SMEM_MAX {int((need > K.FILL_SMEM_MAX).sum())}; "
+        f"byte-identical to the host path {same}")
+    ccalls = [c for _b, c in cbatches if c is not None]
+    if (not same or min(counts) == 0 or fm.get("fills_host_routed")
+            or len(ccalls) != counts[0] or len(fcalls) != counts[1]):
+        fail("the ultra-long --gpu-align -c run")
+
+    e_or, n_or, t_or = hold_chain_oracle(batches + cbatches)
+    log(f"ultra-long chain launches == chain_scores_host: {len(calls)} + "
+        f"{len(ccalls)} launches, {n_or} anchors, max_abs_err {e_or} "
+        f"({t_or:.1f} s on {THREADS} threads)")
+    calls += ccalls
+    e_k, ms, _ = hold_chain_calls(calls, "ultra-long")
+    b_ms, b_by = chain_bound(calls)
+    log(f"ultra-long chain launches ({CARD}): kernel {ms:.3f} ms over "
+        f"{len(calls)} launches (median of {KERNEL_REPS} each); bound "
+        f"{b_ms:.4f} ms by {b_by}")
+    if not classes.get("block_global"):
+        fail("no segment of the ultra-long --gpu-chain run read its window "
+             "from global memory (block_global); the widest ranges are in "
+             "the launch lines above")
+    e_tw, n_tw, wide, t_tw, k_tw = hold_longest_global(calls)
+    log(f"ultra-long longest block_global segment ({CARD}): {n_tw} anchors, "
+        f"widest range {wide}; twin on the host {t_tw:.1f} s, kernel on it "
+        f"alone {k_tw:.3f} ms ({k_tw * 1e3 / n_tw:.4f} µs per step); "
+        f"max_abs_err {e_tw}")
+    fe, fms, fpl, bms, bpl = hold_fill_calls(fcalls, "ultra-long fill")
+    err = max(e_or, e_k, e_tw)
+    # the ultra-long chain launches alone, beside the kernels line's
+    # chain_segments entry that sums them with the flowcell's
+    print(json.dumps({"ultralong_chain": {
+        "card": CARD, "launches": len(calls), "max_abs_err": err, "ms": ms,
+        "bound_ms": b_ms, "bound_by": b_by, "longest_global_anchors": n_tw,
+        "longest_global_ms": k_tw, "longest_global_twin_host_s": t_tw}}),
+        flush=True)
+    if err or fe:
+        fail("an ultra-long chain or fill launch differs from the oracle, "
+             "its twin or its recorded result")
+    return dict(chain=(launches + counts[0], calls, err, ms), fills=fcalls,
+                fill=(counts[1], fe, fms, fpl), backtrack=(counts[2], bms, bpl))
 
 
 def phase3_tools(paf):
@@ -2524,6 +2831,18 @@ def phase4(calls):
     twin (a twin run costs ~20 s, the longest segment's ~10,000 steps).
     (max_abs_err, kernel ms summed over the calls, twin ms summed over
     the twin runs)."""
+    return hold_chain_calls(calls, "main-path", {0, len(calls) - 1})
+
+
+def hold_chain_calls(calls, label, twin=()):
+    """Each recorded chain_segments call (args, kw, f, p) re-run
+    KERNEL_REPS times on its own inputs and held against its recorded
+    (f, p); those whose index is in twin also against the twin over the
+    whole launch.  Prints each launch's anchors, work segments by class,
+    the longest segment's anchors and widest range, pairs (sum(rng)), the
+    kernel's median ms, Gpairs/s, and µs per step of the longest segment
+    (its anchors are the launch's serial steps).  (max_abs_err, kernel ms
+    summed over the calls, twin ms summed over the twin runs)."""
     import torch
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     torch.cuda.synchronize()
@@ -2536,7 +2855,6 @@ def phase4(calls):
         torch.cuda.synchronize()
         return out, t0.elapsed_time(t1)
 
-    twin = {0, len(calls) - 1}
     err, ms, plain_ms = 0, 0.0, 0.0
     for i, (args, kw, f, p) in enumerate(calls):
         # the kernel with the launch's own shape; the twin takes the
@@ -2555,14 +2873,22 @@ def phase4(calls):
             plain_ms += t_plain
             msg = f", twin {t_plain:.3f} ms"
         pairs = int(args[2].sum(dtype=torch.int64))
-        lens = args[4] - args[3]
-        log(f"main-path launch {i}: {args[0].shape[0]} anchors, "
-            f"{lens.shape[0]} work segments (longest "
-            f"{int(lens.max()) if lens.numel() else 0}), {pairs} pairs; "
-            f"kernel {t_kern:.3f} ms (median of {KERNEL_REPS}){msg}; "
-            f"max_abs_err {e}")
+        sh = kw.get("shape") or G.segment_shape(
+            args[3].cpu().numpy(), args[4].cpu().numpy(), args[2].cpu().numpy())
+        w0 = ([int(v) for v in sh.work[0].tolist()] if sh.work.shape[0]
+              else [0, 0, 0, 1])
+        steps = w0[1] - w0[0]
+        log(f"{label} launch {i}: {args[0].shape[0]} anchors, "
+            f"{args[3].shape[0]} work segments (warp {sh.n_short}, group "
+            f"{sh.n_mid}, block {sh.n_long}, block_global {sh.n_global}; "
+            f"longest {steps} anchors, widest range {w0[2]}, "
+            f"{'ring' if w0[3] else 'global memory'}), {pairs} pairs; "
+            f"kernel {t_kern:.3f} ms (median of {KERNEL_REPS}), "
+            f"{pairs / max(t_kern, 1e-9) / 1e6:.3f} Gpairs/s, "
+            f"{t_kern * 1e3 / max(steps, 1):.4f} µs per step of the longest "
+            f"segment{msg}; max_abs_err {e}")
         if e:
-            fail(f"main-path launch {i}: kernel differs from the twin or its "
+            fail(f"{label} launch {i}: kernel differs from the twin or its "
                  "recorded result")
         err, ms = max(err, e), ms + t_kern
     return err, ms, plain_ms
@@ -2755,13 +3081,17 @@ def scale_walls():
 def e2e_configs():
     """The configurations of PERF.md section 4 for the e2e bench stage:
     (tag, flags, ref, reads, reads' count)."""
+    from mm2_gb_tpu_torch.utils import gpucfg
     fc = flowcell()
     return [("chain", ["--gpu-chain"], *fc, N_READS),
             ("align", ["--gpu-chain", "--gpu-align", "-c"], *fc, N_READS),
             ("qstrand", ["--gpu-chain", "--gpu-align", "--qstrand", "-c"],
              *flowcell(N_QSTRAND_CHECK), N_QSTRAND_CHECK),
             ("cdna", ["-ax", "splice", "--gpu-chain", "--gpu-align"],
-             *cdna_set(), N_CDNA)]
+             *cdna_set(), N_CDNA),
+            ("ultralong", ["--gpu-chain", "--gpu-cfg", os.path.join(
+                gpucfg.CONFIG_DIR, "h100_over50k.json")], *ultralong(),
+             N_ULTRALONG)]
 
 
 def e2e_all():
@@ -2784,6 +3114,98 @@ def phase3_e2e():
     byte-identical, and its record a JSON line."""
     e2e_config("chain", ["--gpu-chain"], *flowcell(), N_READS, 2,
                base_cmd=JAX_HOST, env={"MM2TPU_TIMELINE": "1"})
+
+
+SWEEP_CAPS = (250_000, 500_000, 1_000_000, 4_000_000, 16_000_000)
+SWEEP_RUNS = 5      # --cfg-sweep: timed runs a cap, after one untimed
+
+
+def cfg_sweep():
+    """`python3 chip_smoke.py --cfg-sweep`: the walls of `--gpu-chain -t 8
+    -v 3` in process (cli.main: index build and mapping, without the
+    interpreter's and the imports' start-up) at each max_anchors_batch of
+    SWEEP_CAPS (a --gpu-cfg JSON each, max_reads_batch 200,000), on the
+    N_READS-read flowcell (10-100 kb reads, the below50k class) and on
+    the ultra-long set (100-300 kb, over50k).  Per set, one untimed round
+    over the caps, then SWEEP_RUNS rounds, each in the caps' order
+    rotated by one; every output byte-compared with the first.  Prints
+    each cap's best, median and spread beside its batches, chain kernel
+    seconds and allocator peak, and a JSON line a set."""
+    import statistics
+
+    import torch
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.utils import e2ebench, gpucfg
+    phase1()
+    require_host_kit()
+    saved = gpucfg.current_config()
+    paths = {}
+    for cap in SWEEP_CAPS:
+        paths[cap] = os.path.join(WORK, f"sweep_{cap}.json")
+        with open(paths[cap], "w") as f:
+            json.dump({"max_anchors_batch": cap,
+                       "max_reads_batch": 200_000}, f)
+    dispatch, sizes = G.dispatch_scores, []
+
+    def sized(ax, *a, **kw):   # each batch's anchors
+        sizes.append(ax.shape[0])
+        return dispatch(ax, *a, **kw)
+    G.dispatch_scores = sized
+    try:
+        for tag, (ref, reads), n in (("flowcell", flowcell(), N_READS),
+                                     ("ultralong", ultralong(), N_ULTRALONG)):
+            walls = {cap: [] for cap in SWEEP_CAPS}
+            info, first = {}, None
+            for r in range(SWEEP_RUNS + 1):
+                k = r % len(SWEEP_CAPS)
+                for cap in SWEEP_CAPS[k:] + SWEEP_CAPS[:k]:
+                    sizes.clear()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    held = torch.cuda.memory_allocated()
+                    rc, out, err, wall = _cli(cli.main, [
+                        "--gpu-chain", SKIP_INF, "-t", str(THREADS),
+                        "--gpu-cfg", paths[cap], "-v", "3", ref, reads])
+                    gpucfg.apply_gpu_config(saved)
+                    if rc != 0:
+                        sys.stderr.write(err[-3000:])
+                        fail(f"--cfg-sweep {tag} at {cap} anchors")
+                    first = out if first is None else first
+                    if out != first:
+                        fail(f"--cfg-sweep {tag}: the output at {cap} "
+                             "anchors differs")
+                    m = _gpu_fields(err, f"the {tag} sweep")
+                    if r:
+                        walls[cap].append(wall)
+                        info.setdefault(cap, []).append(
+                            m["chain_kernel_s"])
+                    info[cap, "batches"] = m["batches"]
+                    info[cap, "largest"] = max(sizes)
+                    info[cap, "peak"] = (torch.cuda.max_memory_allocated()
+                                         - held)
+            rec = {}
+            for cap in SWEEP_CAPS:
+                s = rec[cap] = {**e2ebench._summary(walls[cap]),
+                                "batches": info[cap, "batches"],
+                                "largest_batch": info[cap, "largest"],
+                                "chain_kernel_s": statistics.median(info[cap]),
+                                "peak_bytes": info[cap, "peak"]}
+                log(f"cfg sweep {tag} ({n} reads, --gpu-chain -t {THREADS}, "
+                    f"in process, {CARD}): max_anchors_batch {cap}: best "
+                    f"{s['wall_s']:.3f} s, median {s['wall_median_s']:.3f} s, "
+                    f"spread {s['spread'] * 100:.1f}%; "
+                    f"{info[cap, 'batches']} batches (largest "
+                    f"{info[cap, 'largest']} anchors), chain kernel "
+                    f"{s['chain_kernel_s']:.4f} s, allocator peak "
+                    f"{info[cap, 'peak']} B "
+                    f"({info[cap, 'peak'] / info[cap, 'largest']:.1f} B per "
+                    f"anchor of the largest batch)")
+            print(json.dumps({"card": CARD, "sweep": tag, "reads": n,
+                              "caps": rec}), flush=True)
+    finally:
+        G.dispatch_scores = dispatch
+        gpucfg.apply_gpu_config(saved)
 
 
 def _walk_steps(cig, n_cig, cig_off):
@@ -3261,6 +3683,14 @@ def main() -> int:
     if sys.argv[1:] == ["--dp-probe"]:
         dp_probe()
         return 0
+    if sys.argv[1:] == ["--cfg-sweep"]:
+        cfg_sweep()
+        return 0
+    if sys.argv[1:] == ["--ultralong"]:
+        phase1()
+        require_host_kit()
+        phase3_ultralong()
+        return 0
     if sys.argv[1:2] in (["--fuzz"], ["--fuzz-asan"]) and len(sys.argv) == 4:
         n, seed0 = int(sys.argv[2]), int(sys.argv[3])
         return (fuzz_only if sys.argv[1] == "--fuzz" else fuzz_asan)(n,
@@ -3293,12 +3723,18 @@ def main() -> int:
     timed(phase3_timeline, single["align"][0])
     timed(phase3_api, single["align"][0])
     timed(phase3_long_inserts)
+    ul = timed(phase3_ultralong)
     timed(phase3_tools, single["align"][0])
     timed(phase3_e2e)
     e, ms, plain_ms = timed(phase4, calls)
     fe, fms, fpl, bms, bpl = timed(hold_fill_calls, fcalls, "main-path fill")
     if fe:
         fail("a main-path fill or backtrack launch differs from its twin")
+    # the kernels line's chain and fill entries: the flowcell's launches
+    # and the ultra-long runs', each summed over both
+    ul_launches, ul_calls, ul_err, ul_ms = ul["chain"]
+    ul_fcalls, (ul_fill, ul_fe, ul_fms, ul_fpl) = ul["fills"], ul["fill"]
+    ul_bt, ul_bms, ul_bpl = ul["backtrack"]
     if _params_key(scalls[0][0][-1]) != _params_key(splice_later[0][0][-1]):
         fail("the cDNA run's options differ from the splice preset's")
     se, sfms, sfpl, sbms, sbpl = timed(
@@ -3329,14 +3765,16 @@ def main() -> int:
                 "bound_by": b_by, "library_ms": None}
     print(json.dumps({"kernels": [
         entry("chain_segments", "mm2_gb_tpu_torch/csrc/chain_kernel.cu",
-              "mm2_gb_tpu/ops/chain_tpu.py:222", launches, max(err, e), ms,
-              plain_ms, chain_bound(calls)),
-        entry("extd2_fill", src, "mm2_gb_tpu/ops/ksw2_tpu.py:359", n_fill,
-              max(fill_err, fe), fms, fpl, dp_bound(
-                  [c[0][4:7] for c in fcalls], OPS_PER["fill"], 4)),
+              "mm2_gb_tpu/ops/chain_tpu.py:222", launches + ul_launches,
+              max(err, e, ul_err), ms + ul_ms, plain_ms,
+              chain_bound(calls + ul_calls)),
+        entry("extd2_fill", src, "mm2_gb_tpu/ops/ksw2_tpu.py:359",
+              n_fill + ul_fill, max(fill_err, fe, ul_fe), fms + ul_fms,
+              fpl + ul_fpl, dp_bound([c[0][4:7] for c in fcalls + ul_fcalls],
+                                     OPS_PER["fill"], 4)),
         entry("ksw2_backtrack", src, "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
-              n_bt, max(fill_err, fe), bms, bpl,
-              walk_bound([c[4:6] for c in fcalls])),
+              n_bt + ul_bt, max(fill_err, fe, ul_fe), bms + ul_bms,
+              bpl + ul_bpl, walk_bound([c[4:6] for c in fcalls + ul_fcalls])),
         entry("exts2_fill", "mm2_gb_tpu_torch/csrc/exts2_kernel.cu",
               "mm2_gb_tpu/ops/ksw2_tpu.py:951", n_sfill,
               max(splice_err, se), sfms, sfpl, dp_bound(

@@ -14,8 +14,9 @@ setup(
     packages=find_packages(include=["mm2_gb_tpu", "mm2_gb_tpu.*",
                                     "mm2_gb_tpu_torch",
                                     "mm2_gb_tpu_torch.*"]),
-    package_data={"mm2_gb_tpu_torch": ["csrc/*.cu", "csrc/host/*.cpp",
-                                       "csrc/host/*.h"]},
+    package_data={"mm2_gb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                       "csrc/host/*.cpp", "csrc/host/*.h",
+                                       "configs/*.json"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={"torch": ["torch"]},

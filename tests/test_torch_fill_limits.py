@@ -5,12 +5,12 @@ A fill's state in the genomic fill kernel holds its whole reversed
 query, so a narrow fill beside a query of tens of kb may not take a
 warp: eight warps' state would pass the shared memory a block may have
 (227 KB) and the launch would raise.  For every launch-shape function of
-the four DP kernels, on mixes with queries up to 60,000 bases beside
-targets of at most 512, and the other way round: the block's shared
-memory stays within 227 KB; FILL_WARPS warps' state stays within the
-share that keeps the kernel's blocks an SM (for extd2_fill, within
-FILL_SMEM_MAX); each fill is in the work list once; each fill's scratch
-region is what the chunker budgets for it.
+the four DP kernels, on mixes with queries up to 60,000 bases (300,000
+in the ultra-long mix) beside targets of at most 512, and the other way
+round: the block's shared memory stays within 227 KB; FILL_WARPS warps'
+state stays within the share that keeps the kernel's blocks an SM (for
+extd2_fill, within FILL_SMEM_MAX); each fill is in the work list once;
+each fill's scratch region is what the chunker budgets for it.
 """
 
 import os
@@ -68,6 +68,15 @@ def _mix(name):
     elif name == "past_a_warp_share":   # 8 such warps pass FILL_SMEM_MAX
         ql = [10_000, 4_000] + [100] * 200
         tl = [10_000, 500] + [100] * 200
+    elif name == "ultralong":   # queries to 300 kb beside narrow targets
+        # (the ultra-long set's -c run on the card made none past 314
+        # bases; its 100-300 kb reads bound a fill's query)
+        n, rng = 300, np.random.default_rng(300)
+        a = np.exp(rng.uniform(0, np.log(300_000), n)).astype(np.int64)
+        b = rng.integers(1, 513, n)
+        flip = rng.random(n) < 0.3
+        ql, tl = np.where(flip, b, a), np.where(flip, a, b)
+        ql[:4], tl[:4] = 300_000, (512, 1, 300, 314)
     else:   # narrow targets beside queries to 60 kb, and the reverse
         n, rng = 300, np.random.default_rng(int(name[6:]))
         a = np.exp(rng.uniform(0, np.log(60_000), n)).astype(np.int64)
@@ -82,7 +91,7 @@ def _mix(name):
 
 @pytest.mark.parametrize("mix", ["warp_beside_longest", "many_long_queries",
                                  "past_a_warp_share", "random0", "random1",
-                                 "random2"])
+                                 "random2", "ultralong"])
 @pytest.mark.parametrize("kernel", list(SHAPES))
 def test_launch_shape_fits_the_shared_memory(kernel, mix):
     shape, nbytes, smem_max, warps_max, every = SHAPES[kernel]
