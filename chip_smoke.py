@@ -40,7 +40,7 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    (with and without --cs -c, and with --gpu-align for --cs -c and
    -x map-hifi -c); on a 600-read draw of the bench flowcell (the bench
    has 1200 reads; half, for the time limit) byte-identical to
-   the host path (`python -m mm2_gb_tpu`, same -t, in a subprocess),
+   the port's host route (PORT_HOST, same -t, in a subprocess),
    with kernel launches > 0 and no batch chained on the host; then
    `--gpu-align -c` on the flowcell byte-identical to the host path's
    -c, with fill and backtrack launches > 0;
@@ -92,14 +92,14 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    `sam2paf` on the cDNA run's SAM; the e2e bench stage
    (mm2_gb_tpu_torch/utils/e2ebench.py) on the flowcell at --gpu-chain,
    one untimed run a side and two timed runs a side in turns beside the
-   JAX package's host path (`python -m mm2_gb_tpu`, a subprocess), every
+   port's host route (PORT_HOST, a subprocess), every
    output byte-identical, its record a JSON line;
    Then the over50k path (phase3_ultralong): the ultra-long set
    (simulate.materialize_ultralong: 40 reads of 100-300 kb over an 8 Mbp
    reference with planted tandem arrays) at `-x map-ont --gpu-chain
    --gpu-cfg mm2_gb_tpu_torch/configs/h100_over50k.json` and its first 12
-   reads at `--gpu-align -c`, each byte-identical to the JAX package's
-   host path, with at least one segment whose window is read from global
+   reads at `--gpu-align -c`, each byte-identical to the port's host
+   route, with at least one segment whose window is read from global
    memory (block_global); every chain launch of both runs equal to the
    host oracle (chain_scores_host) read by read, the longest
    block_global segment to the twin alone, the -c run's fill and
@@ -125,8 +125,8 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    seeds FUZZ_SEED0 .. FUZZ_SEED0+N_FUZZ-1 (genomic, splice, paired-end
    and long-read workloads under random flag sets, each at a drawn -t):
    every seed's `--gpu-chain` run (with `--gpu-align` where its flags
-   align) in this process byte-identical to the JAX package's host path
-   in a subprocess, both exiting 0, and the chain kernel, the genomic and
+   align) in this process byte-identical to the port's host route in a
+   subprocess, both exiting 0, and the chain kernel, the genomic and
    splice fill kernels and the backtrack in its genomic and intron modes
    launched through the CLI; its counts are a JSON line of their own.
 
@@ -134,8 +134,12 @@ The line before the last is a JSON object with each kernel's launches on
 its path, its error against the twin, both times and the least time the
 card could take for the same work; the last line is {"ok": true,
 "device": {...}}.  The smoke fails if JAX or any module of the JAX
-package was imported.  Generated inputs and the kernel build go under
-build/ in the checkout.
+package was imported, and it starts no child that runs or imports the
+JAX package (_host refuses one): every host-side run is the port's host
+route, `python -m mm2_gb_tpu_torch --device cpu` (PORT_HOST, a verbatim
+copy of the JAX package's host path, which the CPU tests hold to the
+JAX package's bytes), so the smoke runs where only the port is.
+Generated inputs and the kernel build go under build/ in the checkout.
 """
 
 from __future__ import annotations
@@ -172,6 +176,8 @@ THREADS = 8
 SKIP_INF = "--max-chain-skip=2147483647"
 # the port's CLI as a subprocess (after the interpreter)
 PORT = ["-m", "mm2_gb_tpu_torch", SKIP_INF, "-t", str(THREADS)]
+# the port's host route: every card-side run's reference and e2e baseline
+PORT_HOST = [sys.executable, "-m", "mm2_gb_tpu_torch", "--device", "cpu"]
 KERNEL_REPS = 3
 CARD = ""           # the card's name and power limit (phase 1)
 N_API = 100         # the flowcell's reads the Python API maps
@@ -1757,9 +1763,19 @@ def _cli(main, argv):
     return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
 
 
+# a -c script's import of the JAX package (not of mm2_gb_tpu_torch)
+_JAX_IMPORT = re.compile(r"(?:^|[\s;])(?:import|from)\s+mm2_gb_tpu(?!\w)")
+
+
 def _host(args, what):
-    """Run Python with args in a subprocess (the JAX package's host path,
-    or a module of the port): stdout."""
+    """Run Python with args in a subprocess (the port's host route,
+    PORT_HOST, or a module of the port): stdout.  An argv that names the
+    JAX package as a module to run (-m) or imports it in a -c script
+    fails the smoke: the card's machine need not have it."""
+    for flag, val in zip(args, args[1:]):
+        if (flag == "-m" and val.partition(".")[0] == "mm2_gb_tpu"
+                or flag == "-c" and _JAX_IMPORT.search(val)):
+            fail(f"{what}: the run would start the JAX package")
     p = subprocess.run([sys.executable, *args], cwd=REPO, text=True,
                        capture_output=True, timeout=600)
     if p.returncode != 0:
@@ -1812,7 +1828,7 @@ def phase3():
 
     ref, reads = flowcell()
     t0 = time.perf_counter()
-    host_out = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-t", str(THREADS), ref,
+    host_out = _host([*PORT_HOST[1:], SKIP_INF, "-t", str(THREADS), ref,
                       reads], "host path on the flowcell")
     log(f"flowcell host path (-t {THREADS}, subprocess): "
         f"{time.perf_counter() - t0:.3f} s, {host_out.count(chr(10))} lines")
@@ -1841,7 +1857,7 @@ def phase3():
 
     # this slice's path: device gap fills behind --gpu-chain --gpu-align -c
     t0 = time.perf_counter()
-    host_c = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-c", "-t", str(THREADS),
+    host_c = _host([*PORT_HOST[1:], SKIP_INF, "-c", "-t", str(THREADS),
                     ref, reads], "host path -c on the flowcell")
     log(f"flowcell host path -c (-t {THREADS}, subprocess): "
         f"{time.perf_counter() - t0:.3f} s, {host_c.count(chr(10))} lines")
@@ -1919,8 +1935,8 @@ def phase3_api(paf, n_reads=N_API):
     grow), and its primary hits (ctg, r_st, r_en, strand, q_st, q_en,
     mapq, NM, mlen, blen, CIGAR) must equal its tp:A:P and tp:A:I lines
     of the card's --gpu-align -c PAF (paf).  The host route
-    (device="cpu", the JAX package's) maps the same reads for its
-    time.  Then two threads map the same reads through the one card
+    (device="cpu", the JAX package's host path) maps the same reads for
+    its time.  Then two threads map the same reads through the one card
     Aligner at once; each thread's hits must equal the single thread's.
     Then four threads map a quarter of the reads each on the host route,
     under the API's route lock and under a plain lock in its place, for
@@ -2186,8 +2202,8 @@ def _gpu_fields(err, what):
 
 def phase3_ultralong():
     """The over50k path: the ultra-long set (ultralong()) mapped on the
-    card, against the JAX package's host path (`python -m mm2_gb_tpu`,
-    a subprocess) at the same flags, byte for byte:
+    card, against the port's host route (PORT_HOST, a subprocess) at the
+    same flags, byte for byte:
 
     - all N_ULTRALONG reads at `-x map-ont --gpu-chain -t 8 --gpu-cfg
       configs/h100_over50k.json -v 3`; at least one segment of the run
@@ -2219,10 +2235,10 @@ def phase3_ultralong():
     reads_c = ultralong(N_ULTRALONG_C)[1]
     cfg = os.path.join(gpucfg.CONFIG_DIR, "h100_over50k.json")
     t0 = time.perf_counter()
-    host = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-x", "map-ont", "-t",
+    host = _host([*PORT_HOST[1:], SKIP_INF, "-x", "map-ont", "-t",
                   str(THREADS), ref, reads], "host path on the ultra-long set")
     t1 = time.perf_counter()
-    host_c = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-c", "-t", str(THREADS),
+    host_c = _host([*PORT_HOST[1:], SKIP_INF, "-c", "-t", str(THREADS),
                     ref, reads_c], "host path -c on the ultra-long set")
     log(f"ultra-long host path (-t {THREADS}, subprocess): {N_ULTRALONG} "
         f"reads {t1 - t0:.3f} s, {host.count(chr(10))} lines; "
@@ -2427,7 +2443,7 @@ def phase3_splice():
     """The splice slice end to end, `--gpu-chain --gpu-align -x splice`:
     byte-identical to the splice40 goldens (with and without --junc-bed)
     and the sim200 -G 8000 golden; on the cDNA set, `-ax splice -t 8`
-    identical to the host path (`python -m mm2_gb_tpu`, a subprocess; all
+    identical to the host route (PORT_HOST, a subprocess; all
     but the @PG line, which holds each side's command), with exts2 and
     intron backtrack launches > 0 and no fill on the host.  Returns the
     cDNA run's (fill, backtrack) launches, its recorded splice calls and
@@ -2462,7 +2478,7 @@ def phase3_splice():
 
     ref, reads = cdna_set()
     t0 = time.perf_counter()
-    host_sam = _host(["-m", "mm2_gb_tpu", SKIP_INF, "-ax", "splice", "-t",
+    host_sam = _host([*PORT_HOST[1:], SKIP_INF, "-ax", "splice", "-t",
                       str(THREADS), ref, reads], "host path on the cDNA set")
     log(f"cDNA host path -ax splice (-t {THREADS}, subprocess): "
         f"{time.perf_counter() - t0:.3f} s, {host_sam.count(chr(10))} lines")
@@ -2751,8 +2767,8 @@ def phase3_qstrand():
     qstrand golden; the no-native-kit route (the whole host layer in
     NumPy) byte-identical to the sim200 --cs -c golden; `--qstrand -c
     -t 8` on a draw of the bench
-    flowcell identical to the host path (`python -m mm2_gb_tpu`, a
-    subprocess), with extension launches > 0, no gap fill on the host and
+    flowcell identical to the host route (PORT_HOST, a subprocess),
+    with extension launches > 0, no gap fill on the host and
     no miss of the device results in the real pass.  Returns the flowcell run's (ext, backtrack-from-starts) launches and
     its recorded extension calls."""
     from mm2_gb_tpu_torch import cli
@@ -2796,7 +2812,7 @@ def phase3_qstrand():
 
     ref, reads = flowcell(N_QSTRAND_CHECK)
     t0 = time.perf_counter()
-    host_q = _host(["-m", "mm2_gb_tpu", SKIP_INF, "--qstrand", "-c", "-t",
+    host_q = _host([*PORT_HOST[1:], SKIP_INF, "--qstrand", "-c", "-t",
                     str(THREADS), ref, reads], "host path --qstrand -c")
     log(f"flowcell ({N_QSTRAND_CHECK} reads) host path --qstrand -c (-t "
         f"{THREADS}, subprocess): {time.perf_counter() - t0:.3f} s, "
@@ -2984,7 +3000,6 @@ def require_host_kit():
     log(f"host kit {native._lib_path()}")
 
 
-JAX_HOST = [sys.executable, "-m", "mm2_gb_tpu"]   # the tie-breaker
 E2E_BEST_OF = 5     # --e2e: timed runs a side
 E2E_BUDGET_S = 1500.0   # --e2e after phase1; run it with a longer limit
 
@@ -3021,17 +3036,15 @@ def e2e_config(tag, extra, ref, reads, n_reads, best_of, **kw):
 def walls():
     """`python3 chip_smoke.py --walls`: the wall of `--gpu-chain
     --gpu-align --qstrand -c -t 8` on the N_QSTRAND-read flowcell draw
-    beside the JAX package's host path at the same flags, through the
-    e2e bench stage (one untimed run a side, then turns host, port,
-    port, host; every output byte-compared; the kernels' share of the
-    port's best wall from its -v 3 lines; both host kits built first)."""
+    beside the port's host route (PORT_HOST) at the same flags, through
+    the e2e bench stage (one untimed run a side, then turns host, card,
+    card, host; every output byte-compared; the kernels' share of the
+    card's best wall from its -v 3 lines; the host kit built first)."""
     phase1()
     require_host_kit()
-    _host(["-c", "from mm2_gb_tpu.utils import native\n"
-           "assert native.available()"], "building the JAX package's kit")
     ref, reads = flowcell(N_QSTRAND)
     e2e_config("qstrand", ["--gpu-chain", "--gpu-align", "--qstrand", "-c"],
-               ref, reads, N_QSTRAND, 2, base_cmd=JAX_HOST)
+               ref, reads, N_QSTRAND, 2, base_cmd=PORT_HOST)
 
 
 def scale_walls():
@@ -3096,24 +3109,24 @@ def e2e_configs():
 
 def e2e_all():
     """`python3 chip_smoke.py --e2e`: every configuration of e2e_configs
-    through the e2e bench stage at -t 8 beside the JAX package's host
-    path (JAX_HOST, a subprocess), E2E_BEST_OF timed runs a side, the
+    through the e2e bench stage at -t 8 beside the port's host route
+    (PORT_HOST, a subprocess), E2E_BEST_OF timed runs a side, the
     phase marks on (MM2TPU_TIMELINE=1): one JSON line each."""
     phase1()
     require_host_kit()
     end = time.perf_counter() + E2E_BUDGET_S
     for tag, extra, ref, reads, n in e2e_configs():
-        e2e_config(tag, extra, ref, reads, n, E2E_BEST_OF, base_cmd=JAX_HOST,
+        e2e_config(tag, extra, ref, reads, n, E2E_BEST_OF, base_cmd=PORT_HOST,
                    remaining=lambda: end - time.perf_counter(),
                    env={"MM2TPU_TIMELINE": "1"})
 
 
 def phase3_e2e():
     """The e2e bench stage on the flowcell at --gpu-chain, two timed runs
-    a side beside the JAX package's host path (JAX_HOST, a subprocess):
+    a side beside the port's host route (PORT_HOST, a subprocess):
     byte-identical, and its record a JSON line."""
     e2e_config("chain", ["--gpu-chain"], *flowcell(), N_READS, 2,
-               base_cmd=JAX_HOST, env={"MM2TPU_TIMELINE": "1"})
+               base_cmd=PORT_HOST, env={"MM2TPU_TIMELINE": "1"})
 
 
 SWEEP_CAPS = (250_000, 500_000, 1_000_000, 4_000_000, 16_000_000)
@@ -3540,8 +3553,8 @@ FUZZ_ASAN_OPTIONS = "protect_shadow_gap=0:detect_leaks=0"
 def fuzz_campaign(seeds):
     """The port's differential campaign (mm2_gb_tpu_torch.tools.fuzz_diff)
     on the card: each seed's `--gpu-chain` run (with `--gpu-align` where
-    its flags align) in this process against the JAX package's host path
-    in a subprocess, byte for byte; returns the campaign and its wall."""
+    its flags align) in this process against the port's host route in a
+    subprocess, byte for byte; returns the campaign and its wall."""
     import torch
     from mm2_gb_tpu_torch.tools import fuzz_diff as F
     t0 = time.perf_counter()

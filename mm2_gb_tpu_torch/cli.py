@@ -5,26 +5,29 @@ Usage:
     python -m mm2_gb_tpu_torch [options] <target.fa> <query.fa> [...]
     python -m mm2_gb_tpu_torch --gpu-chain --max-chain-skip=2147483647 \\
         ref.fa reads.fa > out.paf
+    python -m mm2_gb_tpu_torch --device cpu [options] ref.fa reads.fa
 
 Options are applied in two passes like the reference (main.c:146-160):
 presets (-x) first, explicit flags second.  The parser, the option
 overrides, the usage block and the record writer are copies of the JAX
-package's (mm2_gb_tpu/cli.py).  `main` always maps through
-models.pipeline, which chains on the CUDA device (--gpu-chain is
-implied); a run with no CUDA device fails rather than falling back to
-the CPU.  --gpu-align (the JAX package's --tpu-align) adds the gap fills
-and extensions of -c runs on the device.  The JAX package's scale-out
-flags map as there: --tpu-devices N shards each batch's reads over N
-devices (parallel.mesh), --tpu-nproc/--tpu-rank/--tpu-coord write one
-rank's round-robin share into OUT.shard<rank> for tools/mergeshards.py,
+package's (mm2_gb_tpu/cli.py).  `--device {cuda,cpu}` is the port's own
+flag, read by `main` before the parser sees the arguments.  With
+`--device cuda`, the default, `main` maps through models.pipeline, which
+chains on the CUDA device (--gpu-chain is implied); a run with no CUDA
+device fails rather than falling back to the CPU.  `--device cpu` runs
+the host path of `_run` (models.stream), the JAX package's default
+route, byte for byte, and imports no torch; it takes no device flag.
+--gpu-align (the JAX package's --tpu-align) adds the gap fills and
+extensions of -c runs on the device.  The JAX package's scale-out flags
+map as there: --tpu-devices N shards each batch's reads over N devices
+(parallel.mesh), --tpu-nproc/--tpu-rank/--tpu-coord write one rank's
+round-robin share into OUT.shard<rank> for tools/mergeshards.py,
 --tpu-profile DIR writes a torch.profiler trace of the mapping run, and
 a multi-part index (-I, --split-prefix) maps one single-segment query
 file part by part on the device.  The --gpu-* spellings of these flags
 are accepted too.  Several query files over a multi-part index,
 fragment mode and a prebuilt multi-part index keep the host chaining
-routes (with the JAX package's warnings).  The host path of `_run`
-(models.stream) serves those routes; the tests call `_run` without
---gpu-chain to hold it against the JAX package's.
+routes (with the JAX package's warnings).
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ from mm2_gb_tpu_torch.utils import opts as O
 # the port's spellings of the parser's TPU flags (parse_args)
 _GPU_FLAGS = {f"--gpu-{name}": f"--tpu-{name}" for name in
               ("align", "devices", "nproc", "rank", "coord", "profile")}
+
+# the port's --device flag (main), after the copied usage block
+_DEVICE_USAGE = ("  --device STR   cuda: map on the CUDA card; cpu: the host "
+                 "path, with no device flag [cuda]\n")
 
 _MULTIPART_WARNING = ("[WARNING] --tpu-chain with a multi-part index "
                       "supports one single-segment query file; falling "
@@ -515,15 +522,64 @@ def parse_args(argv: list[str]):
     return argv, build_parser().parse_args(argv)
 
 
+def take_device(argv: list[str]) -> tuple[str, list[str]]:
+    """(device, argv without it): the port's `--device cuda|cpu` (also
+    `--device=X`; the last one given wins), "cuda" when absent.  Raises
+    ValueError on another value or a missing one."""
+    device, rest, i = "cuda", [], 0
+    while i < len(argv):
+        name, eq, val = argv[i].partition("=")
+        if name != "--device":
+            rest.append(argv[i])
+            i += 1
+            continue
+        if not eq:
+            if i + 1 == len(argv):
+                raise ValueError("--device needs a value: cuda or cpu")
+            val = argv[i + 1]
+        i += 1 if eq else 2
+        if val not in ("cuda", "cpu"):
+            raise ValueError(f"--device takes cuda or cpu, not '{val}'")
+        device = val
+    return device, rest
+
+
+def device_flags(argv: list[str]) -> list[str]:
+    """The device flags (the parser's --tpu-* options) that argv gives,
+    in their --gpu-* spelling: by name or prefix, at any value, the
+    default included."""
+    p = build_parser()
+    dests = [d for d in vars(p.parse_args(argv)) if d.startswith("tpu_")]
+    p.set_defaults(**dict.fromkeys(dests))
+    args = p.parse_args(argv)
+    return ["--gpu-" + d[4:].replace("_", "-") for d in dests
+            if getattr(args, d) is not None]
+
+
 def main(argv: list[str] | None = None) -> int:
-    """The port's entry point: it maps on the CUDA device, as if
-    --gpu-chain were given (`python -m mm2_gb_tpu` maps on the host)."""
+    """The port's entry point.  `--device cuda` (the default) maps on the
+    CUDA device, as if --gpu-chain were given; `--device cpu` runs the
+    host path, the JAX package's default route, and refuses the device
+    flags (device_flags)."""
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if not argv:  # reference-style usage block (main.c:475-530)
-        sys.stderr.write(_USAGE.replace("%%", "%"))
+        sys.stderr.write(_USAGE.replace("%%", "%") + _DEVICE_USAGE)
+        return 1
+    try:
+        device, argv = take_device(argv)
+    except ValueError as e:
+        sys.stderr.write(f"[ERROR] {e}\n")
         return 1
     argv, args = parse_args(argv)
-    args.tpu_chain = True
+    if device == "cpu":
+        given = device_flags(argv)
+        if given:
+            sys.stderr.write("[ERROR] --device cpu maps on the host and "
+                             "takes no device flag: "
+                             f"{', '.join(given)}\n")
+            return 1
+    else:
+        args.tpu_chain = True
     try:
         io, mo = O.set_preset(args.preset)
     except ValueError as e:
@@ -563,8 +619,8 @@ def _run(args, argv, io, mo, device="cuda") -> int:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             sys.stderr.write("[ERROR] mm2_gb_tpu_torch needs a CUDA device "
-                             "and PyTorch sees none; `python -m "
-                             "mm2_gb_tpu` maps on the host.\n")
+                             "and PyTorch sees none; `--device cpu` maps "
+                             "on the host.\n")
             return 1
         if args.tpu_nproc > 1:
             device = rank_device(device, args.tpu_rank)

@@ -1,6 +1,6 @@
 """Randomized differential campaign of the port: random read profiles x
-random flag subsets, the port's `--gpu-chain` run path against the JAX
-package's host path, byte-diff everything.
+random flag subsets, the port's `--gpu-chain` run path against the
+port's host route, byte-diff everything.
 
     python -m mm2_gb_tpu_torch.tools.fuzz_diff N SEED0 [--work DIR]
         [--ref-cmd CMD] [--device cuda|cpu]
@@ -31,12 +31,14 @@ The device side runs in this process through `cli.parse_args` and
 --tpu-chain/--tpu-align, plus --gpu-chain, and --gpu-align whenever they
 align (-c, -a, --cs, --MD, --eqx, -Y).  `device` is the CUDA card unless
 the caller asks for the CPU (the kernels' plain twins).  The reference side
-is `python -m mm2_gb_tpu` (the JAX package's host path, which imports no
-JAX) in a subprocess from the repository's root, with the same flags
-without any --gpu-*/--tpu-* and --max-chain-skip=2147483647, or --ref-cmd
-(such as a minimap2 binary); LD_PRELOAD, ASAN_OPTIONS and
-MM2TPU_NATIVE_LIB are not passed on to it.  Up to REF_AHEAD reference
-runs go ahead of the device side.
+is `python -m mm2_gb_tpu_torch --device cpu` (REF_CMD: the port's host
+route, a verbatim copy of the JAX package's host path, whose bytes the
+tests hold to the JAX package's) in a subprocess from the repository's
+root, with the same flags without any --gpu-*/--tpu-* and
+--max-chain-skip=2147483647, or --ref-cmd (such as a minimap2 binary, or
+the JAX package's host path on a machine that has it); LD_PRELOAD,
+ASAN_OPTIONS and MM2TPU_NATIVE_LIB are not passed on to it.  Up to
+REF_AHEAD reference runs go ahead of the device side.
 
 A seed matches when both sides exit 0 and their stdout is equal byte for
 byte, @PG lines aside.  Each seed prints one `ok`/`FAIL` line with its
@@ -76,7 +78,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 WORK = os.path.join(REPO, "build", "fuzz")
 SKIP_INF = "--max-chain-skip=2147483647"
-REF_CMD = [sys.executable, "-m", "mm2_gb_tpu"]
+REF_CMD = [sys.executable, "-m", "mm2_gb_tpu_torch", "--device", "cpu"]
 KINDS = ("genomic", "splice", "pe", "long")
 KIND_WEIGHTS = (0.6, 0.25, 0.15, 0.05)
 THREADS = (1, 4, 8)
@@ -599,16 +601,20 @@ def campaign(seeds, device, work=WORK, ref_cmd=None, scale=1, out=None,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m mm2_gb_tpu_torch.tools.fuzz_diff",
-        description="the port's --gpu-chain run path against the JAX "
-                    "package's host path on seeded workloads")
+        description="the port's --gpu-chain run path against its host "
+                    "route on seeded workloads")
     p.add_argument("n", type=int, nargs="?", default=20)
     p.add_argument("seed0", type=int, nargs="?", default=1000)
     p.add_argument("--work", default=WORK)
     p.add_argument("--ref-cmd", default=None,
                    help="the reference command (default: python -m "
-                        "mm2_gb_tpu from the repository's root)")
+                        "mm2_gb_tpu_torch --device cpu, the port's host "
+                        "route, from the repository's root)")
     p.add_argument("--device", default="cuda",
-                   help="the device side's device (cpu: the twins)")
+                   help="the device side's device: cuda, or cpu for the "
+                        "same device route on the kernels' plain twins "
+                        "(not the CLI's --device cpu: the reference side "
+                        "is the host route either way)")
     a = p.parse_args(argv)
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -5,11 +5,12 @@ around it).
 A configuration is a tag and the CLI flags it adds (`extra`).  Its card
 side is `python -m mm2_gb_tpu_torch`, which maps on the card (the CLI's
 default device; nothing here falls back to the CPU), at -v 3; its
-baseline is a command prefix the caller passes, such as the JAX
-package's host path (`python -m mm2_gb_tpu`), whose bytes the port's
-must equal.  Both run as
-subprocesses from the repository's root on the same reference, reads,
---max-chain-skip=2147483647 and -t; the baseline gets every flag of
+baseline is a command prefix, by default the port's host route
+(HOST_CMD, `python -m mm2_gb_tpu_torch --device cpu`, the JAX package's
+host path copied verbatim), whose bytes the card side's must equal.
+The record names the baseline's command (e2e_<tag>_base_cmd).  Both
+run as subprocesses from the repository's root on the same reference,
+reads, --max-chain-skip=2147483647 and -t; the baseline gets every flag of
 `extra` but the device flags (DEVICE_FLAGS), so -c, -a, -x and
 --qstrand reach both sides.
 
@@ -52,6 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BASE_FLAGS = ["--max-chain-skip=2147483647"]
 CARD_CMD = [sys.executable, "-m", "mm2_gb_tpu_torch"]
+HOST_CMD = [*CARD_CMD, "--device", "cpu"]
 RUN_TIMEOUT_S = 900.0   # one run's limit (the budget may cut it sooner)
 # the flags that choose the device route, and whether each takes a value
 DEVICE_FLAGS = {
@@ -184,15 +186,17 @@ def _summary(walls: list[float]) -> dict:
 
 
 def run_config(tag: str, extra: list[str], ref: str, reads: str,
-               n_reads: int, threads: int = 1, *, base_cmd: list[str],
+               n_reads: int, threads: int = 1, *,
+               base_cmd: list[str] | None = None,
                remaining=lambda: math.inf, best_of: int = 4,
                cmd: list[str] | None = None,
                env: dict | None = None) -> dict:
     """Time one configuration, card side (cmd, default CARD_CMD, with
-    extra) against the baseline (base_cmd, with host_flags(extra)),
-    under the module's rep policy: a flat dict of e2e_<tag>_* fields
-    (the baseline's walls as base_*)."""
+    extra) against the baseline (base_cmd, default HOST_CMD, with
+    host_flags(extra)), under the module's rep policy: a flat dict of
+    e2e_<tag>_* fields (the baseline's walls as base_*)."""
     p = f"e2e_{tag}_"
+    base_cmd = base_cmd or HOST_CMD
     tail = ["-t", str(threads), ref, reads]
     argv = {"base": [*base_cmd, *BASE_FLAGS,
                      *host_flags(extra), *tail],
@@ -200,7 +204,9 @@ def run_config(tag: str, extra: list[str], ref: str, reads: str,
                      *tail]}
     out: dict = {p + "flags": " ".join(extra), p + "threads": threads,
                  p + "n_reads": n_reads, p + "best_of": best_of,
-                 p + "base": " ".join(argv["base"][1:-len(tail)])}
+                 p + "base": " ".join(argv["base"][1:-len(tail)]),
+                 p + "base_cmd": " ".join([os.path.basename(base_cmd[0]),
+                                           *base_cmd[1:]])}
     run_env = dict(os.environ, **(env or {}))
     runs: dict = {"base": [], "card": []}   # timed runs: (wall, stderr)
     want = None

@@ -139,13 +139,14 @@ def test_gpu_run_multipart_routes(capsys, tmp_path):
 
 def test_main_takes_the_card_without_gpu_chain(monkeypatch, capsys):
     """The entry point maps on the CUDA device with or without
-    --gpu-chain: with no card it exits 1 and maps nothing on the host."""
+    --gpu-chain: with no card it exits 1, names the host route
+    (`--device cpu`) and maps nothing on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = cli.main([SKIP_INF, golden_path("simref.fa.gz"),
                    golden_path("simreads.fa.gz")])
     assert rc == 1
     cap = capsys.readouterr()
-    assert "needs a CUDA device" in cap.err and "mm2_gb_tpu`" in cap.err
+    assert "needs a CUDA device" in cap.err and "`--device cpu`" in cap.err
     assert cap.out == ""
 
 

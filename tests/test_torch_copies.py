@@ -111,8 +111,9 @@ def _defs(path):
 
 def _sanitized_run(sanitizer, env_extra=()):
     """Build the port's host kit with the sanitizer and map sim200 with it
-    on the host path (--cs -c at --max-chain-skip=2147483647) in a child,
-    the sanitizer's runtime preloaded: the child's CompletedProcess."""
+    on the host route (`cli.main` with --device cpu, --cs -c at
+    --max-chain-skip=2147483647) in a child, the sanitizer's runtime
+    preloaded: the child's CompletedProcess."""
     from mm2_gb_tpu_torch.utils import native
     lib = native.build_sanitized(sanitizer)
     assert lib and os.path.dirname(lib) == native.BUILD_DIR
@@ -124,11 +125,9 @@ def _sanitized_run(sanitizer, env_extra=()):
     child = (
         "import sys\n"
         "from mm2_gb_tpu_torch import cli\n"
-        "from mm2_gb_tpu_torch.utils import native, opts\n"
+        "from mm2_gb_tpu_torch.utils import native\n"
         "assert native._lib_path() == sys.argv[1] and native.available()\n"
-        "argv, args = cli.parse_args(sys.argv[2:])\n"
-        "io_, mo = opts.set_preset(args.preset)\n"
-        "sys.exit(cli._run(args, argv, io_, mo))\n")
+        "sys.exit(cli.main(['--device', 'cpu', *sys.argv[2:]]))\n")
     env = dict(os.environ, MM2TPU_NATIVE_LIB=lib, LD_PRELOAD=runtime,
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""),

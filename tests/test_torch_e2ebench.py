@@ -7,12 +7,15 @@ from scripted walls, the byte comparison of every run (SAM without
 @PG), a failed or timed-out run that ends the configuration, and a
 budget that runs out.  The report parser reads what the port's own
 GpuMetrics.report and timeline.mark write, so a change of their format
-fails here.  Two cases run real subprocesses: the port's host path
-against itself on the sim200 inputs, and the card side without a card.
+fails here.  Two cases run real subprocesses: the port's host route
+(HOST_CMD, `python -m mm2_gb_tpu_torch --device cpu`) against itself on
+the sim200 inputs, and the card side without a card beside the default
+baseline.
 """
 
 import contextlib
 import io
+import os
 import subprocess
 import sys
 import types
@@ -26,14 +29,6 @@ from mm2_gb_tpu_torch.utils import timeline
 from tests.conftest import golden_path
 
 BASE, CARD = ["BASE"], ["CARD"]
-# the port's host path as a command: its CLI's run without --gpu-chain
-PORT_HOST = [sys.executable, "-c", (
-    "import sys\n"
-    "from mm2_gb_tpu_torch import cli\n"
-    "from mm2_gb_tpu_torch.utils import opts\n"
-    "argv, args = cli.parse_args(sys.argv[1:])\n"
-    "io, mo = opts.set_preset(args.preset)\n"
-    "sys.exit(cli._run(args, argv, io, mo))\n")]
 PAF = "r1\t100\t0\t100\t+\tchr\t1000\t0\t100\t100\t100\t60\n"
 
 
@@ -351,30 +346,35 @@ def test_host_flags(extra, want):
 
 
 def test_the_host_path_against_itself_on_sim200():
-    """Real subprocesses: the port's host path (PORT_HOST) on both sides,
+    """Real subprocesses: the port's host route (HOST_CMD) on both sides,
     sim200 at --cs -c: every run byte-identical, each side's two walls
     recorded, and no [M::gpu] field (the host path prints none)."""
     out = E.run_config("host", ["--cs", "-c"], golden_path("simref.fa.gz"),
                        golden_path("simreads.fa.gz"), 200, 1,
-                       base_cmd=PORT_HOST, best_of=2, cmd=PORT_HOST)
+                       base_cmd=E.HOST_CMD, best_of=2, cmd=E.HOST_CMD)
     assert "e2e_host_error" not in out and "e2e_host_incomplete" not in out
     assert out["e2e_host_byte_match"] is True
     assert len(out["e2e_host_walls_s"]) == len(out["e2e_host_base_walls_s"]) \
         == 2
     assert out["e2e_host_wall_s"] > 0 and "e2e_host_kernel_s" not in out
-    assert out["e2e_host_base"].endswith(" --max-chain-skip=2147483647 "
-                                         "--cs -c")
+    assert out["e2e_host_base"] == ("-m mm2_gb_tpu_torch --device cpu "
+                                    "--max-chain-skip=2147483647 --cs -c")
+    assert out["e2e_host_base_cmd"] == (os.path.basename(sys.executable)
+                                        + " -m mm2_gb_tpu_torch --device cpu")
 
 
 def test_the_card_side_does_not_fall_back_to_the_cpu():
     """The card side is the port's CLI on its default device: where it
     sees no card (CUDA_VISIBLE_DEVICES empty) it exits 1, and the
     configuration ends with that error after the baseline's untimed run
-    and the card side's first, with no timed run."""
+    and the card side's first, with no timed run.  The baseline is the
+    default, the port's host route, which runs without a card."""
+    assert E.HOST_CMD == [*E.CARD_CMD, "--device", "cpu"]
     out = E.run_config("dev", ["--gpu-chain"], golden_path("simref.fa.gz"),
-                       golden_path("simreads.fa.gz"), 200,
-                       base_cmd=PORT_HOST, best_of=1,
+                       golden_path("simreads.fa.gz"), 200, best_of=1,
                        env={"CUDA_VISIBLE_DEVICES": ""})
     assert out["e2e_dev_error"].startswith("card run exited 1")
     assert "needs a CUDA device" in out["e2e_dev_error"]
+    assert out["e2e_dev_base"].startswith("-m mm2_gb_tpu_torch --device cpu ")
+    assert out["e2e_dev_byte_match"] is True   # the baseline's own run
     assert "e2e_dev_wall_s" not in out and "e2e_dev_base_wall_s" not in out

@@ -5,9 +5,9 @@ JAX package's tests import it).  The child blocks every `jax` and every
 `mm2_gb_tpu` import (the name, or the prefix `mm2_gb_tpu.`; the port's
 `mm2_gb_tpu_torch` passes), then imports each module of
 mm2_gb_tpu_torch, maps reads through the GPU pipeline on CPU tensors,
-through the CLI's host path and through the CLI's `--gpu-chain
---gpu-align -c` run path on CPU tensors, for the default preset, for
-`-x splice` (the exts2 fills) and for `--qstrand` (the Python fill
+through the CLI's host route (`--device cpu`) and through the CLI's
+`--gpu-chain --gpu-align -c` run path on CPU tensors, for the default
+preset, for `-x splice` (the exts2 fills) and for `--qstrand` (the Python fill
 session's gap fills and extensions), and runs the two ranks of a
 `--tpu-nproc 2` run and the port's mergeshards, and runs the device side
 of a seed of the port's fuzzer.  A static check reads
@@ -71,10 +71,8 @@ out = map_batch_gpu(index, mo, [SeqRecord(i, n, s)
 assert sum(len(regs) for _, regs in out) >= 3
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
-    argv, args = cli.parse_args(["--max-chain-skip=2147483647", sys.argv[1],
-                                 sys.argv[2]])
-    io_, mo = O.set_preset(args.preset)
-    assert cli._run(args, argv, io_, mo) == 0
+    assert cli.main(["--device", "cpu", "--max-chain-skip=2147483647",
+                     sys.argv[1], sys.argv[2]]) == 0
 assert buf.getvalue().count("\n") > 100
 
 import os, tempfile, torch
