@@ -6,11 +6,13 @@
     python3 chip_smoke.py --scale-walls  # two devices, two ranks vs one
     python3 chip_smoke.py --e2e      # the e2e bench stage: every config
     python3 chip_smoke.py --ultralong  # the ultra-long mapping phase alone
+    python3 chip_smoke.py --ava      # the all-vs-all overlap phase alone
     python3 chip_smoke.py --cfg-sweep  # max_anchors_batch sweep, two sets
     python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
     python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
     python3 chip_smoke.py --fuzz N SEED0      # the fuzz campaign alone
     python3 chip_smoke.py --fuzz-asan K SEED0  # genomic -c seeds, asan kit
+    python3 chip_smoke.py --fuzz-ava N SEED0   # ava seeds: none may be empty
 
 Run from the root of a checkout, on a machine with a CUDA GPU, nvcc and
 a CUDA build of PyTorch.  Phases (any failure exits non-zero):
@@ -104,6 +106,13 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    host oracle (chain_scores_host) read by read, the longest
    block_global segment to the twin alone, the -c run's fill and
    backtrack launches to the twins;
+   Then all-vs-all overlap (phase3_ava): the flowcell's 600 reads
+   against themselves at `-x ava-ont --gpu-chain` byte-identical to the
+   port's host route, the PAF not empty and no line breaking the
+   overlap filters (a query name after its target name, a read against
+   itself on the diagonal), every batch chained by the kernel (none on
+   the host), every launch equal to the host oracle and to its re-run,
+   the smallest launch to the twin;
 4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
    the inputs it was given, re-run and held against its recorded result
    and against its twin, exact, and both timed (CUDA events; a kernel's
@@ -122,13 +131,16 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    extensions are each held against one twin run over all of their
    fills.
 5. the differential campaign of mm2_gb_tpu_torch.tools.fuzz_diff on
-   seeds FUZZ_SEED0 .. FUZZ_SEED0+N_FUZZ-1 (genomic, splice, paired-end
-   and long-read workloads under random flag sets, each at a drawn -t):
-   every seed's `--gpu-chain` run (with `--gpu-align` where its flags
-   align) in this process byte-identical to the port's host route in a
-   subprocess, both exiting 0, and the chain kernel, the genomic and
+   FUZZ_SEEDS, the fewest of its seeds 1000-1063 that reach all that
+   the 64 did (`--fuzz N SEED0` runs the whole campaign): every seed's
+   `--gpu-chain` run (with `--gpu-align` where its flags align) in this
+   process byte-identical to the port's host route in a subprocess,
+   both exiting 0; and, between them, the chain kernel, the genomic and
    splice fill kernels and the backtrack in its genomic and intron modes
-   launched through the CLI; its counts are a JSON line of their own.
+   launched through the CLI, every launch class of the chain and fill
+   kernels, every kind the seeds draw, frag mode's host chaining, an
+   HPC and an RMQ batch on the host, and SAM output (fuzz_missing); its
+   counts are a JSON line of their own.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, its error against the twin, both times and the least time the
@@ -2200,14 +2212,93 @@ def _gpu_fields(err, what):
     return fields
 
 
+def card_chain_run(label, flags, ref, reads, card_flags=()):
+    """One `--gpu-chain` run on the card through cli.main in this process
+    (flags and card_flags, -t THREADS -v 3, ref, reads) against the
+    port's host route (PORT_HOST, a subprocess) at flags, byte for byte,
+    with every chain batch and launch recorded (recording_chain).  Logs
+    the run's reads, anchors, segments, batches, launches, host-routed
+    batches, work segments per class, chain kernel time and pairs, the
+    allocator's peak per anchor of the largest batch and both walls,
+    beside the card's name and power limit.  Fails if the run exits
+    non-zero or differs from the host route, if it launched no chain
+    kernel or launched without recording, or if a batch went to the host
+    (HPC or RMQ).  A --gpu-cfg among card_flags holds for this run
+    alone.  Returns a namespace: out, host_s, wall, m (the `-v 3`
+    report), batches, calls (the recorded launches [(args, kw, f, p)]),
+    classes (work segments per class), peak (allocator bytes above what
+    was held before the run), big (the largest batch's anchors) and
+    launches."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    import torch
+    from mm2_gb_tpu_torch import cli
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    from mm2_gb_tpu_torch.utils import gpucfg
+    t0 = time.perf_counter()
+    host = _host([*PORT_HOST[1:], SKIP_INF, *flags, "-t", str(THREADS),
+                  ref, reads], f"host path on {label}")
+    host_s = time.perf_counter() - t0
+    # --gpu-cfg installs its caps for the process: restored after the run
+    saved = gpucfg.current_config()
+    classes0 = Counter(G.launch_classes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # earlier phases' tensors
+    try:
+        with recording_chain() as batches:
+            G.launches = 0
+            rc, out, err, wall = _cli(cli.main, [
+                "--gpu-chain", SKIP_INF, *flags, *card_flags, "-t",
+                str(THREADS), "-v", "3", ref, reads])
+            launches = G.launches
+    finally:
+        gpucfg.apply_gpu_config(saved)
+    peak = torch.cuda.max_memory_allocated() - held
+    classes = {c: n for (k, c), n in (G.launch_classes - classes0).items()
+               if k == "chain_segments"}
+    if rc != 0:
+        sys.stderr.write(err[-3000:])
+        fail(f"--gpu-chain on {label}")
+    m = _gpu_fields(err, f"the --gpu-chain run on {label}")
+    calls = [c for _b, c in batches if c is not None]
+    big = max(b[0][0].shape[0] for b in batches)
+    same = out == host
+    log(f"{label} --gpu-chain ({CARD}; -t {THREADS}, in process): "
+        f"{wall:.3f} s (host route {host_s:.3f} s, a subprocess, "
+        f"{host.count(chr(10))} lines), {m['reads']} reads, "
+        f"{m['anchors']} anchors, {m['segments']} segments "
+        f"({m['segments'] / max(m['reads'], 1):.1f} per read) in "
+        f"{m['batches']} chain batches ({m['cap_split']} cap-split, largest "
+        f"{big} anchors), launches {launches}, host-routed batches "
+        f"{m['host_hpc_batches']} HPC, {m['host_rmq_batches']} RMQ; work "
+        f"segments per class "
+        + ", ".join(f"{c} {classes.get(c, 0)}" for c in
+                    ("warp", "group", "block", "block_global"))
+        + f"; chain kernel {m['chain_kernel_s'] * 1e3:.3f} ms over "
+        f"{m['pairs']} pairs ({m['chain_gpairs_s']:.3f} Gpairs/s); "
+        f"allocator peak {peak} B above what was held before the run "
+        f"({peak / big:.1f} B per anchor of the largest batch; "
+        f"BYTES_PER_ANCHOR {gpucfg.BYTES_PER_ANCHOR}); byte-identical to "
+        f"the host path {same}")
+    if (not same or launches == 0 or len(calls) != launches
+            or m["host_hpc_batches"] or m["host_rmq_batches"]):
+        fail(f"the --gpu-chain run on {label}")
+    return SimpleNamespace(out=out, host_s=host_s, wall=wall, m=m,
+                           batches=batches, calls=calls, classes=classes,
+                           peak=peak, big=big, launches=launches)
+
+
 def phase3_ultralong():
     """The over50k path: the ultra-long set (ultralong()) mapped on the
     card, against the port's host route (PORT_HOST, a subprocess) at the
     same flags, byte for byte:
 
     - all N_ULTRALONG reads at `-x map-ont --gpu-chain -t 8 --gpu-cfg
-      configs/h100_over50k.json -v 3`; at least one segment of the run
-      must read its window from global memory (block_global);
+      configs/h100_over50k.json -v 3` (card_chain_run); at least one
+      segment of the run must read its window from global memory
+      (block_global);
     - the first N_ULTRALONG_C reads at `--gpu-chain --gpu-align -c`.
 
     Every chain launch of both runs is held against the host oracle
@@ -2223,10 +2314,7 @@ def phase3_ultralong():
     Returns {"chain": (launches, the recorded launches [(args, kw, f,
     p)], max_abs_err, kernel ms), "fills": the recorded fill launches, "fill": (launches,
     max_abs_err, ms, twin ms), "backtrack": (launches, ms, twin ms)}."""
-    from collections import Counter
-
     import numpy as np
-    import torch
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import chain_gpu as G
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
@@ -2234,59 +2322,16 @@ def phase3_ultralong():
     ref, reads = ultralong()
     reads_c = ultralong(N_ULTRALONG_C)[1]
     cfg = os.path.join(gpucfg.CONFIG_DIR, "h100_over50k.json")
+    r = card_chain_run("ultra-long -x map-ont --gpu-cfg h100_over50k.json",
+                       ["-x", "map-ont"], ref, reads, ["--gpu-cfg", cfg])
+    launches, batches, calls, classes = (r.launches, r.batches, r.calls,
+                                         r.classes)
     t0 = time.perf_counter()
-    host = _host([*PORT_HOST[1:], SKIP_INF, "-x", "map-ont", "-t",
-                  str(THREADS), ref, reads], "host path on the ultra-long set")
-    t1 = time.perf_counter()
     host_c = _host([*PORT_HOST[1:], SKIP_INF, "-c", "-t", str(THREADS),
                     ref, reads_c], "host path -c on the ultra-long set")
-    log(f"ultra-long host path (-t {THREADS}, subprocess): {N_ULTRALONG} "
-        f"reads {t1 - t0:.3f} s, {host.count(chr(10))} lines; "
-        f"{N_ULTRALONG_C} reads -c {time.perf_counter() - t1:.3f} s, "
+    log(f"ultra-long host path -c (-t {THREADS}, subprocess): "
+        f"{N_ULTRALONG_C} reads {time.perf_counter() - t0:.3f} s, "
         f"{host_c.count(chr(10))} lines")
-
-    # --gpu-cfg installs its caps for the process: restored after the run
-    saved = gpucfg.current_config()
-    classes0 = Counter(G.launch_classes)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()   # earlier phases' tensors
-    try:
-        with recording_chain() as batches:
-            G.launches = 0
-            rc, out, err, wall = _cli(cli.main, [
-                "--gpu-chain", SKIP_INF, "-x", "map-ont", "-t", str(THREADS),
-                "--gpu-cfg", cfg, "-v", "3", ref, reads])
-            launches = G.launches
-    finally:
-        gpucfg.apply_gpu_config(saved)
-    peak = torch.cuda.max_memory_allocated() - held
-    classes = {c: n for (k, c), n in (G.launch_classes - classes0).items()
-               if k == "chain_segments"}
-    if rc != 0:
-        sys.stderr.write(err[-3000:])
-        fail("--gpu-chain on the ultra-long set")
-    m = _gpu_fields(err, "the ultra-long --gpu-chain run")
-    calls = [c for _b, c in batches if c is not None]
-    big = max(b[0][0].shape[0] for b in batches)
-    same = out == host
-    log(f"ultra-long --gpu-chain -x map-ont --gpu-cfg h100_over50k.json "
-        f"({CARD}; -t {THREADS}, in process): {wall:.3f} s, {m['reads']} "
-        f"reads, {m['anchors']} anchors, {m['segments']} segments in "
-        f"{m['batches']} chain batches ({m['cap_split']} cap-split, "
-        f"largest {big} anchors), launches {launches}, host-routed "
-        f"batches {m['host_hpc_batches']}; segments per class "
-        + ", ".join(f"{c} {classes.get(c, 0)}" for c in
-                    ("warp", "group", "block", "block_global"))
-        + f"; chain kernel {m['chain_kernel_s'] * 1e3:.3f} ms over "
-        f"{m['pairs']} pairs ({m['chain_gpairs_s']:.3f} Gpairs/s); "
-        f"allocator peak {peak} B above what was held before the run "
-        f"({peak / big:.1f} B per anchor of the "
-        f"largest batch; BYTES_PER_ANCHOR {gpucfg.BYTES_PER_ANCHOR}); "
-        f"byte-identical to the host path {same}")
-    if (not same or launches == 0 or m["host_hpc_batches"]
-            or len(calls) != launches):
-        fail("the ultra-long --gpu-chain run")
 
     ql = tl = np.zeros(0, np.int64)
     G.launches = K.fill_launches = K.backtrack_launches = 0
@@ -2362,6 +2407,76 @@ def phase3_ultralong():
              "its twin or its recorded result")
     return dict(chain=(launches + counts[0], calls, err, ms), fills=fcalls,
                 fill=(counts[1], fe, fms, fpl), backtrack=(counts[2], bms, bpl))
+
+
+AVA_FLAGS = ["-x", "ava-ont"]   # the overlap run: reads against themselves
+
+
+def phase3_ava():
+    """All-vs-all overlap on the card: the flowcell's N_READS reads
+    (flowcell()) as both target and query at `-x ava-ont --gpu-chain -t
+    8 -v 3` through cli.main in this process, against the port's host
+    route (PORT_HOST, a subprocess) at the same flags, byte for byte
+    (card_chain_run).  The run fails if the PAF is empty, if a line breaks the overlap
+    filters (fuzz_diff.ava_order_faults: a query name after its target
+    name, or a read against itself on the diagonal), if a batch went to
+    the host (HPC or RMQ) or took no chain launch, or if a launch
+    differs from the host oracle (hold_chain_oracle) or from its re-run
+    on its recorded operands (hold_chain_calls, KERNEL_REPS each); the
+    twin runs on the smallest launch alone.  Prints the anchors,
+    batches, segments (per read and per class), the longest segment and
+    widest range, each launch's ms, pairs and rate, the launches' ms
+    beside their bound, the allocator's peak per anchor of the largest
+    batch, PAF lines and distinct read pairs and both walls, beside the
+    card's name and power limit, and the launches' record as a JSON
+    line.  Returns (launches, the recorded launches [(args, kw, f, p)],
+    max_abs_err, kernel ms, twin ms)."""
+    from mm2_gb_tpu_torch.tools import fuzz_diff as F
+    _ref, reads = flowcell()
+    r = card_chain_run("the flowcell's reads against themselves, -x ava-ont",
+                       AVA_FLAGS, reads, reads)
+    m, batches, calls = r.m, r.batches, r.calls
+    works = [c[1]["shape"].work.cpu() for c in calls]
+    longest = max(int((w[:, 1] - w[:, 0]).max()) for w in works)
+    widest = max(int(w[:, 2].max()) for w in works)
+    lines = r.out.splitlines()
+    pairs = {tuple(line.split("\t")[0:6:5]) for line in lines}
+    faults = F.ava_order_faults(r.out)
+    log(f"ava: longest segment {longest} anchors, widest range {widest}; "
+        f"{len(lines)} PAF lines, {len(pairs)} distinct read pairs, "
+        f"{len(faults)} breaking the overlap filters; stages (-v 3): "
+        + ", ".join(f"{k[:-2].replace('_', '-')} {m[k]:.3f} s" for k in (
+            "seed_s", "range_s", "pack_s", "dispatch_s", "device_wait_s",
+            "finish_s", "pipeline_wall_s")))
+    if faults:
+        log("first line that breaks the overlap filters: " + faults[0])
+    if not lines or faults or r.launches != m["batches"]:
+        fail("the -x ava-ont --gpu-chain run")
+
+    e_or, n_or, t_or = hold_chain_oracle(batches)
+    log(f"ava chain launches == chain_scores_host: {len(calls)} launches, "
+        f"{n_or} anchors, max_abs_err {e_or} ({t_or:.1f} s on {THREADS} "
+        f"threads)")
+    small = min(range(len(calls)), key=lambda i: calls[i][0][0].shape[0])
+    e_k, ms, plain_ms = hold_chain_calls(calls, "ava", {small})
+    b_ms, b_by = chain_bound(calls)
+    log(f"ava chain launches ({CARD}): kernel {ms:.3f} ms over "
+        f"{len(calls)} launches (median of {KERNEL_REPS} each); bound "
+        f"{b_ms:.4f} ms by {b_by}; twin on launch {small} {plain_ms:.3f} ms")
+    err = max(e_or, e_k)
+    print(json.dumps({"ava_chain": {
+        "card": CARD, "launches": len(calls), "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "anchors": m["anchors"], "segments": m["segments"],
+        "pairs": m["pairs"], "classes": r.classes,
+        "longest_anchors": longest, "widest_range": widest,
+        "paf_lines": len(lines), "read_pairs": len(pairs), "wall_s": r.wall,
+        "host_wall_s": r.host_s}}),
+        flush=True)
+    if err:
+        fail("an ava chain launch differs from the oracle, its twin or its "
+             "recorded result")
+    return r.launches, calls, err, ms, plain_ms
 
 
 def phase3_tools(paf):
@@ -3000,7 +3115,7 @@ def require_host_kit():
     log(f"host kit {native._lib_path()}")
 
 
-E2E_BEST_OF = 5     # --e2e: timed runs a side
+E2E_BEST_OF = 5     # --e2e: timed runs a side (e2e_configs)
 E2E_BUDGET_S = 1500.0   # --e2e after phase1; run it with a longer limit
 
 
@@ -3093,30 +3208,34 @@ def scale_walls():
 
 def e2e_configs():
     """The configurations of PERF.md section 4 for the e2e bench stage:
-    (tag, flags, ref, reads, reads' count)."""
+    (tag, flags, ref, reads, reads' count, timed runs a side).  The
+    sixth, ava, maps the flowcell's reads against themselves (all-vs-all
+    overlap), two timed runs a side: its runs are the longest."""
     from mm2_gb_tpu_torch.utils import gpucfg
     fc = flowcell()
-    return [("chain", ["--gpu-chain"], *fc, N_READS),
-            ("align", ["--gpu-chain", "--gpu-align", "-c"], *fc, N_READS),
+    return [("chain", ["--gpu-chain"], *fc, N_READS, E2E_BEST_OF),
+            ("align", ["--gpu-chain", "--gpu-align", "-c"], *fc, N_READS,
+             E2E_BEST_OF),
             ("qstrand", ["--gpu-chain", "--gpu-align", "--qstrand", "-c"],
-             *flowcell(N_QSTRAND_CHECK), N_QSTRAND_CHECK),
+             *flowcell(N_QSTRAND_CHECK), N_QSTRAND_CHECK, E2E_BEST_OF),
             ("cdna", ["-ax", "splice", "--gpu-chain", "--gpu-align"],
-             *cdna_set(), N_CDNA),
+             *cdna_set(), N_CDNA, E2E_BEST_OF),
             ("ultralong", ["--gpu-chain", "--gpu-cfg", os.path.join(
                 gpucfg.CONFIG_DIR, "h100_over50k.json")], *ultralong(),
-             N_ULTRALONG)]
+             N_ULTRALONG, E2E_BEST_OF),
+            ("ava", [*AVA_FLAGS, "--gpu-chain"], fc[1], fc[1], N_READS, 2)]
 
 
 def e2e_all():
     """`python3 chip_smoke.py --e2e`: every configuration of e2e_configs
     through the e2e bench stage at -t 8 beside the port's host route
-    (PORT_HOST, a subprocess), E2E_BEST_OF timed runs a side, the
-    phase marks on (MM2TPU_TIMELINE=1): one JSON line each."""
+    (PORT_HOST, a subprocess), at its timed runs a side, the phase marks
+    on (MM2TPU_TIMELINE=1): one JSON line each."""
     phase1()
     require_host_kit()
     end = time.perf_counter() + E2E_BUDGET_S
-    for tag, extra, ref, reads, n in e2e_configs():
-        e2e_config(tag, extra, ref, reads, n, E2E_BEST_OF, base_cmd=PORT_HOST,
+    for tag, extra, ref, reads, n, best_of in e2e_configs():
+        e2e_config(tag, extra, ref, reads, n, best_of, base_cmd=PORT_HOST,
                    remaining=lambda: end - time.perf_counter(),
                    env={"MM2TPU_TIMELINE": "1"})
 
@@ -3541,74 +3660,121 @@ def dp_turns(parent):
         fail("the turns' outputs differ")
 
 
-# the differential campaign's seeds (phase5_fuzz): FUZZ_SEED0 on, N_FUZZ
-# of them, a number fixed from the phase's wall on the card
-FUZZ_SEED0 = 1000
-N_FUZZ = 64
+# the differential campaign's seeds in the smoke (phase5_fuzz): the
+# fewest of the campaign's seeds 1000-1063 that reach, between them,
+# all that the 64 reached on the card (fuzz_missing): every kernel it
+# requires and every launch class of the chain and fill kernels, every
+# kind, each host route and SAM output.  Seeds and flags are fixed by
+# make_workload: 1001 `-x splice:hq -c` (the splice fill, the intron
+# backtrack), 1002 `-D -c` (every chain class, block_global too), 1013
+# pe `-x sr -a` (frag mode's host chaining, SAM), 1020 `-x asm20 -c`
+# (an RMQ batch on the host), 1025 a multi-part index through
+# --split-prefix, 1036 `-f 0.0002,5000` (the re-chain after the
+# device), 1043 long `-r 500,80000 -c`, 1058 `-a --MD`, 1063 `-x map-pb
+# -c` (an HPC batch on the host, a fill with its state in scratch).
+# The 64 seeds took 145-198 s of the smoke; `--fuzz 64 1000` keeps them
+FUZZ_SEEDS = (1001, 1002, 1013, 1020, 1025, 1036, 1043, 1058, 1063)
+FUZZ_ROUTES = ("host_chain_fallback", "hpc_host_batches", "rmq_host_batches")
+FUZZ_CLASSES = tuple(
+    [f"chain_segments/{c}" for c in ("warp", "group", "block",
+                                     "block_global")]
+    + [f"extd2_fill/{c}" for c in ("warp", "block", "scratch")]
+    + [f"exts2_fill/{c}" for c in ("warp", "block")])
 # ASan inside a CUDA process: CUDA maps memory in ASan's shadow
 # gap, and the interpreter's allocations live until exit
 FUZZ_ASAN_OPTIONS = "protect_shadow_gap=0:detect_leaks=0"
 
 
-def fuzz_campaign(seeds):
+def fuzz_campaign(seeds, kind=None):
     """The port's differential campaign (mm2_gb_tpu_torch.tools.fuzz_diff)
     on the card: each seed's `--gpu-chain` run (with `--gpu-align` where
     its flags align) in this process against the port's host route in a
-    subprocess, byte for byte; returns the campaign and its wall."""
+    subprocess, byte for byte; kind: fuzz_diff's kind= (every seed of
+    that kind).  Returns the campaign and its wall."""
     import torch
     from mm2_gb_tpu_torch.tools import fuzz_diff as F
     t0 = time.perf_counter()
-    c = F.campaign(seeds, torch.device("cuda"))
+    c = F.campaign(seeds, torch.device("cuda"), kind=kind)
     return c, time.perf_counter() - t0
 
 
-def phase5_fuzz(n=N_FUZZ, seed0=FUZZ_SEED0):
-    """The campaign on seeds seed0 .. seed0+n-1.  Fails on any divergence,
-    non-zero exit or exception, and unless the CLI launched the chain
-    kernel, the genomic and the splice fill kernels and the backtrack in
-    its genomic and its intron mode.  Prints the campaign's counts as a
-    JSON line.  The launch counters are set to 0 before the campaign and
-    must equal the sum of its seeds' launches after it."""
+def fuzz_missing(c):
+    """What phase5_fuzz requires of the campaign c and c did not reach:
+    the chain kernel, the genomic and the splice fill kernels and the
+    backtrack in its genomic and its intron mode launched through the
+    CLI; every kind a seed draws; the host routes (FUZZ_ROUTES); the
+    chain and fill kernels' launch classes (FUZZ_CLASSES); and SAM
+    output (-a)."""
     from mm2_gb_tpu_torch.tools import fuzz_diff as F
-    for m, a in F.COUNTERS.values():
-        setattr(m, a, 0)
-    c, wall = fuzz_campaign(range(seed0, seed0 + n))
     t = c.totals()
-    read = {k: getattr(m, a) for k, (m, a) in F.COUNTERS.items()}
-    if read != {k: t["launches"].get(k, 0) for k in F.COUNTERS}:
-        fail(f"the fuzz campaign's launch counters {read} differ from its "
-             f"seeds' launches {t['launches']}")
-    log(c.summary().replace("\n", "\n[smoke] "))
-    log(f"fuzz campaign ({CARD}): seeds {seed0}..{seed0 + n - 1}, "
-        f"{t['matched']} of {t['seeds']} byte-identical to the host path, "
-        f"{wall:.1f} s")
-    print(json.dumps({"fuzz": {"card": CARD, "seed0": seed0,
-                               "wall_s": round(wall, 3), **t}}), flush=True)
-    if c.failed:
-        fail(f"fuzz seeds {[r.w.seed for r in c.failed]} differ from the "
-             "host path")
     k = t["launches"]
     need = {"chain_segments": k.get("chain_segments", 0),
             "extd2_fill": k.get("extd2_fill", 0),
             "exts2_fill": k.get("exts2_fill", 0),
             "ksw2_backtrack (genomic)": k.get("ksw2_backtrack", 0)
             - k.get("ksw2_backtrack_intron", 0),
-            "ksw2_backtrack (intron)": k.get("ksw2_backtrack_intron", 0)}
-    missing = [name for name, v in need.items() if v <= 0]
+            "ksw2_backtrack (intron)": k.get("ksw2_backtrack_intron", 0),
+            **{f"kind {x}": t["kinds"].get(x, 0) for x in F.KINDS},
+            **{f"route {x}": t["routes"].get(x, 0) for x in FUZZ_ROUTES},
+            **{f"class {x}": t["classes"].get(x, 0) for x in FUZZ_CLASSES},
+            "SAM output (-a)": sum("-a" in r.w.flags for r in c.results)}
+    return [name for name, v in need.items() if v <= 0]
+
+
+def phase5_fuzz(seeds=FUZZ_SEEDS):
+    """The campaign on seeds.  Fails on any divergence, non-zero exit
+    or exception, and on anything fuzz_missing finds the campaign did
+    not reach.  Prints the campaign's counts as a JSON line.  The launch
+    counters are set to 0 before the campaign and must equal the sum of
+    its seeds' launches after it."""
+    from mm2_gb_tpu_torch.tools import fuzz_diff as F
+    for m, a in F.COUNTERS.values():
+        setattr(m, a, 0)
+    c, wall = fuzz_campaign(seeds)
+    t = c.totals()
+    read = {k: getattr(m, a) for k, (m, a) in F.COUNTERS.items()}
+    if read != {k: t["launches"].get(k, 0) for k in F.COUNTERS}:
+        fail(f"the fuzz campaign's launch counters {read} differ from its "
+             f"seeds' launches {t['launches']}")
+    log(c.summary().replace("\n", "\n[smoke] "))
+    log(f"fuzz campaign ({CARD}): seeds {list(seeds)}, {t['matched']} of "
+        f"{t['seeds']} byte-identical to the host path, {wall:.1f} s")
+    print(json.dumps({"fuzz": {"card": CARD, "seeds": list(seeds),
+                               "wall_s": round(wall, 3), **t}}), flush=True)
+    if c.failed:
+        fail(f"fuzz seeds {[r.w.seed for r in c.failed]} differ from the "
+             "host path")
+    missing = fuzz_missing(c)
     if missing:
-        fail(f"the fuzz campaign launched no {', '.join(missing)}")
+        fail(f"the fuzz campaign reached no {', '.join(missing)}")
     return t
 
 
-def fuzz_only(n, seed0):
+def fuzz_only(n, seed0, kind=None):
     """`python3 chip_smoke.py --fuzz N SEED0`: the campaign alone, for
-    longer runs; exits 1 on any FAIL."""
+    longer runs, with each seed's kind, flags, launches, launch classes
+    and host routes as a JSON line (what FUZZ_SEEDS is chosen from);
+    exits 1 on any FAIL.  `--fuzz-ava N SEED0` (fuzz_diff's
+    kind "ava": each seed's reads against themselves at -x ava-*) also
+    exits 1 on a seed whose two outputs were both empty."""
     phase1()
-    c, wall = fuzz_campaign(range(seed0, seed0 + n))
+    c, wall = fuzz_campaign(range(seed0, seed0 + n), kind)
+    t = c.totals()
     print(c.summary(), flush=True)
-    print(json.dumps({"fuzz": {"card": CARD, "seed0": seed0,
-                               "wall_s": round(wall, 3), **c.totals()}}),
+    print(json.dumps({"fuzz_seeds": [{
+        "seed": r.w.seed, "kind": r.w.kind, "threads": r.w.threads,
+        "flags": [f for f in r.w.flags if not f.startswith(r.w.work)],
+        "ok": r.ok, "seconds": round(r.seconds, 3),
+        "launches": dict(r.launches), "routes": {
+            k: v for k, v in r.routes.items() if v}} for r in c.results]}),
+        flush=True)
+    print(json.dumps({"fuzz": {"card": CARD, "seed0": seed0, "kind": kind,
+                               "wall_s": round(wall, 3), **t}}),
           flush=True)
+    if kind and t["empty"]:
+        log(f"fuzz --kind {kind}: {sum(t['empty'].values())} seeds compared "
+            "two empty outputs")
+        return 1
     return 1 if c.failed else 0
 
 
@@ -3704,8 +3870,16 @@ def main() -> int:
         require_host_kit()
         phase3_ultralong()
         return 0
-    if sys.argv[1:2] in (["--fuzz"], ["--fuzz-asan"]) and len(sys.argv) == 4:
+    if sys.argv[1:] == ["--ava"]:
+        phase1()
+        require_host_kit()
+        phase3_ava()
+        return 0
+    if (sys.argv[1:2] in (["--fuzz"], ["--fuzz-asan"], ["--fuzz-ava"])
+            and len(sys.argv) == 4):
         n, seed0 = int(sys.argv[2]), int(sys.argv[3])
+        if sys.argv[1] == "--fuzz-ava":
+            return fuzz_only(n, seed0, "ava")
         return (fuzz_only if sys.argv[1] == "--fuzz" else fuzz_asan)(n,
                                                                       seed0)
     if sys.argv[1:2] == ["--dp-turns"] and len(sys.argv) <= 3:
@@ -3737,6 +3911,7 @@ def main() -> int:
     timed(phase3_api, single["align"][0])
     timed(phase3_long_inserts)
     ul = timed(phase3_ultralong)
+    ava_launches, ava_calls, ava_err, ava_ms, ava_plain = timed(phase3_ava)
     timed(phase3_tools, single["align"][0])
     timed(phase3_e2e)
     e, ms, plain_ms = timed(phase4, calls)
@@ -3744,7 +3919,8 @@ def main() -> int:
     if fe:
         fail("a main-path fill or backtrack launch differs from its twin")
     # the kernels line's chain and fill entries: the flowcell's launches
-    # and the ultra-long runs', each summed over both
+    # and the ultra-long runs' (and the chain's, the overlap run's), each
+    # summed over all
     ul_launches, ul_calls, ul_err, ul_ms = ul["chain"]
     ul_fcalls, (ul_fill, ul_fe, ul_fms, ul_fpl) = ul["fills"], ul["fill"]
     ul_bt, ul_bms, ul_bpl = ul["backtrack"]
@@ -3778,9 +3954,10 @@ def main() -> int:
                 "bound_by": b_by, "library_ms": None}
     print(json.dumps({"kernels": [
         entry("chain_segments", "mm2_gb_tpu_torch/csrc/chain_kernel.cu",
-              "mm2_gb_tpu/ops/chain_tpu.py:222", launches + ul_launches,
-              max(err, e, ul_err), ms + ul_ms, plain_ms,
-              chain_bound(calls + ul_calls)),
+              "mm2_gb_tpu/ops/chain_tpu.py:222",
+              launches + ul_launches + ava_launches,
+              max(err, e, ul_err, ava_err), ms + ul_ms + ava_ms,
+              plain_ms + ava_plain, chain_bound(calls + ul_calls + ava_calls)),
         entry("extd2_fill", src, "mm2_gb_tpu/ops/ksw2_tpu.py:359",
               n_fill + ul_fill, max(fill_err, fe, ul_fe), fms + ul_fms,
               fpl + ul_fpl, dp_bound([c[0][4:7] for c in fcalls + ul_fcalls],

@@ -3,7 +3,7 @@ random flag subsets, the port's `--gpu-chain` run path against the
 port's host route, byte-diff everything.
 
     python -m mm2_gb_tpu_torch.tools.fuzz_diff N SEED0 [--work DIR]
-        [--ref-cmd CMD] [--device cuda|cpu]
+        [--ref-cmd CMD] [--device cuda|cpu] [--kind ava]
 
 Seeds SEED0 .. SEED0+N-1.  The workload generators are a copy of the
 repo's tools/fuzz_diff.py (the same `random.Random(seed)` draws, so a
@@ -23,8 +23,19 @@ instead of /tmp, and one more kind:
              the default -r and at -r 500,80000.  Its own weight in the kind
              draw leaves the other kinds' draws as the original's but for
              which kind a seed draws.
+  ava      - (not in the original, and never drawn: `--kind ava` asks for
+             it) all-vs-all overlap of a read set against itself, the
+             reads drawn from a random or repeat-rich reference at 3-8x
+             coverage under names in shuffled order; -x ava-ont (chained
+             on the card) or -x ava-pb (HPC: chained on the host, as in
+             the JAX package), with or without -c.  The genomic kind's
+             -x ava-ont maps reads named q{i} to a reference named fr or
+             ctg{k}, and NO_DUAL drops every hit whose query name sorts
+             after its target name, so those seeds compare two empty
+             outputs.
 
-Each seed also draws -t from {1, 4, 8}, after its workload.
+Each seed, of every kind, also draws -t from {1, 4, 8} after its
+workload.
 
 The device side runs in this process through `cli.parse_args` and
 `cli._run(args, argv, io, mo, device)`: the drawn flags without
@@ -41,13 +52,15 @@ ASAN_OPTIONS and MM2TPU_NATIVE_LIB are not passed on to it.  Up to
 REF_AHEAD reference runs go ahead of the device side.
 
 A seed matches when both sides exit 0 and their stdout is equal byte for
-byte, @PG lines aside.  Each seed prints one `ok`/`FAIL` line with its
-kind, flags and -t; a FAIL adds both return codes, the first differing
-line and both line counts, and keeps the seed's files.  Per seed the
+byte, @PG lines aside, and, for an ava seed, no PAF line breaks the
+overlap filters (ava_order_faults).  Each seed prints one `ok`/`FAIL`
+line with its kind, flags and -t; a FAIL adds both return codes, the
+first differing line and both line counts, and keeps the seed's files.  Per seed the
 port's launch counters say which kernels ran, and the `-v 3` lines the
 host-routed counts; the summary prints per kernel the launches over the
-campaign and the launch classes reached.  The exit code is 1 on any
-FAIL.
+campaign and the launch classes reached, and the seeds whose two outputs
+were both empty by kind and flag set (a match that compared nothing).
+The exit code is 1 on any FAIL.
 """
 
 from __future__ import annotations
@@ -81,6 +94,8 @@ SKIP_INF = "--max-chain-skip=2147483647"
 REF_CMD = [sys.executable, "-m", "mm2_gb_tpu_torch", "--device", "cpu"]
 KINDS = ("genomic", "splice", "pe", "long")
 KIND_WEIGHTS = (0.6, 0.25, 0.15, 0.05)
+# kinds a seed never draws: make_workload's kind= asks for one
+OTHER_KINDS = ("ava",)
 THREADS = (1, 4, 8)
 ALIGN_FLAGS = ("-c", "-a", "--MD", "--eqx", "-Y")
 REF_TIMEOUT = 900
@@ -338,6 +353,62 @@ def make_long(rng, work, tag, scale=1):
     return rng.choice([["-c"], ["-r", "500,80000", "-c"]]), [rfa, qfa]
 
 
+def make_ava(rng, work, tag, scale=1):
+    """All-vs-all overlap: reads of a random or repeat-rich reference (at
+    3-8x coverage, 10% of them unrelated, half reverse-complemented) as
+    both the target and the query file, named s<k> with k a random
+    permutation of the read order, so that the name order (which the
+    overlap filters NO_DUAL and NO_DIAG read) is not the file order."""
+    S = lambda n, least=1: _sc(n, scale, least)   # noqa: E731
+    comp = str.maketrans("ACGT", "TGCA")
+    n = rng.randrange(S(12, 6), S(40, 10))
+    lens = [rng.randrange(S(2_000, 300), S(15_000, 1_500)) for _ in range(n)]
+    ref_len = max(max(lens) + 1, int(sum(lens) / rng.uniform(3, 8)))
+    if rng.random() < 0.3:   # repeat-rich, as make_genomic's style 3
+        parts = []
+        unit = rnd_seq(rng.randrange(50, 2000), rng)
+        while sum(map(len, parts)) < ref_len:
+            parts.append(unit if rng.random() < 0.5 else rnd_seq(1000, rng))
+        ref = "".join(parts)[:ref_len]
+    else:
+        ref = rnd_seq(ref_len, rng)
+    sub, ind = rng.uniform(0, 0.08), rng.uniform(0, 0.04)
+    names = rng.sample(range(10 * n), n)
+    reads = []
+    for k, ln in zip(names, lens):
+        if rng.random() < 0.1:   # unrelated read
+            s = rnd_seq(ln, rng)
+        else:
+            st = rng.randrange(0, ref_len - ln)
+            s = mutate(ref[st:st + ln], rng, sub, ind)
+        if rng.random() < 0.5:
+            s = s.translate(comp)[::-1]
+        reads.append((f"s{k}", s))
+    qfa = os.path.join(work, f"fz_{tag}_reads.fa")
+    write_fa(qfa, reads)
+    # -x ava-ont chains on the card, -x ava-pb on the host: 4 to 2
+    flag_pool = [["-x", "ava-ont"], ["-x", "ava-ont"], ["-x", "ava-ont", "-c"],
+                 ["-x", "ava-ont", "-c", "--cs"], ["-x", "ava-pb"],
+                 ["-x", "ava-pb", "-c"]]
+    return rng.choice(flag_pool), [qfa, qfa]
+
+
+def ava_order_faults(paf: str) -> list:
+    """The PAF lines of an all-vs-all run (-x ava-*) that its overlap
+    filters forbid: a query name that sorts after its target name (NO_DUAL
+    maps each pair of reads once, query name first, map.c:205-227), or a
+    read against itself on the diagonal (NO_DIAG drops those anchors; a
+    self-hit off the diagonal, from a repeat inside one read, is
+    allowed).  Names compare byte for byte, as strcmp does."""
+    out = []
+    for line in paf.splitlines():
+        f = line.split("\t")
+        q, t = f[0].encode(), f[5].encode()
+        if q > t or q == t and f[2:4] == f[7:9]:
+            out.append(line)
+    return out
+
+
 @dataclass
 class Workload:
     seed: int
@@ -353,15 +424,18 @@ def draw_kind(seed: int) -> str:
     return random.Random(seed).choices(KINDS, KIND_WEIGHTS)[0]
 
 
-def make_workload(seed: int, work: str = WORK, scale=1) -> Workload:
+def make_workload(seed: int, work: str = WORK, scale=1,
+                  kind: str | None = None) -> Workload:
     """Seed's workload, written under work/<seed>.  scale < 1 shrinks
-    the reference lengths, read lengths and read counts (tests)."""
+    the reference lengths, read lengths and read counts (tests).  kind
+    (one of OTHER_KINDS) replaces the kind the seed draws."""
     rng = random.Random(seed)
-    kind = rng.choices(KINDS, KIND_WEIGHTS)[0]
+    drawn = rng.choices(KINDS, KIND_WEIGHTS)[0]
+    kind = kind or drawn
     d = os.path.join(work, str(seed))
     os.makedirs(d, exist_ok=True)
     make = {"genomic": make_genomic, "splice": make_splice, "pe": make_pe,
-            "long": make_long}[kind]
+            "long": make_long, "ava": make_ava}[kind]
     flags, files = make(rng, d, seed, scale)
     return Workload(seed, kind, flags, files, rng.choice(THREADS), d)
 
@@ -476,6 +550,12 @@ class SeedResult:
     routes: Counter
     seconds: float      # the device run's wall
     error: str = ""     # the device side's traceback or stderr tail
+    faults: int = 0     # an ava seed's lines that break its filters
+
+    @property
+    def empty(self) -> bool:
+        """Both sides exited 0 with no output line: a vacuous match."""
+        return self.rc == (0, 0) and self.lines == (0, 0)
 
     def line(self) -> str:
         w = self.w
@@ -486,7 +566,8 @@ class SeedResult:
                     f"{self.seconds:.2f} s")
         msg = (f"FAIL {head} rc={self.rc[0]} ref_rc={self.rc[1]} "
                f"line counts: ours={self.lines[0]} ref={self.lines[1]}"
-               f" (files kept in {w.work})")
+               + (f" overlap-filter faults={self.faults}" if self.faults
+                  else "") + f" (files kept in {w.work})")
         if self.first_diff:
             msg += "\n" + self.first_diff
         if self.error:
@@ -503,12 +584,13 @@ def compare(w: Workload, dev, ref, launches, seconds) -> SeedResult:
             diff = (f"  line {i}:\n   ref: {y.rstrip()[:160]}\n"
                     f"   our: {x.rstrip()[:160]}")
             break
-    ok = dev[0] == 0 and ref[0] == 0 and a == b
+    faults = len(ava_order_faults(dev[1])) if w.kind == "ava" else 0
+    ok = dev[0] == 0 and ref[0] == 0 and a == b and not faults
     error = "" if dev[0] == 0 else dev[2]
     if ref[0] != 0:
         error += "\n  reference stderr: " + ref[2][-1500:]
     return SeedResult(w, ok, (dev[0], ref[0]), (len(a), len(b)), diff,
-                      launches, routes(dev[2]), seconds, error)
+                      launches, routes(dev[2]), seconds, error, faults)
 
 
 def run_seed(w: Workload, device, ref) -> SeedResult:
@@ -536,16 +618,19 @@ class Campaign:
         return [r for r in self.results if not r.ok]
 
     def totals(self) -> dict:
-        launches, rts, kinds, threads = Counter(), Counter(), Counter(), \
-            Counter()
+        launches, rts, kinds, threads, empty = (Counter() for _ in range(5))
         for r in self.results:
             launches.update(r.launches)
             rts.update(r.routes)
             kinds[r.w.kind] += 1
             threads[str(r.w.threads)] += 1
+            if r.empty:   # by flag set, the seed's own paths aside
+                flags = [f for f in r.w.flags if not f.startswith(r.w.work)]
+                empty[" ".join([r.w.kind, *flags])] += 1
         return {"seeds": len(self.results),
                 "matched": len(self.results) - len(self.failed),
                 "kinds": dict(kinds), "threads": dict(sorted(threads.items())),
+                "empty": dict(sorted(empty.items())),
                 "launches": {k: launches[k] for k in sorted(launches)
                              if "/" not in k},
                 "classes": {k: launches[k] for k in sorted(launches)
@@ -567,15 +652,18 @@ class Campaign:
         lines.append("  exts2_ext has no CLI caller (the splice extensions "
                      "align on the host, as in the JAX package)")
         lines.append(f"  routes: {t['routes']}")
+        lines.append(f"  both outputs empty: {sum(t['empty'].values())} "
+                     f"seeds, by kind and flags {t['empty']}")
         return "\n".join(lines)
 
 
 def campaign(seeds, device, work=WORK, ref_cmd=None, scale=1, out=None,
-             ref=None) -> Campaign:
+             ref=None, kind=None) -> Campaign:
     """Run the seeds; each result's line goes to out (stdout by default)
     as it comes.  ref: a callable argv -> (rc, stdout, stderr) run after
     the device side (in this process: the tests), else ref_cmd in
-    subprocesses, up to REF_AHEAD of them ahead of the device side.  A
+    subprocesses, up to REF_AHEAD of them ahead of the device side.  kind:
+    one of OTHER_KINDS for every seed, else each seed's drawn kind.  A
     matching seed's files are removed."""
     seeds, out = list(seeds), out or sys.stdout
     res = Campaign()
@@ -584,7 +672,7 @@ def campaign(seeds, device, work=WORK, ref_cmd=None, scale=1, out=None,
     with ThreadPoolExecutor(depth) as pool:
         ahead = deque()
         for i, seed in enumerate(seeds):
-            w = make_workload(seed, work, scale)
+            w = make_workload(seed, work, scale, kind)
             ahead.append((w, ref if ref is not None else pool.submit(
                 run_reference, cmd, reference_argv(w))))
             last = i == len(seeds) - 1
@@ -615,6 +703,9 @@ def main(argv=None) -> int:
                         "same device route on the kernels' plain twins "
                         "(not the CLI's --device cpu: the reference side "
                         "is the host route either way)")
+    p.add_argument("--kind", choices=OTHER_KINDS, default=None,
+                   help="give every seed this kind, which no seed draws "
+                        "(ava: reads against themselves at -x ava-*)")
     a = p.parse_args(argv)
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -623,7 +714,7 @@ def main(argv=None) -> int:
         return 2
     t0 = time.perf_counter()
     c = campaign(range(a.seed0, a.seed0 + a.n), device, a.work,
-                 shlex.split(a.ref_cmd) if a.ref_cmd else None)
+                 shlex.split(a.ref_cmd) if a.ref_cmd else None, kind=a.kind)
     print(f"\n{c.summary()}\n{time.perf_counter() - t0:.1f} s on {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

@@ -14,6 +14,13 @@
   JAX package's host path in this process, byte for byte.
 - The flags each side gets, and the command line: exit 0 when the two
   sides match, 1 on a divergence.
+- The `ava` kind, which no seed draws (`--kind ava`): reads against
+  themselves at -x ava-*, two seeds at scale 0.1 on the twins against
+  the port's host route (itself held to the JAX package's host path),
+  each with overlaps to compare; a seed whose output breaks the overlap
+  filters fails; and a genomic seed that draws -x ava-ont (reads named
+  q{i} against a reference named fr or ctg{k}: NO_DUAL drops every hit)
+  is counted among the seeds whose two outputs were both empty.
 """
 
 import contextlib
@@ -26,6 +33,7 @@ import pytest
 import torch
 
 from mm2_gb_tpu import cli as jcli
+from mm2_gb_tpu_torch import cli
 from mm2_gb_tpu_torch.tools import fuzz_diff as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -179,3 +187,135 @@ def test_the_command_line_tells_a_match_from_a_divergence(tmp_path, capsys):
     out = capsys.readouterr().out
     assert out.startswith("FAIL seed=3 genomic") and "0/1 matched" in out
     assert os.path.exists(tmp_path / "3" / "fz_3_r.fa")
+
+
+def _host_route(argv):
+    """The port's host route (`cli.main --device cpu`) in this process,
+    equal to the JAX package's host path on the same arguments."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["--device", "cpu", *argv])
+    assert (rc, out.getvalue()) == _jax_host(argv)[:2]
+    return rc, out.getvalue(), err.getvalue()
+
+
+# ava seeds at scale 0.1: -x ava-ont, and -x ava-ont -c (--gpu-align)
+AVA_SEEDS = [(0, ["-x", "ava-ont"]), (1, ["-x", "ava-ont", "-c"])]
+
+
+@pytest.mark.parametrize("seed,flags", AVA_SEEDS, ids=["ava_ont", "ava_ont_c"])
+def test_an_ava_seed_compares_overlaps(seed, flags, tmp_path):
+    out = io.StringIO()
+    c = F.campaign([seed], torch.device("cpu"), str(tmp_path),
+                   ref=_host_route, scale=SCALE, out=out, kind="ava")
+    r = c.results[0]
+    assert r.ok, out.getvalue()
+    assert (r.w.kind, r.w.flags) == ("ava", flags)
+    assert r.w.threads in F.THREADS and r.w.files[0] == r.w.files[1]
+    assert r.lines[0] == r.lines[1] > 0 and not r.empty and r.faults == 0
+    assert r.routes["hpc_host_batches"] == r.routes["rmq_host_batches"] == 0
+    assert (r.routes["fills"] > 0) == ("-c" in flags)
+    assert c.totals()["empty"] == {}
+    assert "both outputs empty: 0 seeds" in c.summary()
+
+
+def test_an_ava_seed_that_breaks_the_overlap_filters_fails(tmp_path):
+    """Both sides give the same bytes, but a line has its query name
+    after its target name: the seed fails and says why."""
+    w = F.make_workload(0, str(tmp_path), SCALE, kind="ava")
+    line = "s9\t900\t0\t800\t+\ts10\t900\t0\t800\t700\t800\t0\n"
+    r = F.compare(w, (0, line, ""), (0, line, ""), F.Counter(), 0)
+    assert not r.ok and r.faults == 1 and not r.empty
+    assert "overlap-filter faults=1" in r.line()
+    w.kind = "genomic"   # the check reads ava seeds only
+    assert F.compare(w, (0, line, ""), (0, line, ""), F.Counter(), 0).ok
+
+
+def test_a_genomic_seed_at_ava_ont_is_counted_empty(tmp_path):
+    """Seed 18 draws the genomic kind and -x ava-ont: reads q{i} against
+    a reference named fr or ctg{k}, so NO_DUAL drops every anchor and
+    both sides print nothing.  The seed matches, and the summary counts
+    it as a match that compared nothing."""
+    out = io.StringIO()
+    c = F.campaign([18], torch.device("cpu"), str(tmp_path), ref=_jax_host,
+                   scale=SCALE, out=out)
+    r = c.results[0]
+    assert r.ok and (r.w.kind, r.w.flags) == ("genomic", ["-x", "ava-ont"])
+    assert r.empty and r.lines == (0, 0)
+    assert c.totals()["empty"] == {"genomic -x ava-ont": 1}
+    assert ("both outputs empty: 1 seeds, by kind and flags "
+            "{'genomic -x ava-ont': 1}") in c.summary()
+
+
+# the smoke's fuzz seeds (chip_smoke.FUZZ_SEEDS): each one's kind and
+# flags, as its comment there gives them
+SMOKE_SEEDS = {1001: ("splice", ["-x", "splice:hq", "-c"]),
+               1002: ("genomic", ["-D", "-c"]),
+               1013: ("pe", ["-x", "sr", "-a", "--secondary", "no"]),
+               1020: ("genomic", ["-x", "asm20", "-c"]),
+               1025: ("genomic", ["-I", "100k", "--split-prefix", "-c"]),
+               1036: ("genomic", ["--tpu-chain", "-f", "0.0002,5000", "-c"]),
+               1043: ("long", ["-r", "500,80000", "-c"]),
+               1058: ("genomic", ["-a", "--MD"]),
+               1063: ("genomic", ["-x", "map-pb", "-c"])}
+
+
+def test_the_smokes_fuzz_seeds_are_the_ones_it_names():
+    import chip_smoke
+    assert chip_smoke.FUZZ_SEEDS == tuple(SMOKE_SEEDS)
+    assert {F.draw_kind(s) for s in SMOKE_SEEDS} == set(F.KINDS)
+
+
+@pytest.mark.parametrize("seed", list(SMOKE_SEEDS))
+def test_a_smoke_fuzz_seed_draws_its_kind_and_flags(seed, tmp_path):
+    w = F.make_workload(seed, str(tmp_path))
+    flags = [f for f in w.flags if not f.startswith(w.work)]
+    assert (w.kind, flags) == SMOKE_SEEDS[seed]
+
+
+def _reached(seed, kind, flags, launches=(), routes=()):
+    """A matching seed's result with the given launches and routes."""
+    w = F.Workload(seed, kind, list(flags), [], 1, "")
+    return F.SeedResult(w, True, (0, 0), (1, 1), "", F.Counter(launches),
+                        F.Counter(routes), 0.0)
+
+
+def _full_campaign(drop=None):
+    """A campaign that reaches all that chip_smoke.fuzz_missing requires,
+    but for drop: a kind, a flag, a launch or class key, or a route."""
+    import chip_smoke
+    launches = {k: 1 for k in ("chain_segments", "extd2_fill", "exts2_fill",
+                               "ksw2_backtrack_intron",
+                               *chip_smoke.FUZZ_CLASSES)}
+    launches["ksw2_backtrack"] = 2   # one genomic, one intron
+    if drop == "ksw2_backtrack":
+        launches["ksw2_backtrack"] = 1
+    routes = {k: 1 for k in chip_smoke.FUZZ_ROUTES}
+    launches.pop(drop, None)
+    routes.pop(drop, None)
+    kinds = [k for k in F.KINDS if k != drop]
+    flags = [] if drop == "-a" else ["-a"]
+    return F.Campaign([_reached(0, kinds[0], flags, launches, routes)]
+                      + [_reached(i, k, []) for i, k in
+                         enumerate(kinds[1:], 1)])
+
+
+MISSING = [("pe", "kind pe"), ("long", "kind long"),
+           ("-a", "SAM output (-a)"),
+           ("rmq_host_batches", "route rmq_host_batches"),
+           ("host_chain_fallback", "route host_chain_fallback"),
+           ("chain_segments/block_global", "class chain_segments/block_global"),
+           ("extd2_fill/scratch", "class extd2_fill/scratch"),
+           ("ksw2_backtrack", "ksw2_backtrack (genomic)"),
+           ("exts2_fill", "exts2_fill")]
+
+
+def test_the_smokes_fuzz_phase_finds_nothing_missing_in_a_full_campaign():
+    import chip_smoke
+    assert chip_smoke.fuzz_missing(_full_campaign()) == []
+
+
+@pytest.mark.parametrize("drop,name", MISSING, ids=[m[0] for m in MISSING])
+def test_the_smokes_fuzz_phase_names_what_its_seeds_did_not_reach(drop, name):
+    import chip_smoke
+    assert chip_smoke.fuzz_missing(_full_campaign(drop)) == [name]

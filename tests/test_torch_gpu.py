@@ -114,7 +114,9 @@ def test_mg_log2_kernel_bits(cuda):
      "sim200.skipinf.cs.paf.gz"),
     (["-x", "splice", "-c"], "splice_genome.fa.gz", "splice_reads.fa.gz",
      "splice40.skipinf.c.paf.gz"),
-], ids=["sim200", "sim200_cs_c", "splice40_is_cdna"])
+    (["-x", "ava-ont"], "simreads.fa.gz", "simreads.fa.gz",
+     "ava.skipinf.paf.gz"),
+], ids=["sim200", "sim200_cs_c", "splice40_is_cdna", "ava_ont"])
 def test_gpu_chain_cli_matches_golden(cuda, flags, ref, query, golden,
                                       capsys):
     from mm2_gb_tpu_torch.cli import main

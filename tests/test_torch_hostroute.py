@@ -12,7 +12,8 @@ the CPU:
   for byte, in process, on the non-device flags of every e2e
   configuration (flowcell-like reads at map-ont, `-c`, `--qstrand -c`; a
   small cDNA set at `-ax splice`; reads from the ultra-long set's
-  generator), on the repo's goldens, and on the fuzzer's workloads run
+  generator; flowcell-like reads against themselves at `-x ava-ont`),
+  on the repo's goldens, and on the fuzzer's workloads run
   through its default reference command in a subprocess;
 - `--device cpu` with a device flag, a bad `--device`, and no CUDA device
   without `--device cpu` each exit 1 with a message, mapping nothing;
@@ -90,7 +91,9 @@ def inputs(tmp_path_factory):
     sets: the flowcell's (random_reference, simulate_readset, seeds 1 and
     3), the cDNA set's (chip_smoke.cdna_set, seed 11) and the ultra-long
     set's (random_repetitive_reference, seeds 11 and 12), each cut in
-    size: (ref, reads) by set."""
+    size, and for the overlap configuration 24 flowcell-like reads at
+    about 2.5x coverage as both the target and the query: (ref, reads) by
+    set."""
     import chip_smoke
     d = tmp_path_factory.mktemp("hostroute")
     ref = random_reference(300_000, seed=1)
@@ -103,7 +106,9 @@ def inputs(tmp_path_factory):
                                                      60_000, seed=12)))
     cdna = chip_smoke.cdna_set(24, genome_len=400_000, max_intron=5_000,
                                work=str(d))
-    return {"flowcell": fc, "ultralong": ul, "cdna": cdna}
+    ava = _fasta(d / "ava_reads.fa", simulate_readset(
+        random_reference(120_000, seed=1), 24, 5_000, 20_000, seed=3))
+    return {"flowcell": fc, "ultralong": ul, "cdna": cdna, "ava": (ava, ava)}
 
 
 # the card side's flags of each e2e configuration (chip_smoke.e2e_configs,
@@ -117,6 +122,7 @@ E2E = [
     ("cdna", ["-ax", "splice", "--gpu-chain", "--gpu-align"], "cdna"),
     ("ultralong", ["--gpu-chain", "--gpu-cfg", os.path.join(
         gpucfg.CONFIG_DIR, "h100_over50k.json")], "ultralong"),
+    ("ava", ["-x", "ava-ont", "--gpu-chain"], "ava"),
 ]
 
 
