@@ -7,12 +7,15 @@
     python3 chip_smoke.py --e2e      # the e2e bench stage: every config
     python3 chip_smoke.py --ultralong  # the ultra-long mapping phase alone
     python3 chip_smoke.py --ava      # the all-vs-all overlap phase alone
+    python3 chip_smoke.py --asm      # the assembly phase alone
+    python3 chip_smoke.py --hifi     # the HiFi phase alone
     python3 chip_smoke.py --cfg-sweep  # max_anchors_batch sweep, two sets
     python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
     python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
     python3 chip_smoke.py --fuzz N SEED0      # the fuzz campaign alone
     python3 chip_smoke.py --fuzz-asan K SEED0  # genomic -c seeds, asan kit
     python3 chip_smoke.py --fuzz-ava N SEED0   # ava seeds: none may be empty
+    python3 chip_smoke.py --fuzz-asm N SEED0   # asm seeds: none may be empty
 
 Run from the root of a checkout, on a machine with a CUDA GPU, nvcc and
 a CUDA build of PyTorch.  Phases (any failure exits non-zero):
@@ -113,6 +116,21 @@ a CUDA build of PyTorch.  Phases (any failure exits non-zero):
    itself on the diagonal), every batch chained by the kernel (none on
    the host), every launch equal to the host oracle and to its re-run,
    the smallest launch to the twin;
+   Then assembly to reference (phase3_asm): the contigs of asm_set()
+   (a 16 Mbp genome in four chromosomes; deletions and insertions of 50
+   bp to 8 kb every 50-150 kb, inversions, 0.1% substitutions; about 20
+   contigs of 0.2-2 Mbp) at `-cx asm5 --cs --gpu-chain --gpu-align`
+   byte-identical to the port's host route, every chain batch chained
+   on the host by RMQ (no chain launch), and at least one device gap
+   fill longer than 627 rows at the asm band w = 150,001; and HiFi
+   mapping (phase3_hifi): 1,600 reads of 15-25 kb from that genome
+   (hifi_set(), HiFi's error rates) at `-ax map-hifi --gpu-chain
+   --gpu-align`, identical to the host route but @PG, every batch
+   chained by the kernel, every chain launch equal to the host oracle
+   and its re-run, the smallest to the twin.  In both, every fill equals
+   the oracle (the host kit's ksw_extd2: score and CIGAR), every fill
+   and backtrack launch its re-run, and the launch of fewest fills the
+   twins (its fills of at most TWIN_ROWS rows);
 4. every kernel launch of those flowcell, cDNA and --qstrand runs, on
    the inputs it was given, re-run and held against its recorded result
    and against its twin, exact, and both timed (CUDA events; a kernel's
@@ -196,6 +214,7 @@ N_API = 100         # the flowcell's reads the Python API maps
 N_ULTRALONG = 40    # the ultra-long set: 8 Mbp repeat-rich reference,
                     # 100-300 kb reads (the over50k configuration's case)
 N_ULTRALONG_C = 12  # its first reads, mapped with --gpu-align -c
+N_HIFI = 1600       # the HiFi set: 15-25 kb reads of the 16 Mbp genome, 2x
 
 
 def log(msg: str) -> None:
@@ -680,36 +699,125 @@ def _timed_launch(fn, *args, **kw):
     return out, ev[0].elapsed_time(ev[1])
 
 
-def hold_fill_calls(calls, label, verbose=True):
+def _fill_suffix(c, k0):
+    """The recorded extd2_fill + backtrack launch c cut to its fills k0
+    and after: (fill args, backtrack args without p, the suffix's first
+    p byte and first CIGAR slot), its p regions and CIGAR slots
+    re-based.  The fills of a launch lie longest first, so those of at
+    most n rows are such a suffix."""
+    (qb, tb, qo, to, ql, tl, w, po, p_total, prm, right) = c[0]
+    _po, _ql, _tl, _w, co, rev = c[3]
+    p0 = int(po[k0]) if k0 < po.shape[0] else p_total
+    c0 = int(co[k0])
+    return ((qb, tb, qo[k0:], to[k0:], ql[k0:], tl[k0:], w[k0:],
+             po[k0:] - p0, p_total - p0, prm, right),
+            (po[k0:] - p0, ql[k0:], tl[k0:], w[k0:], co[k0:] - c0, rev),
+            p0, c0)
+
+
+def hold_fill_calls(calls, label, verbose=True, twin=None, max_rows=None):
     """Each recorded fill + backtrack launch against the twins on its own
     inputs: the fill kernel is run again on the recorded operands (its p
     must match the recorded fingerprint), the fill twin must equal it,
-    and both backtracks on that p must equal the recorded words.
+    and both backtracks on that p must equal the recorded words.  twin:
+    the launches (indices) that go through the twins, all by default;
+    the others are held against their recorded results alone.  With
+    max_rows, only the fills of at most that many rows (qlen + tlen - 1)
+    go through the twins (their state and time grow with the longest
+    one's); the longer ones are held against their recorded results.
     Returns (max_abs_err, fill ms, fill twin ms, backtrack ms, twin ms)."""
     from mm2_gb_tpu_torch.ops import ksw2_gpu as K
     err, fms, fpl, bms, bpl = 0, 0.0, 0.0, 0.0, 0.0
     for i, (fa, sc, fp, ba, cig, nc) in enumerate(calls):
         (sck, pk), tk = _timed_launch(K.extd2_fill, *fa)
-        same_p = _fingerprint(pk) == fp
-        (sct, pt), tt = _timed(K.extd2_fill_torch, *fa)
-        e = max(_max_err(sck, sc), _max_err(sct, sc), _max_err(pt, pk),
-                0 if same_p else 2**31)
+        e = max(_max_err(sck, sc), 0 if _fingerprint(pk) == fp else 2**31)
         (cgk, nck), tb = _timed_launch(K.ksw2_backtrack, pk, *ba)
-        (cgt, nct), tbt = _timed(K.ksw2_backtrack_torch, pk, *ba)
-        e = max(e, _max_err(cgk, cig), _max_err(nck, nc), _max_err(cgt, cig),
-                _max_err(nct, nc))
+        e = max(e, _max_err(cgk, cig), _max_err(nck, nc))
+        rows = (fa[4] + fa[5] - 1).cpu()
+        over = ((rows > max_rows).nonzero() if max_rows is not None
+                else [])
+        k0 = int(over[-1]) + 1 if len(over) else 0
+        tt = tbt = 0.0
+        held = 0
+        if (twin is None or i in twin) and k0 < rows.shape[0]:
+            fs, bs, p0, c0 = _fill_suffix(calls[i], k0)
+            (sct, pt), tt = _timed(K.extd2_fill_torch, *fs)
+            (cgt, nct), tbt = _timed(K.ksw2_backtrack_torch, pt, *bs)
+            e = max(e, _max_err(sct, sc[k0:]), _max_err(pt, pk[p0:]),
+                    _max_err(cgt, cig[c0:]), _max_err(nct, nc[k0:]))
+            held = rows.shape[0] - k0
+        del pk
         if verbose:
-            rows, steps = _longest(calls[i])
+            n_rows, steps = _longest(calls[i])
             log(f"{label} launch {i}: {fa[4].shape[0]} fills, "
                 f"{int((fa[4].long() * fa[5].long()).sum())} cells; fill "
-                f"{tk:.3f} ms (twin {tt:.3f} ms), {rows} rows of the "
-                f"longest fill, {tk * 1e3 / rows:.4f} µs per row; backtrack "
-                f"{tb:.3f} ms (twin {tbt:.3f} ms), {steps} steps of the "
-                f"longest walk, {tb * 1e3 / max(steps, 1):.4f} µs per step; "
-                f"max_abs_err {e}")
+                f"{tk:.3f} ms (twin {tt:.3f} ms), {n_rows} rows of the "
+                f"longest fill, {tk * 1e3 / n_rows:.4f} µs per row; "
+                f"backtrack {tb:.3f} ms (twin {tbt:.3f} ms), {steps} steps "
+                f"of the longest walk, {tb * 1e3 / max(steps, 1):.4f} µs per "
+                f"step; {held} fills held against the twins; max_abs_err {e}")
         err = max(err, e)
         fms, fpl, bms, bpl = fms + tk, fpl + tt, bms + tb, bpl + tbt
     return err, fms, fpl, bms, bpl
+
+
+def hold_fill_oracle(calls):
+    """Every fill of the recorded fill + backtrack launches against the
+    oracle, the host kit's ksw_extd2 (ksw2.extd2's native path, called
+    here on the recorded blobs in place) under the launch's flags, on
+    THREADS threads: its score and its CIGAR words equal to the recorded
+    ones; tolerance 0.  (max_abs_err, fills held, seconds)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import native
+    t0 = time.perf_counter()
+    i32, ptr = ctypes.c_int32, ctypes.c_void_p
+    # mmt_ksw_extd2 (native.ksw_extd2) taking its buffers as addresses
+    extd2 = ctypes.CFUNCTYPE(ctypes.c_int64, ptr, i32, ptr, i32, ptr,
+                             *[i32] * 9, ptr, ptr, ctypes.c_int64)(
+        ctypes.cast(native._load().mmt_ksw_extd2, ptr).value)
+
+    def one(h, ks):
+        (qb, tb, mat, qo, to, ql, tl, w, sc, words, off, prm, flag) = h
+        cap = max(ql[k] + tl[k] for k in ks) + 4
+        ez, cig = np.zeros(10, np.int32), np.empty(cap, np.uint32)
+        qa, ta, ma, ea, ca = (a.ctypes.data for a in (qb, tb, mat, ez, cig))
+        q, e1, q2, e2 = prm.q, prm.e, prm.q2, prm.e2
+        e = 0
+        for k in ks:
+            n = extd2(qa + qo[k], ql[k], ta + to[k], tl[k], ma, 5, q, e1, q2,
+                      e2, w[k], -1, 0, flag, ea, ca, ql[k] + tl[k] + 4)
+            want = words[off[k]:off[k + 1]]
+            if n != want.shape[0]:
+                e = 2**31
+            elif ez[0] != sc[k] or not np.array_equal(cig[:n], want):
+                e = max(e, abs(int(ez[0]) - sc[k]), int(np.abs(
+                    cig[:n].astype(np.int64) - want).max(initial=0)))
+        return e
+    futs, n = [], 0
+    with ThreadPoolExecutor(max_workers=THREADS) as ex:
+        for fa, sc, _fp, ba, cig, nc in calls:
+            qb, tb = (np.ascontiguousarray(t.cpu().numpy(), np.uint8)
+                      for t in fa[:2])
+            cols = [t.cpu().tolist() for t in (*fa[2:7], sc)]
+            prm, right, rev = fa[9], fa[10], ba[5]
+            flag = (K.APPROX_MAX | (ksw2.KSW_EZ_RIGHT if right else 0)
+                    | (ksw2.KSW_EZ_REV_CIGAR if rev else 0))
+            words = K.chunk_words(cig, nc, ba[4])
+            off = np.concatenate([[0], np.cumsum(nc.cpu().numpy(),
+                                                 dtype=np.int64)])
+            h = (qb, tb, np.ascontiguousarray(prm.mat, np.int8), *cols,
+                 words, off, prm, flag)
+            for ks in np.array_split(np.arange(len(cols[2])), 4 * THREADS):
+                if ks.shape[0]:
+                    futs.append(ex.submit(one, h, ks.tolist()))
+            n += len(cols[2])
+        err = max((fu.result() for fu in futs), default=0)
+    return err, n, time.perf_counter() - t0
 
 
 def phase2_fills():
@@ -2212,30 +2320,38 @@ def _gpu_fields(err, what):
     return fields
 
 
-def card_chain_run(label, flags, ref, reads, card_flags=()):
+def card_chain_run(label, flags, ref, reads, card_flags=(), rmq=False):
     """One `--gpu-chain` run on the card through cli.main in this process
     (flags and card_flags, -t THREADS -v 3, ref, reads) against the
-    port's host route (PORT_HOST, a subprocess) at flags, byte for byte,
-    with every chain batch and launch recorded (recording_chain).  Logs
-    the run's reads, anchors, segments, batches, launches, host-routed
-    batches, work segments per class, chain kernel time and pairs, the
+    port's host route (PORT_HOST, a subprocess) at flags, byte for byte
+    (SAM but its @PG line), with every chain batch and launch recorded
+    (recording_chain), and every fill and backtrack launch where the
+    flags align with --gpu-align (recording_fills).  Logs the run's
+    reads, anchors, segments, batches, launches, host-routed batches,
+    work segments per class, chain kernel time and pairs, the
     allocator's peak per anchor of the largest batch and both walls,
     beside the card's name and power limit.  Fails if the run exits
-    non-zero or differs from the host route, if it launched no chain
-    kernel or launched without recording, or if a batch went to the host
-    (HPC or RMQ).  A --gpu-cfg among card_flags holds for this run
-    alone.  Returns a namespace: out, host_s, wall, m (the `-v 3`
-    report), batches, calls (the recorded launches [(args, kw, f, p)]),
-    classes (work segments per class), peak (allocator bytes above what
-    was held before the run), big (the largest batch's anchors) and
-    launches."""
+    non-zero or differs from the host route, and, unless rmq, if it
+    launched no chain kernel or launched without recording, or if a
+    batch went to the host (HPC or RMQ); with rmq (RMQ chaining, --rmq
+    or an asm preset) if a batch did not go to the host by RMQ or a
+    chain kernel was launched.  A --gpu-cfg among card_flags holds for
+    this run alone.  Returns a namespace: out, host_s, wall, m (the
+    `-v 3` report), batches, calls (the recorded chain launches [(args,
+    kw, f, p)]), classes (work segments per class), peak (allocator
+    bytes above what was held before the run), big (the largest
+    batch's anchors, 0 without a launch), launches, fcalls (the
+    recorded fill + backtrack launches), fill_classes (their fills per
+    class: warp, block, scratch), fill_launches and
+    backtrack_launches."""
     from collections import Counter
     from types import SimpleNamespace
 
     import torch
     from mm2_gb_tpu_torch import cli
     from mm2_gb_tpu_torch.ops import chain_gpu as G
-    from mm2_gb_tpu_torch.utils import gpucfg
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import e2ebench, gpucfg
     t0 = time.perf_counter()
     host = _host([*PORT_HOST[1:], SKIP_INF, *flags, "-t", str(THREADS),
                   ref, reads], f"host path on {label}")
@@ -2243,51 +2359,66 @@ def card_chain_run(label, flags, ref, reads, card_flags=()):
     # --gpu-cfg installs its caps for the process: restored after the run
     saved = gpucfg.current_config()
     classes0 = Counter(G.launch_classes)
+    fclasses0 = Counter(K.launch_classes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()   # earlier phases' tensors
     try:
-        with recording_chain() as batches:
-            G.launches = 0
+        with recording_chain() as batches, recording_fills() as fcalls:
+            G.launches = K.fill_launches = K.backtrack_launches = 0
             rc, out, err, wall = _cli(cli.main, [
                 "--gpu-chain", SKIP_INF, *flags, *card_flags, "-t",
                 str(THREADS), "-v", "3", ref, reads])
             launches = G.launches
+            fills = (K.fill_launches, K.backtrack_launches)
     finally:
         gpucfg.apply_gpu_config(saved)
     peak = torch.cuda.max_memory_allocated() - held
     classes = {c: n for (k, c), n in (G.launch_classes - classes0).items()
                if k == "chain_segments"}
+    fill_classes = {c: n for (k, c), n in (K.launch_classes
+                                           - fclasses0).items()
+                    if k == "extd2_fill"}
     if rc != 0:
         sys.stderr.write(err[-3000:])
         fail(f"--gpu-chain on {label}")
     m = _gpu_fields(err, f"the --gpu-chain run on {label}")
     calls = [c for _b, c in batches if c is not None]
-    big = max(b[0][0].shape[0] for b in batches)
-    same = out == host
+    big = max((b[0][0].shape[0] for b in batches), default=0)
+    same = e2ebench._no_pg(out) == e2ebench._no_pg(host)
     log(f"{label} --gpu-chain ({CARD}; -t {THREADS}, in process): "
         f"{wall:.3f} s (host route {host_s:.3f} s, a subprocess, "
         f"{host.count(chr(10))} lines), {m['reads']} reads, "
         f"{m['anchors']} anchors, {m['segments']} segments "
         f"({m['segments'] / max(m['reads'], 1):.1f} per read) in "
         f"{m['batches']} chain batches ({m['cap_split']} cap-split, largest "
-        f"{big} anchors), launches {launches}, host-routed batches "
+        f"launched {big} anchors), launches {launches}, host-routed batches "
         f"{m['host_hpc_batches']} HPC, {m['host_rmq_batches']} RMQ; work "
         f"segments per class "
         + ", ".join(f"{c} {classes.get(c, 0)}" for c in
                     ("warp", "group", "block", "block_global"))
         + f"; chain kernel {m['chain_kernel_s'] * 1e3:.3f} ms over "
         f"{m['pairs']} pairs ({m['chain_gpairs_s']:.3f} Gpairs/s); "
-        f"allocator peak {peak} B above what was held before the run "
-        f"({peak / big:.1f} B per anchor of the largest batch; "
-        f"BYTES_PER_ANCHOR {gpucfg.BYTES_PER_ANCHOR}); byte-identical to "
-        f"the host path {same}")
-    if (not same or launches == 0 or len(calls) != launches
-            or m["host_hpc_batches"] or m["host_rmq_batches"]):
+        f"allocator peak {peak} B above what was held before the run"
+        + (f" ({peak / big:.1f} B per anchor of the largest batch; "
+           f"BYTES_PER_ANCHOR {gpucfg.BYTES_PER_ANCHOR})" if big else "")
+        + f"; fill and backtrack "
+        f"launches {fills}; byte-identical to the host path"
+        f"{' but @PG' if out.startswith('@') else ''} {same}")
+    if rmq:
+        bad = (launches or calls or m["host_hpc_batches"]
+               or m["host_rmq_batches"] != m["batches"])
+    else:
+        bad = (launches == 0 or len(calls) != launches
+               or m["host_hpc_batches"] or m["host_rmq_batches"])
+    if not same or bad or len(fcalls) != fills[0]:
         fail(f"the --gpu-chain run on {label}")
     return SimpleNamespace(out=out, host_s=host_s, wall=wall, m=m,
                            batches=batches, calls=calls, classes=classes,
-                           peak=peak, big=big, launches=launches)
+                           peak=peak, big=big, launches=launches,
+                           fcalls=fcalls, fill_classes=fill_classes,
+                           fill_launches=fills[0],
+                           backtrack_launches=fills[1])
 
 
 def phase3_ultralong():
@@ -2436,9 +2567,7 @@ def phase3_ava():
     r = card_chain_run("the flowcell's reads against themselves, -x ava-ont",
                        AVA_FLAGS, reads, reads)
     m, batches, calls = r.m, r.batches, r.calls
-    works = [c[1]["shape"].work.cpu() for c in calls]
-    longest = max(int((w[:, 1] - w[:, 0]).max()) for w in works)
-    widest = max(int(w[:, 2].max()) for w in works)
+    longest, widest = longest_widest(calls)
     lines = r.out.splitlines()
     pairs = {tuple(line.split("\t")[0:6:5]) for line in lines}
     faults = F.ava_order_faults(r.out)
@@ -2477,6 +2606,161 @@ def phase3_ava():
         fail("an ava chain launch differs from the oracle, its twin or its "
              "recorded result")
     return r.launches, calls, err, ms, plain_ms
+
+
+ASM_FLAGS = ["-cx", "asm5", "--cs"]   # contigs against their reference
+HIFI_FLAGS = ["-ax", "map-hifi"]      # PacBio HiFi reads, SAM
+# the longest gap fill the card had run before the assembly phase (the
+# ultra-long -c run's), which phase3_asm must pass on the card
+LONG_FILL_ROWS = 627
+ASM_FILL_W = 150_001   # an asm preset's gap-fill band: bw_long * 1.5 + 1
+
+
+def hold_align_run(tag, r):
+    """The fill and backtrack launches of a card_chain_run r made with
+    --gpu-align: every fill against the oracle (hold_fill_oracle), every
+    launch re-run on its recorded operands (hold_fill_calls), the twins
+    on the launch of fewest fills, for its fills of at most TWIN_ROWS
+    rows.  Logs the fills on the device and on the host, per class (warp,
+    block, scratch), chunks, real-pass misses, the longest fill's rows,
+    cells and band, the widest band, the fills longer than
+    LONG_FILL_ROWS (and of those at ASM_FILL_W), the in-run kernel times
+    and the re-runs' beside dp_bound and walk_bound, with the longest
+    walk, beside the card's name and power limit.  Fails without a
+    device fill or on a launch that differs from the oracle, its twins
+    or its recorded result.  Returns a dict of those numbers, with
+    "fcalls" (the recorded launches), "err", "fill_ms", "fill_plain_ms",
+    "bt_ms", "bt_plain_ms"."""
+    import numpy as np
+    m, fcalls = r.m, r.fcalls
+    if not fcalls or not m.get("fills_device"):
+        fail(f"no device fill in the {tag} run")
+    ql, tl, w = (np.concatenate([c[0][k].cpu().numpy() for c in fcalls])
+                 .astype(np.int64) for k in (4, 5, 6))
+    rows = ql + tl - 1
+    top = int(np.argmax(rows))
+    long = rows > LONG_FILL_ROWS
+    e_or, n_or, t_or = hold_fill_oracle(fcalls)
+    log(f"{tag} fills == ksw2.extd2 (the host kit): {n_or} fills of "
+        f"{len(fcalls)} launches, max_abs_err {e_or} ({t_or:.1f} s on "
+        f"{THREADS} threads)")
+    small = min(range(len(fcalls)), key=lambda i: fcalls[i][0][4].shape[0])
+    fe, fms, fpl, bms, bpl = hold_fill_calls(
+        fcalls, f"{tag} fill", twin={small}, max_rows=TWIN_ROWS)
+    f_ms, f_by = dp_bound([c[0][4:7] for c in fcalls], OPS_PER["fill"], 4)
+    b_ms, b_by = walk_bound([c[4:6] for c in fcalls])
+    steps = max(_longest(c)[1] for c in fcalls)
+    out = {"card": CARD, "fills": m["fills"],
+           "device_fills": m["fills_device"],
+           "host_fills": m["fills_host_routed"], "classes": r.fill_classes,
+           "chunks": m["fill_chunks"], "misses": m["misses_fill"],
+           "cells": int((ql * tl).sum()), "longest_rows": int(rows[top]),
+           "longest_cells": int(ql[top] * tl[top]),
+           "longest_w": int(w[top]), "widest_w": int(w.max()),
+           "fills_past_627_rows": int(long.sum()),
+           "fills_past_627_rows_at_asm_w": int((long & (w == ASM_FILL_W))
+                                               .sum()),
+           "run_fill_ms": m["fill_kernel_ms"], "run_bt_ms": m["backtrack_ms"],
+           "launches": len(fcalls), "fill_ms": fms, "fill_plain_ms": fpl,
+           "fill_bound_ms": f_ms, "fill_bound_by": f_by, "bt_ms": bms,
+           "bt_plain_ms": bpl, "bt_bound_ms": b_ms, "bt_bound_by": b_by,
+           "longest_walk": steps, "err": max(e_or, fe),
+           "peak_bytes": r.peak, "wall_s": r.wall, "host_wall_s": r.host_s}
+    log(f"{tag} fills ({CARD}): {m['fills']} ({m['fills_device']} device, "
+        f"{m['fills_host_routed']} host-routed) in {m['fill_chunks']} chunks "
+        f"of {len(fcalls)} launches; per class "
+        + ", ".join(f"{c} {r.fill_classes.get(c, 0)}"
+                    for c in ("warp", "block", "scratch"))
+        + f"; {out['cells']} cells; the longest fill {rows[top]} rows "
+        f"({ql[top]} x {tl[top]}, {out['longest_cells']} cells, w "
+        f"{w[top]}), the widest w {out['widest_w']}; {int(long.sum())} fills "
+        f"past {LONG_FILL_ROWS} rows ({out['fills_past_627_rows_at_asm_w']} "
+        f"at w {ASM_FILL_W}); real-pass misses {m['misses_fill']}; in the "
+        f"run fill kernel {m['fill_kernel_ms']} ms, backtrack "
+        f"{m['backtrack_ms']} ms; re-run alone fill {fms:.3f} ms (bound "
+        f"{f_ms:.4f} ms by {f_by}; twin on launch {small} {fpl:.3f} ms), "
+        f"backtrack {bms:.3f} ms (bound {b_ms:.5f} ms by {b_by}, the longest "
+        f"walk {steps} steps; twin {bpl:.3f} ms); max_abs_err {out['err']}")
+    if out["err"]:
+        fail(f"a {tag} fill or backtrack launch differs from the oracle, "
+             "its twins or its recorded result")
+    return {**out, "fcalls": fcalls}
+
+
+def phase3_asm():
+    """Assembly to reference on the card: the contigs of asm_set() (16
+    Mbp in four chromosomes, SVs, inversions and asm5's divergence) at
+    `-cx asm5 --cs --gpu-chain --gpu-align -t 8 -v 3` through cli.main
+    in this process against the port's host route (PORT_HOST, a
+    subprocess) at `-cx asm5 --cs`, byte for byte (card_chain_run with
+    rmq: every chain batch must go to the host by RMQ, and no chain
+    kernel may launch).  Every fill and backtrack launch is held
+    against the oracle, its re-run and, on the launch of fewest fills,
+    the twins (hold_align_run).  Fails also without a device fill longer
+    than LONG_FILL_ROWS rows at the asm band ASM_FILL_W.  Prints the
+    contigs and the numbers of hold_align_run as an `asm_align` JSON
+    line.  Returns hold_align_run's dict, with "fill_launches" and
+    "bt_launches" of the run."""
+    ref, contigs = asm_set()
+    r = card_chain_run("asm contigs -cx asm5 --cs --gpu-align", ASM_FLAGS,
+                       ref, contigs, ["--gpu-align"], rmq=True)
+    a = hold_align_run("asm", r)
+    a.update(contigs=r.m["reads"], fill_launches=r.fill_launches,
+             bt_launches=r.backtrack_launches)
+    print(json.dumps({"asm_align": {k: v for k, v in a.items()
+                                    if k != "fcalls"}}), flush=True)
+    if not a["fills_past_627_rows_at_asm_w"]:
+        fail(f"no device fill of the asm run was longer than "
+             f"{LONG_FILL_ROWS} rows at w {ASM_FILL_W}")
+    return a
+
+
+def phase3_hifi():
+    """HiFi mapping on the card: the N_HIFI reads of hifi_set() at `-ax
+    map-hifi --gpu-chain --gpu-align -t 8 -v 3` through cli.main in this
+    process against the port's host route (PORT_HOST, a subprocess) at
+    `-ax map-hifi`, the SAM but its @PG line (card_chain_run: every
+    batch chained by the kernel, none on the host).  Every chain launch
+    is held against the host oracle (hold_chain_oracle) and its re-runs
+    (hold_chain_calls), the smallest against the twin too; every fill
+    and backtrack launch as in phase3_asm (hold_align_run).  Prints the
+    chain classes, anchors, segments and pairs, the longest segment and
+    widest range, the launches' ms beside their bound, and the fills, as
+    a `hifi_align` JSON line.  Returns hold_align_run's dict, with
+    "fill_launches", "bt_launches" and "chain": (launches, the recorded
+    launches [(args, kw, f, p)], max_abs_err, kernel ms, twin ms)."""
+    ref, reads = hifi_set()
+    r = card_chain_run(f"HiFi {N_HIFI} reads -ax map-hifi --gpu-align",
+                       HIFI_FLAGS, ref, reads, ["--gpu-align"])
+    calls = r.calls
+    longest, widest = longest_widest(calls)
+    e_or, n_or, t_or = hold_chain_oracle(r.batches)
+    log(f"hifi chain launches == chain_scores_host: {len(calls)} launches, "
+        f"{n_or} anchors, max_abs_err {e_or} ({t_or:.1f} s on {THREADS} "
+        f"threads)")
+    small = min(range(len(calls)), key=lambda i: calls[i][0][0].shape[0])
+    e_k, ms, plain_ms = hold_chain_calls(calls, "hifi", {small})
+    b_ms, b_by = chain_bound(calls)
+    log(f"hifi chain launches ({CARD}): kernel {ms:.3f} ms over "
+        f"{len(calls)} launches (median of {KERNEL_REPS} each); bound "
+        f"{b_ms:.4f} ms by {b_by}; twin on launch {small} {plain_ms:.3f} ms; "
+        f"longest segment {longest} anchors, widest range {widest}")
+    if e_or or e_k:
+        fail("a hifi chain launch differs from the oracle, its twin or its "
+             "recorded result")
+    a = hold_align_run("hifi", r)
+    a.update(reads=r.m["reads"], fill_launches=r.fill_launches,
+             bt_launches=r.backtrack_launches,
+             chain=(r.launches, calls, max(e_or, e_k), ms, plain_ms))
+    print(json.dumps({"hifi_align": {
+        **{k: v for k, v in a.items() if k not in ("fcalls", "chain")},
+        "chain_launches": len(calls), "chain_ms": ms,
+        "chain_plain_ms": plain_ms, "chain_bound_ms": b_ms,
+        "chain_bound_by": b_by, "anchors": r.m["anchors"],
+        "segments": r.m["segments"], "pairs": r.m["pairs"],
+        "chain_classes": r.classes, "longest_anchors": longest,
+        "widest_range": widest}}), flush=True)
+    return a
 
 
 def phase3_tools(paf):
@@ -2552,6 +2836,134 @@ def cdna_set(n_reads=N_CDNA, genome_len=10_000_000, max_intron=20_000,
     os.replace(reads_p + ".tmp", reads_p)
     os.replace(ref_p + ".tmp", ref_p)
     return ref_p, reads_p
+
+
+def _write_fasta(path, records):
+    """Write [(name, seq)] to path through a temporary file, one line a
+    sequence; path is returned."""
+    with open(path + ".tmp", "w") as f:
+        f.writelines(f">{name}\n{seq}\n" for name, seq in records)
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def _genome(genome_len, n_chrom, seed, work):
+    """The path of the seeded genome's FASTA the assembly and HiFi sets
+    share, and a function that returns its chromosomes (names and
+    sequences: n_chrom random chromosomes of genome_len // n_chrom bases,
+    simulate.random_reference at seeds seed*100 + c) and writes the
+    FASTA under work if it is not there."""
+    from mm2_gb_tpu_torch.utils import simulate
+    path = os.path.join(work, f"genome{genome_len}_{n_chrom}_{seed}.fa")
+
+    made = []
+
+    def chroms():
+        if not made:
+            made.extend((f"chr{c + 1}", simulate.random_reference(
+                genome_len // n_chrom, seed=seed * 100 + c))
+                for c in range(n_chrom))
+            if not os.path.exists(path):
+                _write_fasta(path, made)
+        return made
+    if not os.path.exists(path):
+        chroms()
+    return path, chroms
+
+
+def _log_uniform(rng, lo, hi):
+    import numpy as np
+    return int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+
+
+def asm_set(genome_len=16_000_000, n_chrom=4,
+            sv_len=(50, 8_000), sv_gap=(50_000, 150_000),
+            inv_len=(1_000, 20_000), contig_len=(200_000, 2_000_000),
+            seed=21, work=WORK):
+    """(ref, contigs) FASTA paths of the seeded assembly set, written once
+    under work: a genome of n_chrom random chromosomes (_genome), and an
+    assembly made from each chromosome, in this order, by
+    - deletions and insertions (random bases), one of the two at random,
+      of sv_len bases (log-uniform), every sv_gap bases (uniform);
+    - about one inversion of inv_len bases (log-uniform) per Mbp;
+    - 0.1% substitutions and 0.02% one-base indels
+      (simulate.simulate_read over the whole chromosome);
+    cut into contigs of contig_len bases (log-uniform; a tail shorter
+    than contig_len[0] joins its contig), half of them
+    reverse-complemented, named tig<k>_<chromosome>_<start>_<length><strand>.
+    At the defaults: 16 Mbp in four chromosomes and about 20 contigs of
+    0.2-2 Mbp, the divergence asm5 is meant for."""
+    import numpy as np
+    from mm2_gb_tpu_torch.utils import simulate
+    from mm2_gb_tpu_torch.utils.fastx import revcomp
+    ref, chroms = _genome(genome_len, n_chrom, seed, work)
+    key = "_".join(map(str, (genome_len, n_chrom, *sv_len, *sv_gap,
+                             *inv_len, *contig_len, seed)))
+    path = os.path.join(work, f"asm{key}.fa")
+    if not os.path.exists(path):
+        contigs = []
+        for c, (name, chrom) in enumerate(chroms()):
+            rng = np.random.default_rng(seed * 100 + 50 + c)
+            parts, pos = [], 0
+            while True:
+                nxt = pos + int(rng.integers(sv_gap[0], sv_gap[1] + 1))
+                n = _log_uniform(rng, *sv_len)
+                if nxt + n >= len(chrom):
+                    break
+                parts.append(chrom[pos:nxt])
+                if rng.random() < 0.5:    # a deletion of n bases
+                    pos = nxt + n
+                else:                     # an insertion of n bases
+                    parts.append(simulate.random_reference(
+                        n, seed=int(rng.integers(2**31))))
+                    pos = nxt
+            seq = "".join(parts) + chrom[pos:]
+            for _ in range(round(len(chrom) * 1e-6)):
+                n = _log_uniform(rng, *inv_len)
+                s = int(rng.integers(0, len(seq) - n))
+                seq = seq[:s] + revcomp(seq[s:s + n]) + seq[s + n:]
+            seq = simulate.simulate_read(
+                seq, 0, len(seq), sub_rate=0.001, ins_rate=0.0001,
+                del_rate=0.0001, seed=seed * 100 + 60 + c)
+            start = 0
+            while start < len(seq):
+                rest = len(seq) - start
+                n = _log_uniform(rng, *contig_len)
+                if rest - n < contig_len[0]:
+                    n = rest if rest <= contig_len[1] else rest - contig_len[0]
+                rev = bool(rng.random() < 0.5)
+                piece = seq[start:start + n]
+                contigs.append((f"tig{len(contigs)}_{name}_{start}_{n}"
+                                f"{'-' if rev else '+'}",
+                                revcomp(piece) if rev else piece))
+                start += n
+        _write_fasta(path, contigs)
+    return ref, path
+
+
+def hifi_set(n_reads=N_HIFI, genome_len=16_000_000, n_chrom=4,
+             read_len=(15_000, 25_000), seed=21, work=WORK):
+    """(ref, reads) FASTA paths of the seeded HiFi set, written once under
+    work: the genome asm_set starts from (_genome) and n_reads reads of
+    read_len bases (uniform), as many from each chromosome
+    (simulate.simulate_readset, seeds seed*100 + 70 + c), with 0.1%
+    substitutions, 0.05% insertions and 0.05% deletions (HiFi's
+    Q27-Q30), half of them reverse-complemented, each name prefixed with
+    its chromosome's.  At the defaults, 1,600 reads of 15-25 kb, about
+    32 Mbp (2x)."""
+    from mm2_gb_tpu_torch.utils import simulate
+    ref, chroms = _genome(genome_len, n_chrom, seed, work)
+    path = os.path.join(work, "hifi" + "_".join(map(str, (
+        n_reads, genome_len, n_chrom, *read_len, seed))) + ".fa")
+    if not os.path.exists(path):
+        reads = []
+        for c, (name, chrom) in enumerate(chroms()):
+            n = n_reads // n_chrom + (c < n_reads % n_chrom)
+            reads += [(f"{name}_{r}", s) for r, s in simulate.simulate_readset(
+                chrom, n, *read_len, seed=seed * 100 + 70 + c,
+                sub_rate=0.001, ins_rate=0.0005, del_rate=0.0005)]
+        _write_fasta(path, reads)
+    return ref, path
 
 
 def phase3_splice():
@@ -2965,6 +3377,26 @@ def phase4(calls):
     return hold_chain_calls(calls, "main-path", {0, len(calls) - 1})
 
 
+def launch_shape(call):
+    """The work segments of a recorded chain_segments call (args, kw, f,
+    p): the launch's own shape, or the one segment_shape gives its
+    operands (a call made without one)."""
+    from mm2_gb_tpu_torch.ops import chain_gpu as G
+    args, kw = call[0], call[1]
+    return kw.get("shape") or G.segment_shape(
+        args[3].cpu().numpy(), args[4].cpu().numpy(), args[2].cpu().numpy())
+
+
+def longest_widest(calls):
+    """(the longest segment's anchors, the widest range) over recorded
+    chain_segments calls."""
+    import torch
+    works = [torch.as_tensor(launch_shape(c).work).cpu().numpy()
+             for c in calls]
+    return (max(int((w[:, 1] - w[:, 0]).max(initial=0)) for w in works),
+            max(int(w[:, 2].max(initial=0)) for w in works))
+
+
 def hold_chain_calls(calls, label, twin=()):
     """Each recorded chain_segments call (args, kw, f, p) re-run
     KERNEL_REPS times on its own inputs and held against its recorded
@@ -3004,8 +3436,7 @@ def hold_chain_calls(calls, label, twin=()):
             plain_ms += t_plain
             msg = f", twin {t_plain:.3f} ms"
         pairs = int(args[2].sum(dtype=torch.int64))
-        sh = kw.get("shape") or G.segment_shape(
-            args[3].cpu().numpy(), args[4].cpu().numpy(), args[2].cpu().numpy())
+        sh = launch_shape(calls[i])
         w0 = ([int(v) for v in sh.work[0].tolist()] if sh.work.shape[0]
               else [0, 0, 0, 1])
         steps = w0[1] - w0[0]
@@ -3210,9 +3641,16 @@ def e2e_configs():
     """The configurations of PERF.md section 4 for the e2e bench stage:
     (tag, flags, ref, reads, reads' count, timed runs a side).  The
     sixth, ava, maps the flowcell's reads against themselves (all-vs-all
-    overlap), two timed runs a side: its runs are the longest."""
+    overlap), two timed runs a side: its runs are the longest.  The
+    seventh and eighth, hifi and asm, are the flags of phase3_hifi and
+    phase3_asm on hifi_set() and asm_set(), three timed runs a side
+    (their walls, 10-20 s a run, keep --e2e within E2E_BUDGET_S)."""
     from mm2_gb_tpu_torch.utils import gpucfg
     fc = flowcell()
+    asm = asm_set()
+    with open(asm[1]) as f:
+        n_contigs = sum(line.startswith(">") for line in f)
+    align = ["--gpu-chain", "--gpu-align"]
     return [("chain", ["--gpu-chain"], *fc, N_READS, E2E_BEST_OF),
             ("align", ["--gpu-chain", "--gpu-align", "-c"], *fc, N_READS,
              E2E_BEST_OF),
@@ -3223,7 +3661,9 @@ def e2e_configs():
             ("ultralong", ["--gpu-chain", "--gpu-cfg", os.path.join(
                 gpucfg.CONFIG_DIR, "h100_over50k.json")], *ultralong(),
              N_ULTRALONG, E2E_BEST_OF),
-            ("ava", [*AVA_FLAGS, "--gpu-chain"], fc[1], fc[1], N_READS, 2)]
+            ("ava", [*AVA_FLAGS, "--gpu-chain"], fc[1], fc[1], N_READS, 2),
+            ("hifi", [*HIFI_FLAGS, *align], *hifi_set(), N_HIFI, 3),
+            ("asm", [*ASM_FLAGS, *align], *asm, n_contigs, 3)]
 
 
 def e2e_all():
@@ -3754,9 +4194,10 @@ def fuzz_only(n, seed0, kind=None):
     """`python3 chip_smoke.py --fuzz N SEED0`: the campaign alone, for
     longer runs, with each seed's kind, flags, launches, launch classes
     and host routes as a JSON line (what FUZZ_SEEDS is chosen from);
-    exits 1 on any FAIL.  `--fuzz-ava N SEED0` (fuzz_diff's
-    kind "ava": each seed's reads against themselves at -x ava-*) also
-    exits 1 on a seed whose two outputs were both empty."""
+    exits 1 on any FAIL.  `--fuzz-ava N SEED0` and `--fuzz-asm N SEED0`
+    give every seed fuzz_diff's kind "ava" (reads against themselves at
+    -x ava-*) or "asm" (contigs against their reference at -x asm*),
+    whose seeds also fail when both outputs are empty."""
     phase1()
     c, wall = fuzz_campaign(range(seed0, seed0 + n), kind)
     t = c.totals()
@@ -3771,10 +4212,6 @@ def fuzz_only(n, seed0, kind=None):
     print(json.dumps({"fuzz": {"card": CARD, "seed0": seed0, "kind": kind,
                                "wall_s": round(wall, 3), **t}}),
           flush=True)
-    if kind and t["empty"]:
-        log(f"fuzz --kind {kind}: {sum(t['empty'].values())} seeds compared "
-            "two empty outputs")
-        return 1
     return 1 if c.failed else 0
 
 
@@ -3865,21 +4302,18 @@ def main() -> int:
     if sys.argv[1:] == ["--cfg-sweep"]:
         cfg_sweep()
         return 0
-    if sys.argv[1:] == ["--ultralong"]:
+    alone = {"--ultralong": phase3_ultralong, "--ava": phase3_ava,
+             "--asm": phase3_asm, "--hifi": phase3_hifi}
+    if sys.argv[1:] in [[k] for k in alone]:
         phase1()
         require_host_kit()
-        phase3_ultralong()
+        alone[sys.argv[1]]()
         return 0
-    if sys.argv[1:] == ["--ava"]:
-        phase1()
-        require_host_kit()
-        phase3_ava()
-        return 0
-    if (sys.argv[1:2] in (["--fuzz"], ["--fuzz-asan"], ["--fuzz-ava"])
-            and len(sys.argv) == 4):
+    if (sys.argv[1:2] in (["--fuzz"], ["--fuzz-asan"], ["--fuzz-ava"],
+                          ["--fuzz-asm"]) and len(sys.argv) == 4):
         n, seed0 = int(sys.argv[2]), int(sys.argv[3])
-        if sys.argv[1] == "--fuzz-ava":
-            return fuzz_only(n, seed0, "ava")
+        if sys.argv[1] in ("--fuzz-ava", "--fuzz-asm"):
+            return fuzz_only(n, seed0, sys.argv[1][len("--fuzz-"):])
         return (fuzz_only if sys.argv[1] == "--fuzz" else fuzz_asan)(n,
                                                                       seed0)
     if sys.argv[1:2] == ["--dp-turns"] and len(sys.argv) <= 3:
@@ -3912,6 +4346,8 @@ def main() -> int:
     timed(phase3_long_inserts)
     ul = timed(phase3_ultralong)
     ava_launches, ava_calls, ava_err, ava_ms, ava_plain = timed(phase3_ava)
+    asm = timed(phase3_asm)
+    hifi = timed(phase3_hifi)
     timed(phase3_tools, single["align"][0])
     timed(phase3_e2e)
     e, ms, plain_ms = timed(phase4, calls)
@@ -3924,6 +4360,10 @@ def main() -> int:
     ul_launches, ul_calls, ul_err, ul_ms = ul["chain"]
     ul_fcalls, (ul_fill, ul_fe, ul_fms, ul_fpl) = ul["fills"], ul["fill"]
     ul_bt, ul_bms, ul_bpl = ul["backtrack"]
+    # and the assembly and HiFi runs' fills, and the HiFi run's chains
+    hf_launches, hf_calls, hf_err, hf_ms, hf_plain = hifi["chain"]
+    al = (asm, hifi)
+    al_fcalls = asm["fcalls"] + hifi["fcalls"]
     if _params_key(scalls[0][0][-1]) != _params_key(splice_later[0][0][-1]):
         fail("the cDNA run's options differ from the splice preset's")
     se, sfms, sfpl, sbms, sbpl = timed(
@@ -3955,16 +4395,23 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("chain_segments", "mm2_gb_tpu_torch/csrc/chain_kernel.cu",
               "mm2_gb_tpu/ops/chain_tpu.py:222",
-              launches + ul_launches + ava_launches,
-              max(err, e, ul_err, ava_err), ms + ul_ms + ava_ms,
-              plain_ms + ava_plain, chain_bound(calls + ul_calls + ava_calls)),
+              launches + ul_launches + ava_launches + hf_launches,
+              max(err, e, ul_err, ava_err, hf_err),
+              ms + ul_ms + ava_ms + hf_ms, plain_ms + ava_plain + hf_plain,
+              chain_bound(calls + ul_calls + ava_calls + hf_calls)),
         entry("extd2_fill", src, "mm2_gb_tpu/ops/ksw2_tpu.py:359",
-              n_fill + ul_fill, max(fill_err, fe, ul_fe), fms + ul_fms,
-              fpl + ul_fpl, dp_bound([c[0][4:7] for c in fcalls + ul_fcalls],
-                                     OPS_PER["fill"], 4)),
+              n_fill + ul_fill + sum(a["fill_launches"] for a in al),
+              max(fill_err, fe, ul_fe, *(a["err"] for a in al)),
+              fms + ul_fms + sum(a["fill_ms"] for a in al),
+              fpl + ul_fpl + sum(a["fill_plain_ms"] for a in al),
+              dp_bound([c[0][4:7] for c in fcalls + ul_fcalls + al_fcalls],
+                       OPS_PER["fill"], 4)),
         entry("ksw2_backtrack", src, "mm2_gb_tpu/ops/ksw2_tpu.py:1472",
-              n_bt + ul_bt, max(fill_err, fe, ul_fe), bms + ul_bms,
-              bpl + ul_bpl, walk_bound([c[4:6] for c in fcalls + ul_fcalls])),
+              n_bt + ul_bt + sum(a["bt_launches"] for a in al),
+              max(fill_err, fe, ul_fe, *(a["err"] for a in al)),
+              bms + ul_bms + sum(a["bt_ms"] for a in al),
+              bpl + ul_bpl + sum(a["bt_plain_ms"] for a in al),
+              walk_bound([c[4:6] for c in fcalls + ul_fcalls + al_fcalls])),
         entry("exts2_fill", "mm2_gb_tpu_torch/csrc/exts2_kernel.cu",
               "mm2_gb_tpu/ops/ksw2_tpu.py:951", n_sfill,
               max(splice_err, se), sfms, sfpl, dp_bound(

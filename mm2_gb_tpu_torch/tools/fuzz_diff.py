@@ -3,13 +3,13 @@ random flag subsets, the port's `--gpu-chain` run path against the
 port's host route, byte-diff everything.
 
     python -m mm2_gb_tpu_torch.tools.fuzz_diff N SEED0 [--work DIR]
-        [--ref-cmd CMD] [--device cuda|cpu] [--kind ava]
+        [--ref-cmd CMD] [--device cuda|cpu] [--kind ava|asm]
 
 Seeds SEED0 .. SEED0+N-1.  The workload generators are a copy of the
 repo's tools/fuzz_diff.py (the same `random.Random(seed)` draws, so a
 seed means the same reads and flags in both tools), with the files under
 a seed-private directory of the work directory (default build/fuzz/<seed>)
-instead of /tmp, and one more kind:
+instead of /tmp, and three more kinds:
 
   genomic  - random/repeat-rich reference, long reads with subs/indels and
              occasionally planted inversions; broad flag pool.
@@ -33,6 +33,15 @@ instead of /tmp, and one more kind:
              ctg{k}, and NO_DUAL drops every hit whose query name sorts
              after its target name, so those seeds compare two empty
              outputs.
+  asm      - (not in the original, and never drawn: `--kind asm` asks for
+             it) assembly to reference: one to three random chromosomes,
+             and contigs made from them with deletions and insertions of
+             50 bases to 8 kb every 20-80 kb, now and then an inversion,
+             and 0.05-2% substitutions and up to 0.5% indels, cut into
+             contigs of 50-400 kb, half of them reverse-complemented;
+             -x asm5, asm10 or asm20 with -c, or -c --cs.  The asm
+             presets chain by RMQ on the host; their gap fills, at a
+             band of 150,001, run on the card.
 
 Each seed, of every kind, also draws -t from {1, 4, 8} after its
 workload.
@@ -53,7 +62,8 @@ REF_AHEAD reference runs go ahead of the device side.
 
 A seed matches when both sides exit 0 and their stdout is equal byte for
 byte, @PG lines aside, and, for an ava seed, no PAF line breaks the
-overlap filters (ava_order_faults).  Each seed prints one `ok`/`FAIL`
+overlap filters (ava_order_faults); a seed of a kind no seed draws (ava,
+asm) fails when both outputs are empty.  Each seed prints one `ok`/`FAIL`
 line with its kind, flags and -t; a FAIL adds both return codes, the
 first differing line and both line counts, and keeps the seed's files.  Per seed the
 port's launch counters say which kernels ran, and the `-v 3` lines the
@@ -68,6 +78,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import math
 import os
 import random
 import re
@@ -95,7 +106,7 @@ REF_CMD = [sys.executable, "-m", "mm2_gb_tpu_torch", "--device", "cpu"]
 KINDS = ("genomic", "splice", "pe", "long")
 KIND_WEIGHTS = (0.6, 0.25, 0.15, 0.05)
 # kinds a seed never draws: make_workload's kind= asks for one
-OTHER_KINDS = ("ava",)
+OTHER_KINDS = ("ava", "asm")
 THREADS = (1, 4, 8)
 ALIGN_FLAGS = ("-c", "-a", "--MD", "--eqx", "-Y")
 REF_TIMEOUT = 900
@@ -393,6 +404,59 @@ def make_ava(rng, work, tag, scale=1):
     return rng.choice(flag_pool), [qfa, qfa]
 
 
+def make_asm(rng, work, tag, scale=1):
+    """Assembly to reference: one to three random chromosomes (named
+    chr<k>) as the reference, and each one, with deletions and
+    insertions (random bases), one of the two at random, of 50 bases to
+    8 kb (log-uniform) every 20-80 kb, an inversion of 1-20 kb half of
+    the time, and substitutions and indels at one rate a seed (mutate),
+    cut into contigs of 50-400 kb (a shorter tail joins its contig),
+    half of them reverse-complemented, as the query."""
+    S = lambda n, least=1: _sc(n, scale, least)   # noqa: E731
+    comp = str.maketrans("ACGT", "TGCA")
+    chroms = ["".join(rng.choices(B, k=rng.randrange(S(100_000, 20_000),
+                                                      S(600_000, 40_000))))
+              for _ in range(rng.randrange(1, 4))]
+    sub, ind = rng.uniform(0.0005, 0.02), rng.uniform(0, 0.005)
+    lo, hi = math.log(50), math.log(S(8_000, 800))
+    contigs = []
+    for chrom in chroms:
+        parts, pos = [], 0
+        while True:
+            nxt = pos + rng.randrange(S(20_000, 2_000), S(80_000, 8_000))
+            n = int(math.exp(rng.uniform(lo, hi)))
+            if nxt + n >= len(chrom):
+                break
+            parts.append(chrom[pos:nxt])
+            if rng.random() < 0.5:   # a deletion
+                pos = nxt + n
+            else:                    # an insertion
+                parts.append("".join(rng.choices(B, k=n)))
+                pos = nxt
+        seq = "".join(parts) + chrom[pos:]
+        if rng.random() < 0.5:
+            n = rng.randrange(S(1_000, 100), S(20_000, 2_000))
+            s = rng.randrange(0, len(seq) - n)
+            seq = seq[:s] + seq[s:s + n].translate(comp)[::-1] + seq[s + n:]
+        seq = mutate(seq, rng, sub, ind)
+        start, least = 0, S(50_000, 5_000)
+        while start < len(seq):
+            n = rng.randrange(least, S(400_000, 40_000))
+            if len(seq) - start - n < least:
+                n = len(seq) - start
+            piece = seq[start:start + n]
+            if rng.random() < 0.5:
+                piece = piece.translate(comp)[::-1]
+            contigs.append((f"tig{len(contigs)}", piece))
+            start += n
+    fz = os.path.join(work, f"fz_{tag}")
+    rfa, qfa = f"{fz}_r.fa", f"{fz}_q.fa"
+    write_fa(rfa, [(f"chr{k}", c) for k, c in enumerate(chroms)])
+    write_fa(qfa, contigs)
+    flags = ["-x", rng.choice(["asm5", "asm10", "asm20"]), "-c"]
+    return flags + (["--cs"] if rng.random() < 0.5 else []), [rfa, qfa]
+
+
 def ava_order_faults(paf: str) -> list:
     """The PAF lines of an all-vs-all run (-x ava-*) that its overlap
     filters forbid: a query name that sorts after its target name (NO_DUAL
@@ -435,7 +499,7 @@ def make_workload(seed: int, work: str = WORK, scale=1,
     d = os.path.join(work, str(seed))
     os.makedirs(d, exist_ok=True)
     make = {"genomic": make_genomic, "splice": make_splice, "pe": make_pe,
-            "long": make_long, "ava": make_ava}[kind]
+            "long": make_long, "ava": make_ava, "asm": make_asm}[kind]
     flags, files = make(rng, d, seed, scale)
     return Workload(seed, kind, flags, files, rng.choice(THREADS), d)
 
@@ -567,7 +631,9 @@ class SeedResult:
         msg = (f"FAIL {head} rc={self.rc[0]} ref_rc={self.rc[1]} "
                f"line counts: ours={self.lines[0]} ref={self.lines[1]}"
                + (f" overlap-filter faults={self.faults}" if self.faults
-                  else "") + f" (files kept in {w.work})")
+                  else "")
+               + (" both outputs empty" if self.empty else "")
+               + f" (files kept in {w.work})")
         if self.first_diff:
             msg += "\n" + self.first_diff
         if self.error:
@@ -585,7 +651,9 @@ def compare(w: Workload, dev, ref, launches, seconds) -> SeedResult:
                     f"   our: {x.rstrip()[:160]}")
             break
     faults = len(ava_order_faults(dev[1])) if w.kind == "ava" else 0
-    ok = dev[0] == 0 and ref[0] == 0 and a == b and not faults
+    vacuous = w.kind in OTHER_KINDS and not a and not b
+    ok = (dev[0] == 0 and ref[0] == 0 and a == b and not faults
+          and not vacuous)
     error = "" if dev[0] == 0 else dev[2]
     if ref[0] != 0:
         error += "\n  reference stderr: " + ref[2][-1500:]
@@ -705,7 +773,8 @@ def main(argv=None) -> int:
                         "is the host route either way)")
     p.add_argument("--kind", choices=OTHER_KINDS, default=None,
                    help="give every seed this kind, which no seed draws "
-                        "(ava: reads against themselves at -x ava-*)")
+                        "(ava: reads against themselves at -x ava-*; asm: "
+                        "contigs against their reference at -x asm*)")
     a = p.parse_args(argv)
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():

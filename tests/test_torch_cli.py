@@ -83,8 +83,10 @@ def test_host_path_matches_golden(capsys):
     (["--gpu-align", "-x", "splice", "--junc-bed",
       golden_path("splice.bed.gz"), "-c"], "splice_genome.fa.gz",
      "splice_reads.fa.gz", "splice40.juncbed.c.paf.gz"),
+    (["--gpu-align", "-x", "asm5", "-c"], "simref.fa.gz", "simreads.fa.gz",
+     "sim200.asm5.c.paf.gz"),
 ], ids=["sim200", "sim200_cs_c", "max_occ_rechain", "sim200_cs_c_align",
-        "invq4_c_align", "splice40_juncbed_align"])
+        "invq4_c_align", "splice40_juncbed_align", "asm5_c_align"])
 def test_gpu_run_path_matches_golden(flags, ref, query, golden, capsys):
     before = (chain_gpu.launches, ksw2_gpu.fill_launches,
               ksw2_gpu.backtrack_launches, ksw2s_gpu.fill_launches)
@@ -92,8 +94,10 @@ def test_gpu_run_path_matches_golden(flags, ref, query, golden, capsys):
     assert rc == 0
     cap = capsys.readouterr()
     assert cap.out == _gold(golden)
-    assert "[M::gpu]" in cap.err and "host route: 0 HPC batches" \
-        in cap.err
+    # the asm presets chain by RMQ, on the host
+    rmq = "1" if "asm5" in flags else "0"
+    assert "[M::gpu]" in cap.err and ("host route: 0 HPC batches, "
+                                      f"{rmq} RMQ batches") in cap.err
     m = re.search(r"fills: (\d+) \((\d+) device, (\d+) host-routed\)",
                   cap.err)
     if "--gpu-align" in flags:

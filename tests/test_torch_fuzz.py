@@ -21,6 +21,10 @@
   filters fails; and a genomic seed that draws -x ava-ont (reads named
   q{i} against a reference named fr or ctg{k}: NO_DUAL drops every hit)
   is counted among the seeds whose two outputs were both empty.
+- The `asm` kind, which no seed draws either (`--kind asm`): contigs with
+  SVs against their reference at -x asm*, one seed at scale 0.1 on the
+  twins against the JAX package's host path; a seed of either kind no
+  seed draws fails when both its outputs are empty.
 """
 
 import contextlib
@@ -245,6 +249,33 @@ def test_a_genomic_seed_at_ava_ont_is_counted_empty(tmp_path):
     assert c.totals()["empty"] == {"genomic -x ava-ont": 1}
     assert ("both outputs empty: 1 seeds, by kind and flags "
             "{'genomic -x ava-ont': 1}") in c.summary()
+
+
+def test_an_asm_seed_aligns_contigs(tmp_path):
+    """Seed 2 of the asm kind at scale 0.1 (one contig of 26 kb with
+    deletions and insertions, at -x asm10 -c --cs): its chains go to the
+    host by RMQ, its gap fills through the fill twin, and its PAF equals
+    the JAX package's host path's."""
+    out = io.StringIO()
+    c = F.campaign([2], torch.device("cpu"), str(tmp_path), ref=_jax_host,
+                   scale=SCALE, out=out, kind="asm")
+    r = c.results[0]
+    assert r.ok, out.getvalue()
+    assert (r.w.kind, r.w.flags) == ("asm", ["-x", "asm10", "-c", "--cs"])
+    assert r.lines[0] == r.lines[1] > 0 and not r.empty
+    assert r.routes["rmq_host_batches"] > 0
+    assert r.routes["hpc_host_batches"] == 0
+    assert r.routes["fills"] > 0 and r.routes["fills_host"] == 0
+
+
+@pytest.mark.parametrize("kind", F.OTHER_KINDS)
+def test_a_seed_of_a_kind_no_seed_draws_fails_on_empty_outputs(kind,
+                                                               tmp_path):
+    w = F.make_workload(0, str(tmp_path), SCALE, kind=kind)
+    r = F.compare(w, (0, "", ""), (0, "", ""), F.Counter(), 0)
+    assert not r.ok and r.empty and "both outputs empty" in r.line()
+    w.kind = "genomic"   # a drawn kind may compare two empty outputs
+    assert F.compare(w, (0, "", ""), (0, "", ""), F.Counter(), 0).ok
 
 
 # the smoke's fuzz seeds (chip_smoke.FUZZ_SEEDS): each one's kind and

@@ -153,7 +153,10 @@ def test_fill_kernels_match_twins_and_oracle(cuda, name, meta, qb, tb, prm,
     (["--alt", os.path.join(GOLDEN, "alt.txt"), "-c"], "altref.fa.gz",
      "simreads.fa.gz", "alt200.c.paf.gz"),
     (["-c"], "invq4.ref.fa.gz", "invq4.q.fa.gz", "invq4.skipinf.c.paf.gz"),
-], ids=["sim200_cs_c", "map_hifi_c", "rep60_max_occ", "alt200", "invq4"])
+    *[(["-x", p, "-c"], "simref.fa.gz", "simreads.fa.gz",
+       f"sim200.{p}.c.paf.gz") for p in ("asm5", "asm10", "asm20")],
+], ids=["sim200_cs_c", "map_hifi_c", "rep60_max_occ", "alt200", "invq4",
+        "asm5_c", "asm10_c", "asm20_c"])
 def test_gpu_align_cli_matches_golden(cuda, flags, ref, query, golden,
                                       capsys):
     from mm2_gb_tpu_torch.cli import main

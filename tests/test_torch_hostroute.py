@@ -12,7 +12,8 @@ the CPU:
   for byte, in process, on the non-device flags of every e2e
   configuration (flowcell-like reads at map-ont, `-c`, `--qstrand -c`; a
   small cDNA set at `-ax splice`; reads from the ultra-long set's
-  generator; flowcell-like reads against themselves at `-x ava-ont`),
+  generator; flowcell-like reads against themselves at `-x ava-ont`;
+  small HiFi and assembly sets at `-ax map-hifi` and `-cx asm5 --cs`),
   on the repo's goldens, and on the fuzzer's workloads run
   through its default reference command in a subprocess;
 - `--device cpu` with a device flag, a bad `--device`, and no CUDA device
@@ -90,7 +91,8 @@ def inputs(tmp_path_factory):
     """Small seeded inputs from the generators of the e2e configurations'
     sets: the flowcell's (random_reference, simulate_readset, seeds 1 and
     3), the cDNA set's (chip_smoke.cdna_set, seed 11) and the ultra-long
-    set's (random_repetitive_reference, seeds 11 and 12), each cut in
+    set's (random_repetitive_reference, seeds 11 and 12), the HiFi and
+    assembly sets' (chip_smoke.hifi_set, asm_set, seed 21), each cut in
     size, and for the overlap configuration 24 flowcell-like reads at
     about 2.5x coverage as both the target and the query: (ref, reads) by
     set."""
@@ -108,7 +110,13 @@ def inputs(tmp_path_factory):
                                work=str(d))
     ava = _fasta(d / "ava_reads.fa", simulate_readset(
         random_reference(120_000, seed=1), 24, 5_000, 20_000, seed=3))
-    return {"flowcell": fc, "ultralong": ul, "cdna": cdna, "ava": (ava, ava)}
+    hifi = chip_smoke.hifi_set(6, genome_len=200_000, n_chrom=1,
+                               work=str(d))
+    asm = chip_smoke.asm_set(genome_len=200_000, n_chrom=1,
+                             sv_gap=(20_000, 40_000),
+                             contig_len=(50_000, 100_000), work=str(d))
+    return {"flowcell": fc, "ultralong": ul, "cdna": cdna, "ava": (ava, ava),
+            "hifi": hifi, "asm": asm}
 
 
 # the card side's flags of each e2e configuration (chip_smoke.e2e_configs,
@@ -123,6 +131,8 @@ E2E = [
     ("ultralong", ["--gpu-chain", "--gpu-cfg", os.path.join(
         gpucfg.CONFIG_DIR, "h100_over50k.json")], "ultralong"),
     ("ava", ["-x", "ava-ont", "--gpu-chain"], "ava"),
+    ("hifi", ["-ax", "map-hifi", "--gpu-chain", "--gpu-align"], "hifi"),
+    ("asm", ["-cx", "asm5", "--cs", "--gpu-chain", "--gpu-align"], "asm"),
 ]
 
 
@@ -133,8 +143,10 @@ def test_the_host_route_is_the_jax_host_path(extra, name, inputs):
     card side's) map to the JAX package's bytes, SAM's @PG line too."""
     out = _both([SKIP_INF, "-t", "2", *E.host_flags(extra), *inputs[name]])
     assert out.count("\n") >= 3
-    if "-ax" in extra:   # SAM with introns
-        assert out.startswith("@SQ") and re.search(r"\t[0-9MIDS]+N", out)
+    if "-ax" in extra:   # SAM
+        assert out.startswith("@SQ")
+    if "splice" in extra:   # with introns
+        assert re.search(r"\t[0-9MIDS]+N", out)
 
 
 @pytest.mark.parametrize("flags,ref,query,golden", [
