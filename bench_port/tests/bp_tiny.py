@@ -1,0 +1,34 @@
+"""Tiny copies of the benchmark's cells, for the CPU tests: the same
+configuration and traffic files, with a 1 Mbp genome of two chromosomes,
+a few short reads and two host threads."""
+
+from __future__ import annotations
+
+import copy
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from bench_port import harness  # noqa: E402
+
+TINY = {
+    "hifi.sam": dict(n_reads=24, warm_reads=4, check_reads=3,
+                     length=dict(min=4000, max=7000)),
+}
+
+
+def cell(name: str):
+    """Cell `name` of BENCHMARK.json at the tiny size."""
+    c = harness.load_cell(name, ROOT)
+    c.config = copy.deepcopy(c.config)
+    c.traffic = copy.deepcopy(c.traffic)
+    c.config.update(genome_length=1_000_000, chromosomes=2)
+    c.config["argv"] = [a if a != "8" else "2" for a in c.config["argv"]]
+    t = dict(TINY[name])
+    c.traffic["length"].update(t.pop("length"))
+    c.traffic.update(t)
+    return c
