@@ -22,8 +22,9 @@ extensions of -c runs on the device.  The JAX package's scale-out flags
 map as there: --tpu-devices N shards each batch's reads over N devices
 (parallel.mesh), --tpu-nproc/--tpu-rank/--tpu-coord write one rank's
 round-robin share into OUT.shard<rank> for tools/mergeshards.py,
---tpu-profile DIR writes a torch.profiler trace of the mapping run, and
-a multi-part index (-I, --split-prefix) maps one single-segment query
+--tpu-profile DIR writes a torch.profiler trace of the mapping run (with
+the main thread's stages as ranges, utils.timeline.span), and a
+multi-part index (-I, --split-prefix) maps one single-segment query
 file part by part on the device.  The --gpu-* spellings of these flags
 are accepted too.  Several query files over a multi-part index,
 fragment mode and a prebuilt multi-part index keep the host chaining
@@ -37,6 +38,7 @@ import os
 import sys
 
 from mm2_gb_tpu_torch.utils import opts as O
+from mm2_gb_tpu_torch.utils import timeline
 
 # the port's spellings of the parser's TPU flags (parse_args)
 _GPU_FLAGS = {f"--gpu-{name}": f"--tpu-{name}" for name in
@@ -690,10 +692,9 @@ def _run(args, argv, io, mo, device="cuda") -> int:
                              "sequences.\n")  # main.c:406-408
             return 1
     else:
-        from mm2_gb_tpu_torch.utils.timeline import mark
-        mark("index build start")
+        timeline.mark("index build start")
         index = MinimizerIndex.from_fasta(args.target, io)
-        mark("index built")
+        timeline.mark("index built")
     if args.dump_index:
         index.save(args.dump_index)
         if not args.query:
@@ -764,10 +765,12 @@ def _run(args, argv, io, mo, device="cuda") -> int:
             [ProfilerActivity.CUDA] if device.type == "cuda" else []))
         prof.start()
     try:
-        if args.tpu_nproc > 1:
-            return _run_gpu_multihost(args, index, mo, rg_id, is_sam,
-                                      sam_header, device)
-        return _run_gpu(args, index, mo, rg_id, is_sam, out, device)
+        # the trace holds the main thread's spans; none is kept besides
+        with timeline.trace_only():
+            if args.tpu_nproc > 1:
+                return _run_gpu_multihost(args, index, mo, rg_id, is_sam,
+                                          sam_header, device)
+            return _run_gpu(args, index, mo, rg_id, is_sam, out, device)
     finally:
         if prof is not None:
             prof.stop()
@@ -809,9 +812,8 @@ def _run_gpu(args, index, mo, rg_id, is_sam, out, device) -> int:
     from mm2_gb_tpu_torch.models.pipeline import (GpuMetrics,
                                                   map_file_gpu_records)
     from mm2_gb_tpu_torch.utils.gpucfg import derive_caps
-    from mm2_gb_tpu_torch.utils.timeline import mark
     derive_caps(device, args.verbose)
-    mark("mapping start")
+    timeline.mark("mapping start")
     gmet = GpuMetrics()
     devices = run_devices(args.tpu_devices, device) \
         if args.tpu_devices != 1 else [device]
@@ -829,7 +831,7 @@ def _run_gpu(args, index, mo, rg_id, is_sam, out, device) -> int:
         for sr, regs in records:
             res_regs_out(out, index, mo, sr.rec, regs, sr.rep_len,
                          is_sam, rg_id, 0, 1, [regs])
-    mark("mapping done")
+    timeline.mark("mapping done")
     gmet.report(args.verbose)
     return 0
 
@@ -913,27 +915,29 @@ def _qname_same(a: str, b: str) -> bool:
 
 def res_regs_out(out, index, mo, rec, regs, rep_len, is_sam, rg_id,
                  seg_idx, n_seg, seg_regs) -> None:
+    """Write one read's records, in an `output.read` span."""
     from mm2_gb_tpu_torch.utils.paf import write_paf
     from mm2_gb_tpu_torch.utils.sam import write_sam_record
-    if regs:
-        for j, r in enumerate(regs):
-            if (mo.flag & O.MM_F_NO_PRINT_2ND) and r.id != r.parent:
-                continue
-            if is_sam:
-                out.write(write_sam_record(
-                    index, rec, j, regs, mo.flag, rep_len, rg_id,
-                    seg_idx, n_seg, seg_regs) + "\n")
-            else:
-                out.write(write_paf(r, rec.name, rec.length, index,
-                                    mo.flag, rep_len, rec.comment,
-                                    rec.seq) + "\n")
-    elif is_sam and not (mo.flag & O.MM_F_SAM_HIT_ONLY):
-        out.write(write_sam_record(index, rec, -1, regs, mo.flag,
-                                   rep_len, rg_id, seg_idx, n_seg,
-                                   seg_regs) + "\n")
-    elif (mo.flag & O.MM_F_PAF_NO_HIT) and not is_sam:
-        out.write(write_paf(None, rec.name, rec.length, index,
-                            mo.flag, rep_len) + "\n")
+    with timeline.span("output.read"):
+        if regs:
+            for j, r in enumerate(regs):
+                if (mo.flag & O.MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                    continue
+                if is_sam:
+                    out.write(write_sam_record(
+                        index, rec, j, regs, mo.flag, rep_len, rg_id,
+                        seg_idx, n_seg, seg_regs) + "\n")
+                else:
+                    out.write(write_paf(r, rec.name, rec.length, index,
+                                        mo.flag, rep_len, rec.comment,
+                                        rec.seq) + "\n")
+        elif is_sam and not (mo.flag & O.MM_F_SAM_HIT_ONLY):
+            out.write(write_sam_record(index, rec, -1, regs, mo.flag,
+                                       rep_len, rg_id, seg_idx, n_seg,
+                                       seg_regs) + "\n")
+        elif (mo.flag & O.MM_F_PAF_NO_HIT) and not is_sam:
+            out.write(write_paf(None, rec.name, rec.length, index,
+                                mo.flag, rep_len) + "\n")
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ driver's fill cache.
 
 from __future__ import annotations
 
+import itertools
 import sys
 import threading
 import time
@@ -46,7 +47,7 @@ from mm2_gb_tpu_torch.ops import chain_rmq as rmq_ops
 from mm2_gb_tpu_torch.ops import seed as seed_ops
 from mm2_gb_tpu_torch.ops.sdust import dust_minier
 from mm2_gb_tpu_torch.ops.sketch import sketch
-from mm2_gb_tpu_torch.utils import ksort, native
+from mm2_gb_tpu_torch.utils import ksort, native, timeline
 from mm2_gb_tpu_torch.utils.fastx import SeqRecord, read_batches
 from mm2_gb_tpu_torch.utils.gpucfg import current_config
 from mm2_gb_tpu_torch.utils.hashkit import read_order_hash
@@ -67,6 +68,7 @@ class SeededRead:
     rep_len: int
     mini_pos: np.ndarray
     mv: np.ndarray | None = None  # retained for the max_occ re-chain
+    batch: int = -1               # the accumulation batch (_acc_batches)
 
 
 def seed_read(index: MinimizerIndex, opt: MapOptions, rec: SeqRecord
@@ -256,6 +258,17 @@ class GpuMetrics:
               f"{fs.misses['ext']} ext, {fs.misses['splice']} splice\n")
 
 
+# accumulation batch ids, unique in the process (SeededRead.batch, spans)
+_BATCH_IDS = itertools.count()
+
+
+def _seed_one(index: MinimizerIndex, opt: MapOptions, rec: SeqRecord,
+              batch: int) -> SeededRead:
+    """seed_read in a `seed.read` span of `batch`."""
+    with timeline.span("seed.read", batch):
+        return seed_read(index, opt, rec)
+
+
 def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
                  metrics: GpuMetrics, pool=None,
                  shard: tuple[int, int] | None = None):
@@ -271,11 +284,16 @@ def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
     `shard=(rank, nproc)` keeps only the reads whose global index is
     owned by this process (round-robin), the multi-process split; each
     SeededRead carries its global index in rec.rid for the merge, and
-    metrics.n_scanned counts every record seen."""
+    metrics.n_scanned counts every record seen.
+
+    Each batch takes an id from _BATCH_IDS (SeededRead.batch); a chunk's
+    `seed.chunk` span and its reads' `seed.read` spans carry the id of
+    the batch being filled when the chunk starts."""
     cfg = current_config()
     acc: list[SeededRead] = []
     n_anch = 0
     gidx = -1
+    bid = next(_BATCH_IDS)
     for batch in read_batches(paths, opt.mini_batch_size):
         mine = []
         for rec in batch:
@@ -289,13 +307,13 @@ def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
             mine.append(rec)
         for c0 in range(0, len(mine), 64):
             chunk = mine[c0:c0 + 64]
-            t0 = time.perf_counter()
-            if pool is not None and len(chunk) > 1:
-                seeded = list(pool.map(
-                    lambda r: seed_read(index, opt, r), chunk))
-            else:
-                seeded = [seed_read(index, opt, r) for r in chunk]
-            metrics.t_seed += time.perf_counter() - t0
+            with timeline.span("seed.chunk", bid) as sp:
+                if pool is not None and len(chunk) > 1:
+                    seeded = list(pool.map(
+                        lambda r: _seed_one(index, opt, r, bid), chunk))
+                else:
+                    seeded = [_seed_one(index, opt, r, bid) for r in chunk]
+            metrics.t_seed += sp.wall_s
             for sr in seeded:
                 metrics.n_reads += 1
                 metrics.n_anchors += int(sr.ax.shape[0])
@@ -304,11 +322,14 @@ def _acc_batches(index: MinimizerIndex, opt: MapOptions, paths: list[str],
                     metrics.n_spills += 1
                     yield acc
                     acc, n_anch = [], 0
+                    bid = next(_BATCH_IDS)
+                sr.batch = bid
                 acc.append(sr)
                 n_anch += int(sr.ax.shape[0])
         if acc:
             yield acc
             acc, n_anch = [], 0
+            bid = next(_BATCH_IDS)
 
 
 def chain_args(index: MinimizerIndex, opt: MapOptions) -> dict:
@@ -352,18 +373,28 @@ def finish_slices(index: MinimizerIndex, opt: MapOptions, slices,
     per-read work fans out, output order is the input order).  Debug
     dump modes stay sequential so their stderr interleaving matches the
     reference's -t 1 requirement (main.c:209,213).  Ends the fill
-    session however the pass ends (_end_fill_session)."""
+    session however the pass ends (_end_fill_session).  A `finish.slices`
+    span holds the pass, a `finish.read` span each read."""
     try:
-        if (pool is not None and len(slices) > 1
-                and not (opt.dbg_print_seed or opt.dbg_print_chain
-                         or opt.dbg_print_qname)):
-            futs = [pool.submit(finish_read, index, opt, sr, fp, pp)
+        with timeline.span("finish.slices"):
+            if (pool is not None and len(slices) > 1
+                    and not (opt.dbg_print_seed or opt.dbg_print_chain
+                             or opt.dbg_print_qname)):
+                futs = [pool.submit(_finish_one, index, opt, sr, fp, pp)
+                        for sr, fp, pp in slices]
+                return [(sl[0], fu.result())
+                        for sl, fu in zip(slices, futs)]
+            return [(sr, _finish_one(index, opt, sr, fp, pp))
                     for sr, fp, pp in slices]
-            return [(sl[0], fu.result()) for sl, fu in zip(slices, futs)]
-        return [(sr, finish_read(index, opt, sr, fp, pp))
-                for sr, fp, pp in slices]
     finally:
         _end_fill_session()
+
+
+def _finish_one(index: MinimizerIndex, opt: MapOptions, sr: SeededRead,
+                f: np.ndarray, p: np.ndarray) -> list[hitmod.Region]:
+    """finish_read of the real pass in a `finish.read` span."""
+    with timeline.span("finish.read", sr.batch):
+        return finish_read(index, opt, sr, f, p)
 
 
 def _end_fill_session() -> None:
@@ -405,26 +436,27 @@ def _prefill_native(index: MinimizerIndex, opt: MapOptions, slices: list,
     pass (and answers it with a fake), the kernels solve them, and the
     results go into the aligner's table, which the real pass
     (finish_slices) reads.  The collect pass writes no debug dump."""
-    t0 = time.perf_counter()
     native.fill_mode(1)
     try:
-        for sr, fp, pp in slices:
-            finish_read(index, opt, sr, fp, pp, dump=False)
-        meta, qblob, tblob = native.fill_fetch()
-        metrics.t_collect += time.perf_counter() - t0
+        with timeline.span("fill.collect") as sp:
+            for sr, fp, pp in slices:
+                finish_read(index, opt, sr, fp, pp, dump=False)
+            meta, qblob, tblob = native.fill_fetch()
+        metrics.t_collect += sp.wall_s
         scores, cig_off, cig_blob = ksw2_gpu.extd2_fill_batch(
             meta, qblob, tblob, ksw2_gpu.fill_params(opt), device,
             stats=metrics.fills)
-        t0 = time.perf_counter()
-        qoff = np.zeros(meta.shape[0] + 1, np.int64)
-        toff = np.zeros(meta.shape[0] + 1, np.int64)
-        np.cumsum(meta[:, 0], out=qoff[1:])
-        np.cumsum(meta[:, 1], out=toff[1:])
-        # duplicate keys dedup C-side (first entry wins; results identical)
-        native.fill_table_bulk(meta, qoff, qblob, toff, tblob, scores,
-                               cig_off, cig_blob)
-        native.fill_mode(2)
-        metrics.t_table += time.perf_counter() - t0
+        with timeline.span("fill.table") as sp:
+            qoff = np.zeros(meta.shape[0] + 1, np.int64)
+            toff = np.zeros(meta.shape[0] + 1, np.int64)
+            np.cumsum(meta[:, 0], out=qoff[1:])
+            np.cumsum(meta[:, 1], out=toff[1:])
+            # duplicate keys dedup C-side (first entry wins; results
+            # identical)
+            native.fill_table_bulk(meta, qoff, qblob, toff, tblob, scores,
+                                   cig_off, cig_blob)
+            native.fill_mode(2)
+        metrics.t_table += sp.wall_s
     except BaseException:
         native.fill_mode(0)
         raise
@@ -444,32 +476,32 @@ def _prefill_device(index: MinimizerIndex, opt: MapOptions, slices: list,
     Extensions always go to the card here (align.collect_ext, set for
     the session; _end_fill_session turns it off).  The collect pass
     writes no debug dump."""
-    t0 = time.perf_counter()
     try:
-        align_ops.collect_ext = True
-        align_ops.begin_fill_collect()
-        try:
-            for sr, fp, pp in slices:
-                finish_read(index, opt, sr, fp, pp, dump=False)
-        finally:
-            fills = align_ops.end_fill_collect()
-        groups: dict = {}
-        for kind, qseq, tseq, w, flag, zdrop, end_bonus, junc in fills:
-            key = align_ops._fill_key(qseq, tseq, w, flag, zdrop, end_bonus,
-                                      junc)
-            group = ("splice",) if kind == "splice" else (kind, flag,
-                                                          end_bonus)
-            groups.setdefault(group, {}).setdefault(
-                key, (qseq, tseq, w, flag, zdrop, junc))
-        metrics.t_collect += time.perf_counter() - t0
+        with timeline.span("fill.collect") as sp:
+            align_ops.collect_ext = True
+            align_ops.begin_fill_collect()
+            try:
+                for sr, fp, pp in slices:
+                    finish_read(index, opt, sr, fp, pp, dump=False)
+            finally:
+                fills = align_ops.end_fill_collect()
+            groups: dict = {}
+            for kind, qseq, tseq, w, flag, zdrop, end_bonus, junc in fills:
+                key = align_ops._fill_key(qseq, tseq, w, flag, zdrop,
+                                          end_bonus, junc)
+                group = ("splice",) if kind == "splice" else (kind, flag,
+                                                              end_bonus)
+                groups.setdefault(group, {}).setdefault(
+                    key, (qseq, tseq, w, flag, zdrop, junc))
+        metrics.t_collect += sp.wall_s
         cache = _FillCache(metrics.fills.misses,
                            bool(opt.flag & MM_F_SPLICE))
         for group, uniq in groups.items():
             cache.update(zip(uniq, _solve_group(group, list(uniq.values()),
                                                 opt, metrics, device)))
-        t0 = time.perf_counter()
-        align_ops.set_fill_cache(cache)
-        metrics.t_table += time.perf_counter() - t0
+        with timeline.span("fill.table") as sp:
+            align_ops.set_fill_cache(cache)
+        metrics.t_table += sp.wall_s
     except BaseException:
         _end_fill_session()
         raise
@@ -553,25 +585,28 @@ def _finish_batch(index: MinimizerIndex, opt: MapOptions, batch,
                   metrics: GpuMetrics, pool, device: torch.device
                   ) -> list[tuple[SeededRead, list]]:
     """Collect device scores, run the batch's device gap fills
-    (--gpu-align), backtrack and post-process one batch."""
+    (--gpu-align), backtrack and post-process one batch, in a
+    `finish.batch` span; metrics.t_finish takes its time less the
+    readback's (`chain.readback`, metrics.t_wait)."""
     acc, bounds, pend = batch
-    t0 = time.perf_counter()
-    f, p = pend.collect()
-    metrics.t_wait += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    slices = []
-    for i, sr in enumerate(acc):
-        s, e = int(bounds[i]), int(bounds[i + 1])
-        fp = f[s:e]
-        pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
-        slices.append((sr, fp, pp))
-    if use_device_align(opt):
-        if _native_session(opt):
-            _prefill_native(index, opt, slices, metrics, device)
-        else:
-            _prefill_device(index, opt, slices, metrics, device)
-    out = finish_slices(index, opt, slices, pool)
-    metrics.t_finish += time.perf_counter() - t0
+    with timeline.span("finish.batch",
+                       acc[0].batch if acc else -1) as fin:
+        with timeline.span("chain.readback") as wait:
+            f, p = pend.collect()
+        metrics.t_wait += wait.wall_s
+        slices = []
+        for i, sr in enumerate(acc):
+            s, e = int(bounds[i]), int(bounds[i + 1])
+            fp = f[s:e]
+            pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
+            slices.append((sr, fp, pp))
+        if use_device_align(opt):
+            if _native_session(opt):
+                _prefill_native(index, opt, slices, metrics, device)
+            else:
+                _prefill_device(index, opt, slices, metrics, device)
+        out = finish_slices(index, opt, slices, pool)
+    metrics.t_finish += (fin.wall_ns - wait.wall_ns) / 1e9
     return out
 
 
@@ -627,20 +662,32 @@ def stream_batches(index: MinimizerIndex, opt: MapOptions,
     pool = (ThreadPoolExecutor(max_workers=n_threads)
             if n_threads > 1 else None)
     try:
-        pending = None
+        pending = None   # (future, batch id)
         for acc in _acc_batches(index, opt, paths, metrics, pool, shard):
-            fut = ex.submit(dispatch, acc)
+            fut = ex.submit(_dispatch_one, dispatch, acc)
             if pending is not None:
-                yield from _finish_batch(index, opt, pending.result(),
+                yield from _finish_batch(index, opt, _wait(*pending),
                                          metrics, pool, device)
-            pending = fut
+            pending = fut, acc[0].batch
         if pending is not None:
-            yield from _finish_batch(index, opt, pending.result(), metrics,
+            yield from _finish_batch(index, opt, _wait(*pending), metrics,
                                      pool, device)
     finally:
         ex.shutdown(wait=True)
         if pool is not None:
             pool.shutdown(wait=True)
+
+
+def _dispatch_one(dispatch, acc: list[SeededRead]):
+    """dispatch(acc) in a `dispatch.batch` span (the dispatch thread)."""
+    with timeline.span("dispatch.batch", acc[0].batch):
+        return dispatch(acc)
+
+
+def _wait(fut, batch: int):
+    """The dispatched batch, waited for in a `dispatch.wait` span."""
+    with timeline.span("dispatch.wait", batch):
+        return fut.result()
 
 
 def map_file_gpu(index: MinimizerIndex, opt: MapOptions,

@@ -30,7 +30,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from mm2_gb_tpu_torch.utils import kernels
+from mm2_gb_tpu_torch.utils import kernels, timeline
 
 INT32_MIN = -(2**31)
 
@@ -443,10 +443,10 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
     the twin runs before it returns.  Non-uniform-span (HPC) input
     chains on the host, mirroring the reference GPU path's fixed-span
     restriction (plscore.cuh:11) and CPU fallback (map.c:1030-1035); the
-    route is counted in `metrics`.
+    route is counted in `metrics`.  The three steps are spans
+    (`dispatch.range`, `dispatch.pack`, `dispatch.upload`) that feed
+    metrics.t_range, t_pack and t_dispatch.
     """
-    import time
-
     device = torch.device(device)
     n = ax.shape[0]
     pend = PendingScores(n)
@@ -474,13 +474,13 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
             metrics.n_host_hpc += 1
         return pend
 
-    t0 = time.perf_counter()
-    rng = compute_ranges(ax, read_bounds, max_dist_x, max_iter)
-    bounds = cut_segments(rng)
-    n_segs = bounds.shape[0] - 1
-    starts, ends = segment_work(bounds)
+    with timeline.span("dispatch.range") as sp:
+        rng = compute_ranges(ax, read_bounds, max_dist_x, max_iter)
+        bounds = cut_segments(rng)
+        n_segs = bounds.shape[0] - 1
+        starts, ends = segment_work(bounds)
     if metrics is not None:
-        metrics.t_range += time.perf_counter() - t0
+        metrics.t_range += sp.wall_s
         metrics.n_segs += int(n_segs)
         metrics.n_pairs += int(rng.sum(dtype=np.int64))
 
@@ -493,55 +493,59 @@ def dispatch_scores(ax: np.ndarray, ay: np.ndarray,
         pend.collected = True
         return pend
 
-    t0 = time.perf_counter()
     cuda = device.type == "cuda"
-    # the kernel's work rows first, where the buffer is 16-aligned
-    shape = segment_shape(starts, ends, rng) if cuda else None
-    w = 4 * m if cuda else 0
-    host = torch.empty(w + 3 * n + 2 * m, dtype=torch.int32, pin_memory=cuda)
-    hv = host.numpy()
-    if cuda:
-        hv[:w] = shape.work.ravel()
-    hv[w:w + n] = (ax & np.uint64(0xFFFFFFFF)).astype(np.int32)
-    hv[w + n:w + 2 * n] = (ay & np.uint64(0xFFFFFFFF)).astype(np.int32)
-    hv[w + 2 * n:w + 3 * n] = rng
-    hv[w + 3 * n:w + 3 * n + m] = starts
-    hv[w + 3 * n + m:] = ends
+    with timeline.span("dispatch.pack") as sp:
+        # the kernel's work rows first, where the buffer is 16-aligned
+        shape = segment_shape(starts, ends, rng) if cuda else None
+        w = 4 * m if cuda else 0
+        host = torch.empty(w + 3 * n + 2 * m, dtype=torch.int32,
+                           pin_memory=cuda)
+        hv = host.numpy()
+        if cuda:
+            hv[:w] = shape.work.ravel()
+        hv[w:w + n] = (ax & np.uint64(0xFFFFFFFF)).astype(np.int32)
+        hv[w + n:w + 2 * n] = (ay & np.uint64(0xFFFFFFFF)).astype(np.int32)
+        hv[w + 2 * n:w + 3 * n] = rng
+        hv[w + 3 * n:w + 3 * n + m] = starts
+        hv[w + 3 * n + m:] = ends
     if metrics is not None:
-        metrics.t_pack += time.perf_counter() - t0
+        metrics.t_pack += sp.wall_s
         metrics.n_dispatch += 1
 
-    t0 = time.perf_counter()
     params = dict(span=span, max_dist_x=max_dist_x, max_dist_y=max_dist_y,
                   bw=bw, cg=cg, cs=cs, is_cdna=is_cdna)
-    if cuda:
-        stream = stream or torch.cuda.Stream(device=device)
-        t_start = torch.cuda.Event(enable_timing=True)
-        t_end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(stream):
-            dev = host.to(device, non_blocking=True)
-            ops, shape = dev[w:], replace(shape, work=dev[:w].view(m, 4))
-            f, p = chain_segments(ops[:n], ops[n:2 * n], ops[2 * n:3 * n],
-                                  ops[3 * n:3 * n + m], ops[3 * n + m:],
-                                  events=(t_start, t_end), shape=shape,
-                                  **params)
-            out = torch.empty((2, n), dtype=torch.int32, pin_memory=True)
-            out[0].copy_(f, non_blocking=True)
-            out[1].copy_(p, non_blocking=True)
-            pend.done = torch.cuda.Event()
-            pend.done.record(stream)
-        pend.timing = (t_start, t_end)
-        pend.keep = (host, dev, f, p)
-    else:
-        f, p = chain_segments(host[:n], host[n:2 * n], host[2 * n:3 * n],
-                              host[3 * n:3 * n + m], host[3 * n + m:],
-                              **params)
-        out = torch.stack([f, p])
-    pend.out = out
-    pend.collected = False
-    pend.metrics = metrics
+    with timeline.span("dispatch.upload") as sp:
+        if cuda:
+            stream = stream or torch.cuda.Stream(device=device)
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                dev = host.to(device, non_blocking=True)
+                ops, shape = dev[w:], replace(shape,
+                                              work=dev[:w].view(m, 4))
+                f, p = chain_segments(ops[:n], ops[n:2 * n],
+                                      ops[2 * n:3 * n],
+                                      ops[3 * n:3 * n + m], ops[3 * n + m:],
+                                      events=(t_start, t_end), shape=shape,
+                                      **params)
+                out = torch.empty((2, n), dtype=torch.int32,
+                                  pin_memory=True)
+                out[0].copy_(f, non_blocking=True)
+                out[1].copy_(p, non_blocking=True)
+                pend.done = torch.cuda.Event()
+                pend.done.record(stream)
+            pend.timing = (t_start, t_end)
+            pend.keep = (host, dev, f, p)
+        else:
+            f, p = chain_segments(host[:n], host[n:2 * n],
+                                  host[2 * n:3 * n], host[3 * n:3 * n + m],
+                                  host[3 * n + m:], **params)
+            out = torch.stack([f, p])
+        pend.out = out
+        pend.collected = False
+        pend.metrics = metrics
     if metrics is not None:
-        metrics.t_dispatch += time.perf_counter() - t0
+        metrics.t_dispatch += sp.wall_s
     return pend
 
 

@@ -35,7 +35,6 @@ extensions.  Host route (ksw2.extd2, counted): band collapse, the
 
 from __future__ import annotations
 
-import time
 from collections import Counter
 from dataclasses import dataclass, field
 
@@ -43,7 +42,7 @@ import numpy as np
 import torch
 
 from mm2_gb_tpu_torch.ops import ksw2
-from mm2_gb_tpu_torch.utils import kernels
+from mm2_gb_tpu_torch.utils import kernels, timeline
 
 KSW_NEG_INF = ksw2.KSW_NEG_INF
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
@@ -1060,88 +1059,91 @@ def _extd2_batch(meta, qblob, tblob, prm: FillParams, flag: int,
     """extd2_fill_batch (ext False: meta [qlen, tlen, w, zdrop], zdrop
     unused) and extd2_ext_batch (meta [qlen, tlen, w, zdrop]): (scores
     [n] or EXT_FIELDS [n, 10], cig_off, cig_blob); the counts go to the
-    gap-fill or the extension fields of stats."""
-    t_start = time.perf_counter()
-    device = torch.device(device)
-    n = meta.shape[0]
-    qlen, tlen, w, zdrop = meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3]
-    qoff = np.zeros(n + 1, np.int64)
-    toff = np.zeros(n + 1, np.int64)
-    np.cumsum(qlen, out=qoff[1:])
-    np.cumsum(tlen, out=toff[1:])
-    wv = np.where(w < 0, np.maximum(qlen, tlen), w)
-    right = bool(flag & ksw2.KSW_EZ_RIGHT)
-    rev = bool(flag & ksw2.KSW_EZ_REV_CIGAR)
-    host = (qlen <= 0) | (tlen <= 0) | band_collapses(qlen, tlen, wv)
-    if prm.mat_gate:
-        host[:] = True
-    res = (np.empty((n, len(EXT_FIELDS)), np.int32) if ext
-           else np.full(n, KSW_NEG_INF, np.int32))
-    n_cig = np.zeros(n, np.int64)
-    host_cig = {}
-    for k in np.nonzero(host)[0].tolist():
-        ez = ksw2.extd2(qblob[qoff[k]:qoff[k + 1]], tblob[toff[k]:toff[k + 1]],
-                        prm.mat, prm.q, prm.e, prm.q2, prm.e2, int(w[k]),
-                        int(zdrop[k]) if ext else -1,
-                        end_bonus if ext else 0, flag)
-        res[k] = ([int(getattr(ez, f)) for f in EXT_FIELDS] if ext
-                  else ez.score)
-        n_cig[k] = ez.cigar.shape[0]
-        host_cig[k] = ez.cigar
+    gap-fill or the extension fields of stats, the call's time (a
+    `fill.batch` span) to stats.batch_s."""
+    with timeline.span("fill.batch") as sp:
+        device = torch.device(device)
+        n = meta.shape[0]
+        qlen, tlen, w, zdrop = meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3]
+        qoff = np.zeros(n + 1, np.int64)
+        toff = np.zeros(n + 1, np.int64)
+        np.cumsum(qlen, out=qoff[1:])
+        np.cumsum(tlen, out=toff[1:])
+        wv = np.where(w < 0, np.maximum(qlen, tlen), w)
+        right = bool(flag & ksw2.KSW_EZ_RIGHT)
+        rev = bool(flag & ksw2.KSW_EZ_REV_CIGAR)
+        host = (qlen <= 0) | (tlen <= 0) | band_collapses(qlen, tlen, wv)
+        if prm.mat_gate:
+            host[:] = True
+        res = (np.empty((n, len(EXT_FIELDS)), np.int32) if ext
+               else np.full(n, KSW_NEG_INF, np.int32))
+        n_cig = np.zeros(n, np.int64)
+        host_cig = {}
+        for k in np.nonzero(host)[0].tolist():
+            ez = ksw2.extd2(qblob[qoff[k]:qoff[k + 1]],
+                            tblob[toff[k]:toff[k + 1]], prm.mat, prm.q,
+                            prm.e, prm.q2, prm.e2, int(w[k]),
+                            int(zdrop[k]) if ext else -1,
+                            end_bonus if ext else 0, flag)
+            res[k] = ([int(getattr(ez, f)) for f in EXT_FIELDS] if ext
+                      else ez.score)
+            n_cig[k] = ez.cigar.shape[0]
+            host_cig[k] = ez.cigar
 
-    dev_idx = np.nonzero(~host)[0]
-    dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
-    pieces, kms, bms, chunks = [], 0.0, 0.0, 0
-    if dev_idx.shape[0]:
-        qb_d, tb_d = upload(qblob, device), upload(tblob, device)
-        n_scr = 0
+        dev_idx = np.nonzero(~host)[0]
+        dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
+        pieces, kms, bms, chunks = [], 0.0, 0.0, 0
+        if dev_idx.shape[0]:
+            qb_d, tb_d = upload(qblob, device), upload(tblob, device)
+            n_scr = 0
 
-        def launch(c64, c32, po, p_total, events):
-            nonlocal n_scr
-            (qo, to), (ql, tl, wd, zd) = c64, c32
-            shape = (ext_shape if ext else fill_shape)(ql.cpu().numpy(),
-                                                      tl.cpu().numpy())
-            n_scr += int((shape.scr_off >= 0).sum())
-            if ext:
-                return extd2_ext(qb_d, tb_d, qo, to, ql, tl, wd, zd, po,
-                                 p_total, prm, right, end_bonus,
-                                 events=events)
-            return extd2_fill(qb_d, tb_d, qo, to, ql, tl, wd, po, p_total,
-                              prm, right, events=events)
+            def launch(c64, c32, po, p_total, events):
+                nonlocal n_scr
+                (qo, to), (ql, tl, wd, zd) = c64, c32
+                shape = (ext_shape if ext else fill_shape)(ql.cpu().numpy(),
+                                                          tl.cpu().numpy())
+                n_scr += int((shape.scr_off >= 0).sum())
+                if ext:
+                    return extd2_ext(qb_d, tb_d, qo, to, ql, tl, wd, zd, po,
+                                     p_total, prm, right, end_bonus,
+                                     events=events)
+                return extd2_fill(qb_d, tb_d, qo, to, ql, tl, wd, po, p_total,
+                                  prm, right, events=events)
 
-        def backtrack(p, po, co, c32, out, events):
-            return ksw2_backtrack(p, po, *c32[:3], co, rev,
-                                  starts=out[:, 10:] if ext else None,
-                                  events=events)
-        ql, tl = qlen[dev_idx], tlen[dev_idx]
-        scr = scratch_bytes((ext_bytes if ext else fill_bytes)(ql, tl),
-                            EXT_SMEM_MAX if ext else FILL_SMEM_MAX)
-        # regions 16-aligned: the fill kernel stores 4 direction bytes at
-        # once where its region allows
-        out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
-            dev_idx, (p_bound(ql, tl, wv[dev_idx]) + 15) // 16 * 16, ql + tl,
-            scr, [qoff, toff], [qlen, tlen, w, zdrop], device, launch,
-            backtrack)
-        res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
-        stats.scratch_fills += n_scr
-    cells = int((qlen * tlen)[dev_idx].sum())
-    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
-    if ext:
-        stats.ext_fills += n
-        stats.ext_host_fills += len(host_cig)
-        stats.ext_chunks += chunks
-        stats.ext_cells += cells
-        stats.ext_ms += kms
-        stats.ext_backtrack_ms += bms
-    else:
-        stats.fills += n
-        stats.device_fills += int(dev_idx.shape[0])
-        stats.host_fills += len(host_cig)
-        stats.chunks += chunks
-        stats.cells += cells
-        stats.fill_ms += kms
-        stats.backtrack_ms += bms
-    stats.batch_s += time.perf_counter() - t_start
+            def backtrack(p, po, co, c32, out, events):
+                return ksw2_backtrack(p, po, *c32[:3], co, rev,
+                                      starts=out[:, 10:] if ext else None,
+                                      events=events)
+            ql, tl = qlen[dev_idx], tlen[dev_idx]
+            scr = scratch_bytes((ext_bytes if ext else fill_bytes)(ql, tl),
+                                EXT_SMEM_MAX if ext else FILL_SMEM_MAX)
+            # regions 16-aligned: the fill kernel stores 4 direction bytes at
+            # once where its region allows
+            out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
+                dev_idx, (p_bound(ql, tl, wv[dev_idx]) + 15) // 16 * 16,
+                ql + tl, scr, [qoff, toff], [qlen, tlen, w, zdrop], device,
+                launch, backtrack)
+            res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
+            stats.scratch_fills += n_scr
+        cells = int((qlen * tlen)[dev_idx].sum())
+        cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces,
+                                            host_cig)
+        if ext:
+            stats.ext_fills += n
+            stats.ext_host_fills += len(host_cig)
+            stats.ext_chunks += chunks
+            stats.ext_cells += cells
+            stats.ext_ms += kms
+            stats.ext_backtrack_ms += bms
+        else:
+            stats.fills += n
+            stats.device_fills += int(dev_idx.shape[0])
+            stats.host_fills += len(host_cig)
+            stats.chunks += chunks
+            stats.cells += cells
+            stats.fill_ms += kms
+            stats.backtrack_ms += bms
+    stats.batch_s += sp.wall_s
     return res, cig_off, cig_blob
 
 

@@ -38,7 +38,6 @@ q2 <= q + e, and the `-mat.min() > 2*(q+e)` gate.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,7 +53,7 @@ from mm2_gb_tpu_torch.ops.ksw2_gpu import (EXT_FIELDS, FILL_WARPS,
                                            p_bound, scratch_bytes,
                                            shape_operands, solve_chunks,
                                            upload)
-from mm2_gb_tpu_torch.utils import kernels
+from mm2_gb_tpu_torch.utils import kernels, timeline
 
 APPROX_MAX = ksw2.KSW_EZ_APPROX_MAX
 RIGHT = ksw2.KSW_EZ_RIGHT
@@ -640,104 +639,109 @@ def exts2_ext_batch(meta: np.ndarray, qblob: np.ndarray, tblob: np.ndarray,
 
 def _exts2_batch(meta, qblob, tblob, jblob, flags, zdrop, prm: SpliceParams,
                  device, stats: FillStats | None):
-    """exts2_fill_batch (zdrop None) and exts2_ext_batch."""
-    t_start = time.perf_counter()
-    device = torch.device(device)
+    """exts2_fill_batch (zdrop None) and exts2_ext_batch; the call's time
+    (a `fill.batch` span) goes to stats.batch_s."""
     stats = stats if stats is not None else FillStats()
-    ext = zdrop is not None
-    what = "exts2_ext_batch" if ext else "exts2_fill_batch"
-    meta = np.asarray(meta, np.int64).reshape(-1, 3)
-    flags = np.asarray(flags, np.int64).reshape(-1)
-    n = meta.shape[0]
-    qlen, tlen, jlen = meta[:, 0], meta[:, 1], meta[:, 2]
-    if ext:
-        bad = (flags & ~(EXTZ_ONLY | FLAG_BITS)) != 0
-    else:
-        bad = (((flags & APPROX_MAX) == 0)
-               | ((flags & ~(APPROX_MAX | FLAG_BITS)) != 0))
-    if flags.shape[0] != n or bad.any() or ext and zdrop.shape[0] != n:
-        raise ValueError(f"{what}: unsupported flags "
-                         f"{sorted({int(f) for f in flags[bad]})}")
-    if ((jlen != 0) & (jlen != tlen)).any():
-        raise ValueError(f"{what}: junction bytes must cover the target "
-                         "(jlen 0 or tlen)")
-    qoff, toff, joff = (np.zeros(n + 1, np.int64) for _ in range(3))
-    np.cumsum(qlen, out=qoff[1:])
-    np.cumsum(tlen, out=toff[1:])
-    np.cumsum(jlen, out=joff[1:])
-    host = (qlen <= 0) | (tlen <= 0)
-    if prm.host_only:
-        host[:] = True
-    res = (np.empty((n, len(EXT_FIELDS)), np.int32) if ext
-           else np.full(n, KSW_NEG_INF, np.int32))
-    n_cig = np.zeros(n, np.int64)
-    host_cig = {}
-    for k in np.nonzero(host)[0].tolist():
-        ez = ksw2_splice.exts2(
-            qblob[qoff[k]:qoff[k + 1]], tblob[toff[k]:toff[k + 1]], prm.mat,
-            prm.q, prm.e, prm.q2, prm.noncan, int(zdrop[k]) if ext else -1,
-            prm.junc_bonus, int(flags[k]),
-            jblob[joff[k]:joff[k + 1]] if jlen[k] else None)
-        res[k] = ([int(getattr(ez, f)) for f in EXT_FIELDS] if ext
-                  else ez.score)
-        n_cig[k] = ez.cigar.shape[0]
-        host_cig[k] = ez.cigar
-
-    dev_idx = np.nonzero(~host)[0]
-    dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
-    pieces, kms, bms, chunks, n_scr = [], 0.0, 0.0, 0, 0
-    if dev_idx.shape[0]:
-        ql, tl = qlen[dev_idx], tlen[dev_idx]
+    with timeline.span("fill.batch") as sp:
+        device = torch.device(device)
+        ext = zdrop is not None
+        what = "exts2_ext_batch" if ext else "exts2_fill_batch"
+        meta = np.asarray(meta, np.int64).reshape(-1, 3)
+        flags = np.asarray(flags, np.int64).reshape(-1)
+        n = meta.shape[0]
+        qlen, tlen, jlen = meta[:, 0], meta[:, 1], meta[:, 2]
         if ext:
-            scr = scratch_bytes(ext_ring_bytes(ql, tl), EXT_SMEM_MAX)
-        else:   # budgeted as if every fill's rings were in scratch
-            scr = fill_bytes(ql, tl)
-        qb_d, tb_d, jb_d = (upload(b, device) for b in (qblob, tblob, jblob))
+            bad = (flags & ~(EXTZ_ONLY | FLAG_BITS)) != 0
+        else:
+            bad = (((flags & APPROX_MAX) == 0)
+                   | ((flags & ~(APPROX_MAX | FLAG_BITS)) != 0))
+        if flags.shape[0] != n or bad.any() or ext and zdrop.shape[0] != n:
+            raise ValueError(f"{what}: unsupported flags "
+                             f"{sorted({int(f) for f in flags[bad]})}")
+        if ((jlen != 0) & (jlen != tlen)).any():
+            raise ValueError(f"{what}: junction bytes must cover the target "
+                             "(jlen 0 or tlen)")
+        qoff, toff, joff = (np.zeros(n + 1, np.int64) for _ in range(3))
+        np.cumsum(qlen, out=qoff[1:])
+        np.cumsum(tlen, out=toff[1:])
+        np.cumsum(jlen, out=joff[1:])
+        host = (qlen <= 0) | (tlen <= 0)
+        if prm.host_only:
+            host[:] = True
+        res = (np.empty((n, len(EXT_FIELDS)), np.int32) if ext
+               else np.full(n, KSW_NEG_INF, np.int32))
+        n_cig = np.zeros(n, np.int64)
+        host_cig = {}
+        for k in np.nonzero(host)[0].tolist():
+            ez = ksw2_splice.exts2(
+                qblob[qoff[k]:qoff[k + 1]], tblob[toff[k]:toff[k + 1]],
+                prm.mat, prm.q, prm.e, prm.q2, prm.noncan,
+                int(zdrop[k]) if ext else -1, prm.junc_bonus, int(flags[k]),
+                jblob[joff[k]:joff[k + 1]] if jlen[k] else None)
+            res[k] = ([int(getattr(ez, f)) for f in EXT_FIELDS] if ext
+                      else ez.score)
+            n_cig[k] = ez.cigar.shape[0]
+            host_cig[k] = ez.cigar
 
-        def launch(c64, c32, po, p_total, events):
-            nonlocal n_scr
-            (qo, to, jo), (q_, t_, f_, _w, zd) = c64, c32
-            shape = (ext_ring_shape if ext else fill_shape)(
-                q_.cpu().numpy(), t_.cpu().numpy())
-            n_scr += int((shape.scr_off >= 0).sum())
+        dev_idx = np.nonzero(~host)[0]
+        dev_idx = dev_idx[np.argsort(-(qlen + tlen)[dev_idx], kind="stable")]
+        pieces, kms, bms, chunks, n_scr = [], 0.0, 0.0, 0, 0
+        if dev_idx.shape[0]:
+            ql, tl = qlen[dev_idx], tlen[dev_idx]
             if ext:
-                return exts2_ext(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, zd,
-                                 po, p_total, prm, events=events)
-            return exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
-                              p_total, prm, events=events)
+                scr = scratch_bytes(ext_ring_bytes(ql, tl), EXT_SMEM_MAX)
+            else:   # budgeted as if every fill's rings were in scratch
+                scr = fill_bytes(ql, tl)
+            qb_d, tb_d, jb_d = (upload(b, device)
+                                for b in (qblob, tblob, jblob))
 
-        def backtrack(p, po, co, c32, out, events):
-            q_, t_, f_, w_, _zd = c32
-            return ksw2_backtrack(p, po, q_, t_, w_, co,
-                                  (f_ & REV_CIGAR) != 0, prm.long_thres,
-                                  starts=out[:, 10:] if ext else None,
-                                  events=events)
-        # regions 16-aligned: the fill kernel stores 4 direction bytes at
-        # once where its region allows
-        out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
-            dev_idx, (p_bound(ql, tl, ql + tl) + 15) // 16 * 16, ql + tl, scr,
-            [qoff, toff, np.where(jlen > 0, joff[:-1], -1)],
-            [qlen, tlen, flags, qlen + tlen,
-             zdrop if ext else np.zeros(n, np.int64)],
-            device, launch, backtrack)
-        res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
-    cells = int((qlen * tlen)[dev_idx].sum())
-    cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces, host_cig)
-    stats.scratch_fills += n_scr
-    if ext:
-        stats.ext_fills += n
-        stats.ext_host_fills += len(host_cig)
-        stats.ext_chunks += chunks
-        stats.ext_cells += cells
-        stats.ext_ms += kms
-        stats.ext_backtrack_ms += bms
-    else:
-        stats.fills += n
-        stats.device_fills += int(dev_idx.shape[0])
-        stats.host_fills += len(host_cig)
-        stats.chunks += chunks
-        stats.cells += cells
-        stats.fill_ms += kms
-        stats.backtrack_ms += bms
-    stats.batch_s += time.perf_counter() - t_start
+            def launch(c64, c32, po, p_total, events):
+                nonlocal n_scr
+                (qo, to, jo), (q_, t_, f_, _w, zd) = c64, c32
+                shape = (ext_ring_shape if ext else fill_shape)(
+                    q_.cpu().numpy(), t_.cpu().numpy())
+                n_scr += int((shape.scr_off >= 0).sum())
+                if ext:
+                    return exts2_ext(qb_d, tb_d, jb_d, qo, to, jo, q_, t_,
+                                     f_, zd, po, p_total, prm,
+                                     events=events)
+                return exts2_fill(qb_d, tb_d, jb_d, qo, to, jo, q_, t_, f_, po,
+                                  p_total, prm, events=events)
+
+            def backtrack(p, po, co, c32, out, events):
+                q_, t_, f_, w_, _zd = c32
+                return ksw2_backtrack(p, po, q_, t_, w_, co,
+                                      (f_ & REV_CIGAR) != 0, prm.long_thres,
+                                      starts=out[:, 10:] if ext else None,
+                                      events=events)
+            # regions 16-aligned: the fill kernel stores 4 direction bytes at
+            # once where its region allows
+            out, n_cig[dev_idx], pieces, kms, bms, chunks = solve_chunks(
+                dev_idx, (p_bound(ql, tl, ql + tl) + 15) // 16 * 16,
+                ql + tl, scr,
+                [qoff, toff, np.where(jlen > 0, joff[:-1], -1)],
+                [qlen, tlen, flags, qlen + tlen,
+                 zdrop if ext else np.zeros(n, np.int64)],
+                device, launch, backtrack)
+            res[dev_idx] = out[:, :len(EXT_FIELDS)] if ext else out
+        cells = int((qlen * tlen)[dev_idx].sum())
+        cig_off, cig_blob = assemble_cigars(n, n_cig, dev_idx, pieces,
+                                            host_cig)
+        stats.scratch_fills += n_scr
+        if ext:
+            stats.ext_fills += n
+            stats.ext_host_fills += len(host_cig)
+            stats.ext_chunks += chunks
+            stats.ext_cells += cells
+            stats.ext_ms += kms
+            stats.ext_backtrack_ms += bms
+        else:
+            stats.fills += n
+            stats.device_fills += int(dev_idx.shape[0])
+            stats.host_fills += len(host_cig)
+            stats.chunks += chunks
+            stats.cells += cells
+            stats.fill_ms += kms
+            stats.backtrack_ms += bms
+    stats.batch_s += sp.wall_s
     return res, cig_off, cig_blob

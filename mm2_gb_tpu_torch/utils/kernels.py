@@ -18,6 +18,8 @@ import glob
 import os
 import threading
 
+from mm2_gb_tpu_torch.utils import timeline
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -42,22 +44,25 @@ _SIGNATURES = {
 
 
 def library() -> ctypes.CDLL:
-    """The compiled kernel library, built on first use."""
+    """The compiled kernel library, built on first use (a `kernels.load`
+    span, kept with or without a profiler)."""
     global _lib
     with _lock:
         if _lib is None:
-            from torch.utils.cpp_extension import load
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            path = load(name="mm2_gb_tpu_torch_kernels",
-                        sources=sorted(glob.glob(os.path.join(CSRC, "*.cu"))),
-                        build_directory=BUILD_DIR,
-                        extra_cuda_cflags=CUDA_FLAGS,
-                        is_python_module=False, verbose=False)
-            lib = ctypes.CDLL(path)
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
+            with timeline.span("kernels.load", always=True):
+                from torch.utils.cpp_extension import load
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                path = load(name="mm2_gb_tpu_torch_kernels",
+                            sources=sorted(glob.glob(os.path.join(CSRC,
+                                                                  "*.cu"))),
+                            build_directory=BUILD_DIR,
+                            extra_cuda_cflags=CUDA_FLAGS,
+                            is_python_module=False, verbose=False)
+                lib = ctypes.CDLL(path)
+                for name, args in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -51,6 +51,10 @@ EXCEPTIONS = {
     # card route's fill session is process state, so every map holds
     # _ROUTE_LOCK, a _RouteLock (a card pass alone, host maps shared)
     "api.py": {"Aligner", "_RouteLock", "_ROUTE_LOCK"},
+    # the port records spans of its stages (a torch profiler's trace
+    # shows the main thread's), where the JAX package prints marks alone
+    "utils/timeline.py": {"_SPANS", "_local", "_keep", "profiling", "span",
+                          "spans", "trace_only"},
 }
 
 
