@@ -11,7 +11,7 @@
     python3 chip_smoke.py --hifi     # the HiFi phase alone
     python3 chip_smoke.py --cfg-sweep  # max_anchors_batch sweep, two sets
     python3 chip_smoke.py --dp-turns [PARENT]  # DP kernel launches, turns
-    python3 chip_smoke.py --dp-probe  # DP kernels on inputs of fixed shape
+    python3 chip_smoke.py --dp-probe [PARENT]  # DP kernels, fixed shapes
     python3 chip_smoke.py --fuzz N SEED0      # the fuzz campaign alone
     python3 chip_smoke.py --fuzz-asan K SEED0  # genomic -c seeds, asan kit
     python3 chip_smoke.py --fuzz-ava N SEED0   # ava seeds: none may be empty
@@ -3962,8 +3962,112 @@ def dp_launches(root, budget, cdna, fc, qfc):
     print(json.dumps(runs), flush=True)
 
 
-def dp_probe():
-    """`python3 chip_smoke.py --dp-probe`: the splice fill kernel and the
+# the genomic fill probe's shapes (qlen, tlen): the hifi.sam cell's common
+# gap fills and its longest (548 rows), at map-hifi's gap-fill band
+# (int(bw * 1.5 + 1)), alone and n to a launch
+FILL_PROBE_SHAPES = ((150, 150), (213, 213), (274, 274), (275, 274))
+FILL_PROBE_COUNTS = (1, 132, 1056, 4224)
+FILL_PROBE_W = 751
+
+
+def fill_probe(root):
+    """`chip_smoke.py --fill-probe ROOT` (a subprocess of dp_probe): the
+    genomic fill kernel (extd2_fill, the default tie rule) of the port
+    found under ROOT on seeded HiFi-like fills (1% substitutions) of each
+    FILL_PROBE_SHAPES shape, FILL_PROBE_COUNTS to a launch: the launch's
+    ms (the events its wrapper records right around the launch, median of
+    5), µs per row, GCUPS.  The last line is a JSON list of [qlen, tlen,
+    n, ms, sha256 of the scores and direction bytes]."""
+    import hashlib
+    import numpy as np
+    import torch
+    sys.path.insert(0, root)
+    from mm2_gb_tpu_torch.ops import ksw2_gpu as K
+    from mm2_gb_tpu_torch.utils import kernels
+    from mm2_gb_tpu_torch.utils import opts as O
+    if not K.__file__.startswith(os.path.abspath(root)):
+        fail(f"imported the port from {K.__file__}, not {root}")
+    kernels.library()
+    dev = torch.device("cuda")
+    prm = K.fill_params(O.set_preset("map-hifi")[1])
+    rng = np.random.default_rng(19)
+    out = []
+    for ql, tl in FILL_PROBE_SHAPES:
+        for n in FILL_PROBE_COUNTS:
+            t = rng.integers(0, 4, (n, max(ql, tl))).astype(np.uint8)
+            q = t[:, :ql].copy()
+            t = t[:, :tl].copy()
+            sub = rng.random(q.shape) < 0.01
+            q[sub] = rng.integers(0, 4, int(sub.sum()))
+            ar = np.arange(n)
+            pb = int(K.p_bound(np.array([ql]), np.array([tl]),
+                               np.array([FILL_PROBE_W]))[0])
+            i64 = (lambda x: torch.tensor(x, dtype=torch.int64, device=dev))
+            i32 = (lambda x: torch.full((n,), x, dtype=torch.int32,
+                                        device=dev))
+            ops = (torch.from_numpy(q.reshape(-1)).to(dev),
+                   torch.from_numpy(t.reshape(-1)).to(dev), i64(ar * ql),
+                   i64(ar * tl), i32(ql), i32(tl), i32(FILL_PROBE_W),
+                   i64(ar * pb), pb * n, prm, False)
+            runs = [_timed_launch(K.extd2_fill, *ops) for _ in range(5)]
+            ms = sorted(r[1] for r in runs)[2]
+            sc, p = runs[0][0]
+            sha = hashlib.sha256(sc.cpu().numpy().tobytes()
+                                 + p.cpu().numpy().tobytes()).hexdigest()
+            rows = ql + tl - 1
+            log(f"fill probe {n} x ({ql} x {tl}): {ms:.4f} ms, "
+                f"{ms * 1e3 / rows:.4f} µs per row, "
+                f"{n * ql * tl / ms / 1e6:.3f} GCUPS")
+            out.append([ql, tl, n, ms, sha])
+            del runs, sc, p
+    print(json.dumps(out), flush=True)
+
+
+def fill_probe_turns(parent):
+    """fill_probe of this tree, and of the checkout PARENT when given, in
+    turns parent, this, this, parent, each in its own subprocess (each
+    tree builds its kernels under its own build/): per shape and count
+    the median ms of each tree's turns, the ratio, and whether every
+    turn's scores and direction bytes are identical."""
+    import statistics
+    turns = [parent, REPO, REPO, parent] if parent else [REPO]
+    got = []
+    for root in turns:
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--fill-probe", root], cwd=REPO, text=True,
+                           capture_output=True, timeout=900)
+        lines = p.stdout.strip().splitlines()
+        print("\n".join(f"[{'parent' if root == parent else 'this'}] {ln}"
+                        for ln in lines[:-1]), flush=True)
+        if p.returncode != 0:
+            sys.stderr.write(p.stderr[-3000:])
+            fail(f"the fill probe of {root}")
+        got.append((root, json.loads(lines[-1])))
+    for i, (ql, tl, n, _ms, _sha) in enumerate(got[0][1]):
+        med = {who: statistics.median(g[i][3] for root, g in got
+                                      if root == who)
+               for who in ([parent] if parent else []) + [REPO]}
+        this = med[REPO]
+        line = (f"fill probe {n} x ({ql} x {tl}): this {this:.4f} ms, "
+                f"{this * 1e3 / (ql + tl - 1):.4f} µs per row, "
+                f"{n * ql * tl / this / 1e6:.3f} GCUPS")
+        if parent:
+            line += (f"; parent {med[parent]:.4f} ms, "
+                     f"{n * ql * tl / med[parent] / 1e6:.3f} GCUPS; "
+                     f"this / parent {this / med[parent]:.4f}")
+        log(line)
+    same = all(g[i][4] == got[0][1][i][4] for _root, g in got
+               for i in range(len(g)))
+    log(f"fill probe: every turn's scores and direction bytes identical: "
+        f"{same}")
+    if not same:
+        fail("the fill probe's turns differ")
+
+
+def dp_probe(parent=None):
+    """`python3 chip_smoke.py --dp-probe [PARENT]`: first the genomic fill
+    kernel at the hifi.sam cell's shapes (fill_probe_turns: this tree, and
+    PARENT in turns when given), then the splice fill kernel and the
     intron backtrack on seeded random fills of fixed shape (qlen x tlen,
     junction bytes on), one fill alone and n copies in one launch, each
     timed with the events the wrappers record right around the launch
@@ -3979,6 +4083,7 @@ def dp_probe():
     from mm2_gb_tpu_torch.ops import ksw2s_gpu as KS
     from mm2_gb_tpu_torch.utils import opts as O
     phase1()
+    fill_probe_turns(parent)
     dev = torch.device("cuda")
     prm = KS.splice_params(O.set_preset("splice")[1])
     rng = np.random.default_rng(7)
@@ -4296,8 +4401,12 @@ def main() -> int:
     if sys.argv[1:] == ["--scale-walls"]:
         scale_walls()
         return 0
-    if sys.argv[1:] == ["--dp-probe"]:
-        dp_probe()
+    if sys.argv[1:2] == ["--fill-probe"] and len(sys.argv) == 3:
+        fill_probe(os.path.abspath(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--dp-probe"] and len(sys.argv) <= 3:
+        dp_probe(os.path.abspath(sys.argv[2]) if len(sys.argv) == 3
+                 else None)
         return 0
     if sys.argv[1:] == ["--cfg-sweep"]:
         cfg_sweep()

@@ -43,22 +43,24 @@
 //     fill (ksw2_gpu.fill_shape); one launch holds both classes,
 //     block-class blocks first;
 //   - four lanes to a thread at a time: a thread takes four adjacent
-//     lanes in one 32-bit word of each row and runs their cell update at
-//     once with the per-byte SIMD intrinsics (__vadd4 and __vsub4 wrap per
-//     byte as the int8 casts do; __vmaxs4 and __vmins4; __vcmpgts4 and
-//     __vcmpges4 masks for the d bits and the RIGHT and default tie
-//     rules); a window starts on a 16-lane boundary, so a word never
-//     straddles it, and per-byte masks carry the score store span, the
-//     reset lane r and the boundary lane st - 1 (by __byte_perm from the
-//     word below); the direction bytes go out as one 32-bit store where
-//     the fill's region is 4-aligned (the batch 16-aligns it);
+//     lanes in one 32-bit word of each row; a window starts on a 16-lane
+//     boundary, so a word never straddles it, and per-byte masks carry the
+//     score store span, the reset lane r and the boundary lane st - 1 (by
+//     __byte_perm from the word below); the direction bytes go out as one
+//     32-bit store where the fill's region is 4-aligned (the batch
+//     16-aligns it);
+//   - the cell update of a word in two registers of 16-bit lanes on the
+//     DPX instructions (cell2, below), each step exact to the int8 casts:
+//     a word took ~280 instructions in the warp class with the emulated
+//     per-byte SIMD intrinsics (__vadd4, __vcmpgts4 ...), which sm_90 has
+//     no hardware for; a lane's score is a prmt lookup of its two bases;
 //   - no device-memory load on a row's chain: the target (0 past tlen)
 //     and the query reversed (zeros after it, for t > r) are staged in
 //     shared memory with the state before the first row, so a word's four
 //     query bases are a funnel shift of two aligned words;
 //   - the H0 walk's two lanes (v at lh, u at lh + 1 of the row just
-//     written) come by shuffle from the lanes that hold them in a
-//     warp-class fill, through a parity slot in a block-class one;
+//     written): a warp-class fill reads them after its barrier, a
+//     block-class one through a parity slot;
 //   - three blocks an SM (at most 85 registers a thread);
 //   - a block-class fill whose state exceeds ksw2_gpu.FILL_SMEM_MAX keeps
 //     it in a global scratch region of its own.
@@ -96,10 +98,10 @@
 //     and its one barrier a row;
 //   - two blocks an SM (at most 128 registers a thread; at 85 the H
 //     row's state spilled onto the row's chain).
-// What bounds it now: the row's chain of dependent instructions in one
-// warp, 1.0-1.3 us a row alone (PERF.md), most of them the cell's
-// emulated per-byte SIMD and the H row's lanes; a launch of the
-// flowcell's 200 extensions lasts as long as its longest one's rows.
+// What bounds it: the row's chain of dependent instructions in one warp,
+// 1.0-1.3 us a row alone with the emulated per-byte SIMD (PERF.md), now
+// the cell's DPX update and the H row's lanes; a launch of the flowcell's
+// 200 extensions lasts as long as its longest one's rows.
 // After the loop, ext_batch_device's epilogue (ksw2_tpu.py:1741-1762)
 // picks the backtrack start: (mqe_t, qlen-1) when the end bonus reaches
 // the query end, else (max_t, max_q), else none.  The fill's [score, max,
@@ -162,10 +164,25 @@ constexpr int kQPad = 16;
 constexpr int kExtBlocksPerSm = 2;
 static_assert(kFillWarps <= 8, "ExtSlots holds a block's warp keys");
 
+// the 16-bit lanes of m0 (aux 0), q and q2 (aux CellTags::q_aux), q + e
+// and q2 + e2 (aux 0); the candidates' tags (aux bytes): s's, and x's,
+// y's, x2's and y2's in bytes 0-3 of a word; the score of a lane by its
+// index: a match, three mismatches, and four where either base is N;
+// bound_v's values
+struct CellConsts {
+  unsigned m0, q, q2, qe, qe2;
+  unsigned tag_s, tags;
+  unsigned sc_lo, sc_hi;
+  int bv_e, bv_long, bv_e2;   // bound_v(r) past row 0, as int8 values
+};
+
 struct FillConsts {
   int q, e, q2, e2;          // swapped: q + e <= q2 + e2
   int mat0, mat1, sc_n;
   int long_thres, long_diff;
+  // built by the launch (fill_consts), so that the row loop reads them
+  // from the kernel's parameters and keeps no register for them
+  CellConsts cell;
 };
 
 __device__ __forceinline__ void row_window(int r, int qlen, int tlen, int w,
@@ -185,13 +202,125 @@ __device__ __forceinline__ int row_width(int r, int qlen, int tlen, int w) {
 }
 
 // four int8 lanes to a 32-bit word (SIMD within a register)
-__device__ __forceinline__ unsigned bcast(int8_t v) {
+__host__ __device__ __forceinline__ unsigned bcast(int8_t v) {
   return (unsigned)(uint8_t)v * 0x01010101u;
 }
 // where m has 0xff bytes, b; elsewhere a
 __device__ __forceinline__ unsigned pick(unsigned m, unsigned a,
                                          unsigned b) {
   return (b & m) | (a & ~m);
+}
+
+// The cell update in 16-bit lanes.  A word's four int8 lanes go to two
+// registers of two 16-bit lanes, E (lanes 0 and 2) and O (lanes 1 and 3);
+// a lane holds its int8 value in its high byte and an aux byte below it.
+// So a 16-bit add wraps the value exactly as the int8 casts do (the aux
+// bytes never carry into it), a signed 16-bit max or min orders lanes by
+// value and then by aux, and the update runs on Hopper's DPX instructions
+// (add.s16x2 + max.s16x2 fuse into VIADDMNMX) and plain 32-bit adds
+// instead of the emulated per-byte __v*4 intrinsics.  The aux bytes carry:
+//   - a tag per candidate of the four-way max (s, x + v, y + u, x2 + v,
+//     y2 + u), so the max's winner is the d code: increasing tags, the
+//     last of equal candidates wins (KSW_EZ_RIGHT's >=), decreasing ones
+//     the first (>);
+//   - a guard, so that the borrow or carry of a 32-bit add from the low
+//     lane never reaches the high lane's value;
+//   - the sign tests of the d bits 0x08-0x40: a candidate's relu picks
+//     either its own lane (aux 0xbc-0xc6 under RIGHT, 0x3b-0x48 without)
+//     or the zero lane (CellTags::zero, aux 0x40 or 0xc0), so bit 7 of
+//     the aux byte says which one won, and prmt's sign mode gathers it.
+// tests/test_torch_ksw2.py holds a NumPy model of these steps to the
+// oracle's int8 update.
+template <unsigned S>
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b) {
+  unsigned r;   // prmt with the selector's sign bits (__byte_perm drops them)
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "n"(S));
+  return r;
+}
+__device__ __forceinline__ unsigned max2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ unsigned min2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("min.s16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ unsigned prmt_r(unsigned a, unsigned b,
+                                           unsigned s) {
+  unsigned r;   // a selector in a register (nibbles 0-7)
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(s));
+  return r;
+}
+// lanes 0 and 2 (E) or 1 and 3 (O) of w, with aux byte J of g
+template <int J>
+__device__ __forceinline__ unsigned lanes_e(unsigned w, unsigned g) {
+  return __byte_perm(w, g, 0x2404 + 0x101 * J);
+}
+template <int J>
+__device__ __forceinline__ unsigned lanes_o(unsigned w, unsigned g) {
+  return __byte_perm(w, g, 0x3414 + 0x101 * J);
+}
+// an int8 in the value byte of both lanes, aux byte g
+__host__ __device__ __forceinline__ unsigned lane2(int v, unsigned g) {
+  return ((unsigned)(uint8_t)v << 8 | g) * 0x10001u;
+}
+
+// the guards of q - z and of the relu's zero lane (see above)
+template <bool RIGHT>
+struct CellTags {
+  static constexpr unsigned q_aux = RIGHT ? 0xc0 : 0x40;
+  static constexpr unsigned zero = RIGHT ? 0x00400040u : 0x00c000c0u;
+};
+
+// FillConsts with its CellConsts.  The tags: the d code of the max's
+// winner is the tag under RIGHT and 7 - tag otherwise.  (As parameters,
+// the tags let prmt keep its selector as an immediate: with both
+// constant, ptxas moves the selector into a register before each prmt.)
+FillConsts fill_consts(int q, int e, int q2, int e2, int mat0, int mat1,
+                       int sc_n, int long_thres, int long_diff, bool right) {
+  const unsigned q_aux =
+      right ? CellTags<true>::q_aux : CellTags<false>::q_aux;
+  const CellConsts cell{lane2(mat0, 0), lane2(q, q_aux), lane2(q2, q_aux),
+                        lane2(q + e, 0), lane2(q2 + e2, 0),
+                        right ? 0u : 7u, right ? 0x04030201u : 0x03040506u,
+                        (unsigned)(uint8_t)mat0 | bcast((int8_t)mat1) << 8,
+                        bcast((int8_t)sc_n), (int8_t)-e, (int8_t)long_diff,
+                        (int8_t)-e2};
+  return FillConsts{q, e, q2, e2, mat0, mat1, sc_n, long_thres, long_diff,
+                    cell};
+}
+
+struct CellOut {
+  unsigned z, u, v, x, y, x2, y2;   // z: the max before the min with m0
+};
+
+// the cell update (ksw2.py's extd2 row, ksw2_extd2_sse.c) of the two
+// lanes of one register: s the score, x, v, x2 at t - 1 of the last row,
+// u, y, y2 at t
+template <bool RIGHT>
+__device__ __forceinline__ CellOut cell2(unsigned s, unsigned x, unsigned v,
+                                         unsigned x2, unsigned u, unsigned y,
+                                         unsigned y2, const CellConsts& k) {
+  CellOut o;
+  unsigned z = __viaddmax_s16x2(x, v, s);
+  z = __viaddmax_s16x2(y, u, z);
+  z = __viaddmax_s16x2(x2, v, z);
+  z = __viaddmax_s16x2(y2, u, z);
+  o.z = z;
+  z = min2(z, k.m0);
+  // the guard 0x10000: the high lane's aux absorbs the low lane's borrow
+  o.u = z - v + 0x10000u;
+  o.v = z - u + 0x10000u;
+  // a - (z - q) as the int8 casts give it: the value bytes add mod 256
+  const unsigned nq = k.q - z, nq2 = k.q2 - z;
+  constexpr unsigned zero = CellTags<RIGHT>::zero;
+  o.x = max2(x + v + nq, zero) - k.qe;
+  o.y = max2(y + u + nq, zero) - k.qe;
+  o.x2 = max2(x2 + v + nq2, zero) - k.qe2;
+  o.y2 = max2(y2 + u + nq2, zero) - k.qe2;
+  return o;
 }
 
 // fill mode: the reversed query's bytes (kQPad before it, zeros after),
@@ -262,11 +391,9 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
 
   const int8_t nqe = (int8_t)(-c.q - c.e), nqe2 = (int8_t)(-c.q2 - c.e2);
   const unsigned nqe4 = bcast(nqe), nqe24 = bcast(nqe2);
-  const unsigned q8 = bcast((int8_t)c.q), q28 = bcast((int8_t)c.q2);
-  const unsigned qe8 = bcast((int8_t)(c.q + c.e));
-  const unsigned qe28 = bcast((int8_t)(c.q2 + c.e2));
-  const unsigned mat0 = bcast((int8_t)c.mat0), mat1 = bcast((int8_t)c.mat1);
-  const unsigned scn = bcast((int8_t)c.sc_n);
+  const unsigned x1w = (unsigned)(uint8_t)nqe << 24;   // boundary x, x2
+  const unsigned x21w = (unsigned)(uint8_t)nqe2 << 24;
+  const CellConsts& cc = c.cell;
   auto word = [](const void* row, int s) {   // lanes s .. s + 3
     return *(const unsigned*)((const uint8_t*)row + s);
   };
@@ -299,7 +426,7 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
   }
   sync();
 
-  int H0 = 0, lh = 0, sc_final = kNegInf;
+  int H0 = 0, lh = 0;
   int last_st = -1, last_en = -1;
   long long row_off = 0;
   // extension mode: the Extz fields, the previous row's window and the
@@ -319,29 +446,22 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
     int st0, en0;
     row_window(r, qlen, tlen, w, st0, en0);
     const int st = st0 & ~15, en = en0 | 15;
-    const int8_t bv = r == 0 ? nqe
-                      : r < c.long_thres ? (int8_t)-c.e
-                      : r == c.long_thres ? (int8_t)c.long_diff
-                                          : (int8_t)-c.e2;
-    // x, v, x2 at st - 1 of the last row, for the window's first lane
-    uint8_t x1 = (uint8_t)nqe, x21 = (uint8_t)nqe2, v1 = (uint8_t)nqe;
-    if (st > 0) {
-      if (st - 1 >= last_st && st - 1 <= last_en) {
-        x1 = xp[st - 1];
-        x21 = x2p[st - 1];
-        v1 = vp[st - 1];
-      }
-    } else {
-      v1 = (uint8_t)bv;
-    }
+    const int bv = r == 0 ? nqe
+                   : r < c.long_thres ? cc.bv_e
+                   : r == c.long_thres ? cc.bv_long : cc.bv_e2;
+    // the window's first lane reads x, v and x2 at st - 1 of the last row:
+    // in the word below st where that row's window held st - 1, else the
+    // boundary values (v's is bound_v(r) at st = 0)
+    const bool held = st > 0 && st - 1 >= last_st && st - 1 <= last_en;
+    const unsigned v1w = (unsigned)(uint8_t)(st > 0 ? nqe : bv) << 24;
     const bool reset = en >= r;
     int hi = st0 + 16 * ((en0 - st0) / 16 + 1);
     if (hi > nbytes) hi = nbytes;
     const int last = en > hi - 1 ? en : hi - 1;
-    uint8_t* prow = pf + row_off;
-    // lane t's query base qs[r - t] is QR[q_at + t]
+    // lane t's query base qs[r - t] is QR[q_at + t]: a word's four are a
+    // funnel shift by q_sh bits of the two aligned words at q_w0 + t0 - st
     const int q_at = kQPad + qlen - 1 - r;
-    int my_v = 0, my_u = 0;   // a warp's H0-walk lanes, by shuffle
+    const int q_w0 = (q_at + st) & ~3, q_sh = 8 * ((q_at + st) & 3);
     // extension mode: the previous row's H[en0 - 1] (its owner's copy
     // when that row's window held the lane, which this row overwrites;
     // else in place), the next row's en0, and this thread's lanes of the
@@ -356,43 +476,47 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
       row_window(r + 1, qlen, tlen, w, nst0, nen0);
     }
     ExtLanes x(st0, en0, nen0, hp);
+    // lanes of the score store span [st0, hi) get their score from the
+    // target and query bases, the others keep the row's old score: the
+    // word's score lanes, stored back
+    auto score = [&](int t0) {
+      unsigned fresh = 0xffffffffu;
+      if (t0 < st0 || t0 + 4 > hi) {   // a word at either end of the span
+        const int lo_f = st0 - t0, hi_f = hi - t0;   // fresh bytes' range
+        fresh = 0;
+        for (int i = 0; i < 4; ++i)
+          if (i >= lo_f && i < hi_f) fresh |= 0xffu << (8 * i);
+      }
+      const unsigned tb = word(T, t0);
+      // query bases r - t0 - i, i < 4 (0 past r: the pad after the query)
+      const int w0 = q_w0 + t0 - st;
+      const unsigned qb = __funnelshift_r(word(QR, w0), word(QR, w0 + 4), q_sh);
+      // each lane's index into sc_lo:sc_hi (bases are 0-3 and N = 4): 0 a
+      // match, 1-3 a mismatch, 4-7 an N; as a prmt selector
+      const unsigned ix = (tb ^ qb) | ((tb | qb) & 0x04040404u);
+      const unsigned sel = __byte_perm(ix + (ix >> 4), 0, 0x20);
+      const unsigned z =
+          pick(fresh, word(S, t0), prmt_r(cc.sc_lo, cc.sc_hi, sel));
+      put(S, t0, z);
+      return z;
+    };
     // four lanes t0 .. t0 + 3 of the row (t0 a multiple of 4, as st and
     // en + 1 are of 16) in one 32-bit word of each row, bytes in lane
-    // order; a cell reads lane t - 1 of the last row, so the x, v and x2
-    // words are shifted up a byte, the lane below from the word before
-    // (or the boundary values at st)
-    for (int t0 = st + 4 * tid; t0 <= last; t0 += 4 * NT) {
-      // lanes of the score store span [st0, hi): their score from the
-      // target and query bases, the others keep the row's old score
-      const int lo_f = st0 - t0, hi_f = hi - t0;   // fresh bytes' range
-      unsigned fresh = 0;
-      for (int i = 0; i < 4; ++i)
-        if (i >= lo_f && i < hi_f) fresh |= 0xffu << (8 * i);
-      unsigned z = word(S, t0);
-      if (fresh) {
-        const unsigned tb = word(T, t0);
-        // query bases r - t0 - i, i < 4: QR[k0 .. k0 + 3], a funnel
-        // shift of two aligned words (0 past r: the pad after the query)
-        const int k0 = q_at + t0, w0 = k0 & ~3;
-        const unsigned qb =
-            __funnelshift_r(word(QR, w0), word(QR, w0 + 4), 8 * (k0 - w0));
-        const unsigned eq = __vcmpeq4(tb, qb);
-        const unsigned nn = __vcmpeq4(tb, 0x04040404u) |
-                            __vcmpeq4(qb, 0x04040404u);
-        z = pick(fresh, z, pick(nn, pick(eq, mat1, mat0), scn));
-        put(S, t0, z);
-      }
-      if (t0 > en) continue;   // past the window: the score row alone
-      unsigned xt1, vt1, x2t1;
-      if (t0 == st) {
-        xt1 = (word(xp, t0) << 8) | x1;
-        vt1 = (word(vp, t0) << 8) | v1;
-        x2t1 = (word(x2p, t0) << 8) | x21;
-      } else {
-        xt1 = __byte_perm(word(xp, t0 - 4), word(xp, t0), 0x6543);
-        vt1 = __byte_perm(word(vp, t0 - 4), word(vp, t0), 0x6543);
-        x2t1 = __byte_perm(word(x2p, t0 - 4), word(x2p, t0), 0x6543);
-      }
+    // order, and the score row's words past the window; a cell reads lane
+    // t - 1 of the last row, so the x, v and x2 words are shifted up a
+    // byte, the lane below from the word before (or the boundary values
+    // at st)
+    uint8_t* pw = pf + row_off + 4 * tid;   // this word's direction bytes
+    int t0 = st + 4 * tid;
+    for (; t0 <= en; t0 += 4 * NT, pw += 4 * NT) {
+      const unsigned z = score(t0);
+      const bool bnd = t0 == st && !held;   // the boundary values
+      const unsigned xt1 = __byte_perm(bnd ? x1w : word(xp, t0 - 4),
+                                       word(xp, t0), 0x6543);
+      const unsigned vt1 = __byte_perm(bnd ? v1w : word(vp, t0 - 4),
+                                       word(vp, t0), 0x6543);
+      const unsigned x2t1 = __byte_perm(bnd ? x21w : word(x2p, t0 - 4),
+                                        word(x2p, t0), 0x6543);
       unsigned ut = word(U, t0), yt = word(Y, t0), y2t = word(Y2, t0);
       if (reset && r >= t0 && r < t0 + 4) {   // lane r restarts
         const unsigned m = 0xffu << (8 * (r - t0));
@@ -400,63 +524,44 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
         yt = pick(m, yt, nqe4);
         y2t = pick(m, y2t, nqe24);
       }
-      unsigned av = __vadd4(xt1, vt1);
-      unsigned bw = __vadd4(yt, ut);
-      unsigned a2 = __vadd4(x2t1, vt1);
-      unsigned b2 = __vadd4(y2t, ut);
-      // each step's compare mask gives both the d bits and the max
-      unsigned d, m;
-      if (RIGHT) {   // z keeps its value only where it is larger
-        m = __vcmpgts4(z, av);
-        d = ~m & 0x01010101u;
-        z = pick(m, av, z);
-        m = __vcmpgts4(z, bw);
-        d = pick(m, 0x02020202u, d);
-        z = pick(m, bw, z);
-        m = __vcmpgts4(z, a2);
-        d = pick(m, 0x03030303u, d);
-        z = pick(m, a2, z);
-        m = __vcmpgts4(z, b2);
-        d = pick(m, 0x04040404u, d);
-        z = pick(m, b2, z);
-      } else {       // a candidate takes over only where it is larger
-        m = __vcmpgts4(av, z);
-        d = m & 0x01010101u;
-        z = pick(m, z, av);
-        m = __vcmpgts4(bw, z);
-        d = pick(m, d, 0x02020202u);
-        z = pick(m, z, bw);
-        m = __vcmpgts4(a2, z);
-        d = pick(m, d, 0x03030303u);
-        z = pick(m, z, a2);
-        m = __vcmpgts4(b2, z);
-        d = pick(m, d, 0x04040404u);
-        z = pick(m, z, b2);
-      }
-      z = __vmins4(z, mat0);
-      const unsigned un = __vsub4(z, vt1), vn = __vsub4(z, ut);
-      const unsigned tq = __vsub4(z, q8), tq2 = __vsub4(z, q28);
-      av = __vsub4(av, tq);
-      bw = __vsub4(bw, tq);
-      a2 = __vsub4(a2, tq2);
-      b2 = __vsub4(b2, tq2);
-      const unsigned ta = RIGHT ? __vcmpges4(av, 0) : __vcmpgts4(av, 0);
-      const unsigned tb = RIGHT ? __vcmpges4(bw, 0) : __vcmpgts4(bw, 0);
-      const unsigned ta2 = RIGHT ? __vcmpges4(a2, 0) : __vcmpgts4(a2, 0);
-      const unsigned tb2 = RIGHT ? __vcmpges4(b2, 0) : __vcmpgts4(b2, 0);
+      const unsigned g = cc.tags;   // the tags of x, y, x2, y2 in bytes 0-3
+      const CellOut e = cell2<RIGHT>(
+          lanes_e<0>(z, cc.tag_s), lanes_e<0>(xt1, g), lanes_e<0>(vt1, 0),
+          lanes_e<2>(x2t1, g), lanes_e<0>(ut, 0), lanes_e<1>(yt, g),
+          lanes_e<3>(y2t, g), cc);
+      const CellOut o = cell2<RIGHT>(
+          lanes_o<0>(z, cc.tag_s), lanes_o<0>(xt1, g), lanes_o<0>(vt1, 0),
+          lanes_o<2>(x2t1, g), lanes_o<0>(ut, 0), lanes_o<1>(yt, g),
+          lanes_o<3>(y2t, g), cc);
+      // the value bytes back in lane order
+      auto bytes = [](unsigned a, unsigned b) {
+        return __byte_perm(a, b, 0x7351);
+      };
+      const unsigned un = bytes(e.u, o.u), vn = bytes(e.v, o.v);
       put(U, t0, un);
       put(vc, t0, vn);
-      put(xc, t0, __vsub4(av & ta, qe8));
-      put(Y, t0, __vsub4(bw & tb, qe8));
-      put(x2c, t0, __vsub4(a2 & ta2, qe28));
-      put(Y2, t0, __vsub4(b2 & tb2, qe28));
-      d |= (ta & 0x08080808u) | (tb & 0x10101010u) | (ta2 & 0x20202020u) |
-           (tb2 & 0x40404040u);
+      put(xc, t0, bytes(e.x, o.x));
+      put(Y, t0, bytes(e.y, o.y));
+      put(x2c, t0, bytes(e.x2, o.x2));
+      put(Y2, t0, bytes(e.y2, o.y2));
+      // the d code from the max's tags, the d bits from the aux bytes'
+      // bit 7 (set where a candidate's relu kept it: a >= 0 under RIGHT,
+      // the zero lane otherwise, a <= 0)
+      const unsigned tg = __byte_perm(e.z, o.z, 0x6240);
+      const unsigned sa = prmt<0xeac8>(e.x, o.x), sb = prmt<0xeac8>(e.y, o.y);
+      const unsigned sa2 = prmt<0xeac8>(e.x2, o.x2);
+      const unsigned sb2 = prmt<0xeac8>(e.y2, o.y2);
+      const unsigned d =
+          RIGHT ? tg | (sa & 0x08080808u) | (sb & 0x10101010u) |
+                      (sa2 & 0x20202020u) | (sb2 & 0x40404040u)
+                : (~tg & 0x07070707u) | (~sa & 0x08080808u) |
+                      (~sb & 0x10101010u) | (~sa2 & 0x20202020u) |
+                      (~sb2 & 0x40404040u);
       if (p_words) {
-        put(prow, t0 - st, d);
-      } else {
-        for (int i = 0; i < 4; ++i)
-          prow[t0 - st + i] = (uint8_t)(d >> (8 * i));
+        put(pw, 0, d);
+      } else {   // a loop, so that the common case takes no predicated stores
+#pragma unroll 1
+        for (int i = 0; i < 4; ++i) pw[i] = (uint8_t)(d >> (8 * i));
       }
       if (EXT) {
         // the H row over [st0, en0] (ksw2kit.cpp:556-564) and this
@@ -466,22 +571,9 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
           x.word(h4, t0, un, vn);
           *(int4*)(H + t0) = h4;
         }
-        continue;
-      }
-      // the H0 walk reads v at lh and u at lh + 1 of this row
-      if (lh >= t0 && lh < t0 + 4) {
-        if (NT == 32)
-          my_v = byte_at(vn, lh - t0);
-        else
-          slot[par] = byte_at(vn, lh - t0);
-      }
-      if (lh + 1 >= t0 && lh + 1 < t0 + 4) {
-        if (NT == 32)
-          my_u = byte_at(un, lh + 1 - t0);
-        else
-          slot[2 + par] = byte_at(un, lh + 1 - t0);
       }
     }
+    for (; t0 <= last; t0 += 4 * NT) score(t0);   // past the window
     if (EXT) {
       // the row maximum, H[st0] and H[en0]: in a warp by __reduce_*_sync
       // and shuffles from the lanes' owners (words go to threads (word
@@ -514,48 +606,46 @@ __device__ __forceinline__ void extd2_one(const FillArgs& a, int f, int tid,
       prev_st0 = st0;
       prev_en0 = en0;
     } else {
-      int vl = 0, ul = 0;
+      // the H0 walk reads v at lh and u at lh + 1 of this row: a warp
+      // reads them after its barrier, and orders the reads before the
+      // next row's writes with a second one; in a block the threads that
+      // wrote their words (words go to threads (word index) mod NT) read
+      // them back into a parity slot
+      int vl, ul;
       if (NT == 32) {
-        // the lanes' words went to threads (word index) mod 32
-        vl = __shfl_sync(0xffffffffu, my_v, ((lh - st) >> 2) & 31);
-        ul = __shfl_sync(0xffffffffu, my_u, ((lh + 1 - st) >> 2) & 31);
-      }
-      sync();
-      if (NT != 32) {
+        sync();
+        vl = vc[lh];
+        ul = U[lh + 1];
+        sync();
+      } else {
+        if (tid == (((lh - st) >> 2) & (NT - 1))) slot[par] = vc[lh];
+        if (tid == (((lh + 1 - st) >> 2) & (NT - 1))) slot[2 + par] = U[lh + 1];
+        sync();
         vl = slot[par];
         ul = slot[2 + par];
       }
-      // the approx-max H0 walk (ksw2.py:587-608); lh stays in [st0, en0]
-      // of the row, so the lanes it reads were written just now
+      // the approx-max H0 walk (ksw2.py:587-608): it steps to lane lh + 1
+      // where lh left the window, or both lanes are in it and v > u does
+      // not hold; row 0 starts it at lane 0 (lh starts at 0)
       if (r == 0) {
         H0 = vl - (c.q + c.e);
-        lh = 0;
       } else {
         const bool in0 = lh >= st0 && lh <= en0;
         const bool in1 = lh + 1 >= st0 && lh + 1 <= en0;
-        if (in0 && in1) {
-          if (vl > ul) {
-            H0 += vl;
-          } else {
-            H0 += ul;
-            ++lh;
-          }
-        } else if (in0) {
-          H0 += vl;
-        } else {
-          ++lh;
-          H0 += ul;
-        }
+        const bool step = !in0 || (in1 && ul >= vl);
+        H0 += step ? ul : vl;
+        lh += step;
       }
-      if (r == n_rows - 1 && en0 == tlen - 1) sc_final = H0;
     }
     last_st = st;
     last_en = en;
     row_off += en - st + 1;
   }
   if (tid != 0) return;
-  if (!EXT) {
-    a.score[f] = sc_final;
+  if (!EXT) {   // the score: H0 at the last row, where it ends at tlen - 1
+    int st0, en0;
+    row_window(n_rows - 1, qlen, tlen, w, st0, en0);
+    a.score[f] = en0 == tlen - 1 ? H0 : kNegInf;
     return;
   }
   // ext_batch_device's epilogue (ksw2_tpu.py:1741-1762): the backtrack
@@ -845,8 +935,8 @@ int mm2_extd2_fill(const void* qblob, const void* tblob, const void* qoff,
   return launch_fills(right ? extd2_fill_kernel<true>
                             : extd2_fill_kernel<false>,
                       a, work, n_block, n_warp,
-                      FillConsts{q, e, q2, e2, mat0, mat1, sc_n, long_thres,
-                                 long_diff},
+                      fill_consts(q, e, q2, e2, mat0, mat1, sc_n, long_thres,
+                                  long_diff, right),
                       warp_stride, smem_bytes, stream);
 }
 
@@ -872,8 +962,8 @@ int mm2_extd2_ext(const void* qblob, const void* tblob, const void* qoff,
              end_bonus, (int*)ext};
   return launch_fills(right ? extd2_ext_kernel<true> : extd2_ext_kernel<false>,
                       a, work, n_block, n_warp,
-                      FillConsts{q, e, q2, e2, mat0, mat1, sc_n, long_thres,
-                                 long_diff},
+                      fill_consts(q, e, q2, e2, mat0, mat1, sc_n, long_thres,
+                                  long_diff, right),
                       warp_stride, smem_bytes, stream);
 }
 

@@ -671,3 +671,102 @@ def test_exts2_ext_warp_and_block_classes(cuda, monkeypatch, in_scratch):
     e, p = ksw2s_gpu.exts2_ext(*fa)
     et, pt = ksw2s_gpu.exts2_ext_torch(*fa)
     assert torch.equal(e, et) and torch.equal(p, pt)
+
+
+def _cell_edge_pairs(rng, ext):
+    """Fills at the edges of the fill kernel's cell update: odd target
+    lengths on both sides of the warp/block boundary (WARP_LANES: 512)
+    and one past 1,400 lanes (its state in scratch under the test's cap),
+    queries of 70-120% of them, bands of 16, 51 and 200 whose 16-aligned
+    windows run stale lanes beside the whole matrix, N bases in every
+    third pair (both sides), an unrelated pair; extensions (ext) take the
+    whole matrix, with unrelated tails under a tight Z-drop in two."""
+    from chip_smoke import _mutate_splice
+    pairs, ws, zd = [], [], []
+    for k, (tl, w) in enumerate([
+            (97, 16), (211, 51), (213, 200), (301, -1), (333, 16), (511, 51),
+            (509, 200), (497, -1), (701, 51), (1499, 200), (45, -1),
+            (151, 16), (275, 51), (613, -1), (9, 200), (399, 16)]):
+        t = rng.integers(0, 4, tl).astype(np.uint8)
+        q = (rng.integers(0, 4, tl).astype(np.uint8) if k == 4
+             else _mutate_splice(rng, t, 0.05, 0.03))
+        if w < 0 or ext:
+            q = q[:max(1, int(tl * rng.uniform(0.7, 1.2)))].copy()
+        if k % 3 == 0:
+            q[rng.random(q.shape[0]) < 0.05] = 4
+            t[rng.random(tl) < 0.03] = 4
+        if ext and k in (2, 13):
+            q[q.shape[0] // 3:] = rng.integers(0, 4, q.shape[0]
+                                               - q.shape[0] // 3)
+        pairs.append((q, t))
+        ws.append(-1 if ext else w)
+        zd.append(60 if ext and k in (2, 13) else 400)
+    return pairs, ws, np.array(zd)
+
+
+@pytest.mark.parametrize("right", [False, True], ids=["default", "right"])
+def test_extd2_cell_update_edges(cuda, monkeypatch, right):
+    """The fill and extension kernels' cell update in 16-bit lanes at its
+    edges, under asm5's scoring (the widest q2 + e2 of the presets, 82,
+    and a mismatch of -19): _cell_edge_pairs in one fill launch that holds
+    warp-class fills, block-class ones in shared memory and one in global
+    scratch (the shared-memory cap lowered between them), then one
+    extension launch of the same classes with Z-drops.  Scores, direction
+    bytes, CIGARs and every extension field equal the twins and ksw2.extd2,
+    also with direction regions that are not 4-aligned."""
+    from chip_smoke import _pack_ext, _pack_fills
+    from mm2_gb_tpu_torch.ops import ksw2
+    from mm2_gb_tpu_torch.utils import opts as O
+    prm = ksw2_gpu.fill_params(O.set_preset("asm5")[1])
+    assert prm.qq2 + prm.ee2 == 82 and not prm.mat_gate
+    monkeypatch.setattr(ksw2_gpu, "FILL_SMEM_MAX", 12_000)
+    monkeypatch.setattr(ksw2_gpu, "EXT_SMEM_MAX", 16_000)
+    rng = np.random.default_rng(1919 + right)
+    pairs, ws, _zd = _cell_edge_pairs(rng, ext=False)
+    keep = ~ksw2_gpu.band_collapses(
+        [len(q) for q, _t in pairs], [len(t) for _q, t in pairs],
+        [w if w >= 0 else max(len(q), len(t)) for w, (q, t) in zip(ws, pairs)])
+    meta, qb, tb = _pack_fills([p for p, k in zip(pairs, keep) if k],
+                               [w for w, k in zip(ws, keep) if k])
+    flag = ksw2.KSW_EZ_APPROX_MAX | (ksw2.KSW_EZ_RIGHT if right else 0)
+    st = ksw2_gpu.FillStats()
+    with recording_fills() as calls:
+        got = ksw2_gpu.extd2_fill_batch(meta, qb, tb, prm, cuda, flag, st)
+    assert fill_result_err(got, fill_oracle(meta, qb, tb, prm, flag)) == 0
+    assert len(calls) == 1 and st.host_fills == 0
+    shape = ksw2_gpu.fill_shape(calls[0][0][4].cpu().numpy(),
+                                calls[0][0][5].cpu().numpy())
+    block = shape.work[:shape.n_block]
+    assert shape.n_warp > 0
+    assert (shape.scr_off[block] >= 0).any() and (shape.scr_off[block]
+                                                  < 0).any()
+    assert hold_fill_calls(calls, "cell edges", verbose=False)[0] == 0
+    fa = list(calls[0][0])
+    fa[7], fa[8] = fa[7] + 1, fa[8] + 1   # direction regions 4k + 1
+    sc, p = ksw2_gpu.extd2_fill(*fa)
+    sct, pt = ksw2_gpu.extd2_fill_torch(*fa)
+    assert torch.equal(sc, sct) and torch.equal(p, pt)
+    # extension mode: the same classes, with Z-drops
+    pairs, ws, zd = _cell_edge_pairs(rng, ext=True)
+    meta, qb, tb = _pack_ext(pairs, ws)
+    eflag = ksw2.KSW_EZ_EXTZ_ONLY | (ksw2.KSW_EZ_RIGHT if right else 0)
+    st = ksw2_gpu.FillStats()
+    with recording_ext() as calls:
+        got = ksw2_gpu.extd2_ext_batch(meta, qb, tb, zd, prm, eflag, 10, cuda,
+                                       st)
+    assert ext_result_err(got, ext_oracle(meta, qb, tb, zd, prm, eflag,
+                                          10)) == 0
+    assert len(calls) == 1
+    shape = ksw2_gpu.ext_shape(calls[0][0][4].cpu().numpy(),
+                               calls[0][0][5].cpu().numpy())
+    block = shape.work[:shape.n_block]
+    assert shape.n_warp > 0
+    assert (shape.scr_off[block] >= 0).any() and (shape.scr_off[block]
+                                                  < 0).any()
+    assert got[0][:, 8].any()   # a Z-drop
+    assert hold_ext_calls(calls, "cell edges", verbose=False)[0] == 0
+    fa = list(calls[0][0])
+    fa[8], fa[9] = fa[8] + 1, fa[9] + 1
+    e, p = ksw2_gpu.extd2_ext(*fa)
+    et, pt = ksw2_gpu.extd2_ext_torch(*fa)
+    assert torch.equal(e, et) and torch.equal(p, pt)

@@ -265,3 +265,338 @@ def test_fill_chunk_budget_from_free_memory(monkeypatch):
     assert gpucfg.fill_chunk_bytes(cuda) == 1 << 20
     assert gpucfg.fill_chunk_bytes(torch.device("cpu")) \
         == gpucfg.CPU_FILL_CHUNK_BYTES
+
+
+# --------------------------------------------------------------------------
+# The gap-fill kernel's cell update in 16-bit lanes (extd2_kernel.cu: cell2
+# and the word loop of extd2_one), step by step in NumPy, against the
+# oracle's own row: extd2's loop body in the port's ops/ksw2.py, run on the
+# same state.  Every output byte (u, v, x, y, x2, y2, the score row) and
+# every direction byte, under KSW_EZ_RIGHT and without.
+# --------------------------------------------------------------------------
+
+def _prmt(a, b, sel, sign=False):
+    """prmt.b32 of words a, b (uint32 arrays) with selector sel; sign:
+    bit 3 of a selector nibble replicates the byte's sign (__byte_perm's
+    selectors here leave it 0)."""
+    src = (np.asarray(b, np.uint64) << np.uint64(32)) | np.asarray(
+        a, np.uint64)
+    sel = np.asarray(sel, np.uint64)
+    out = np.zeros(np.broadcast(src, sel).shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (src >> ((nib & np.uint64(7)) * np.uint64(8))) & np.uint64(255)
+        if sign:
+            byte = np.where(nib & np.uint64(8),
+                            np.where(byte & np.uint64(128), 255, 0), byte)
+        out |= np.asarray(byte, np.uint64) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _u32(x):
+    return (np.asarray(x, np.int64) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def _halves(a):
+    a = np.asarray(a, np.int64)
+    lo, hi = a & 0xFFFF, (a >> 16) & 0xFFFF
+    return (np.where(lo >= 0x8000, lo - 0x10000, lo),
+            np.where(hi >= 0x8000, hi - 0x10000, hi))
+
+
+def _join(lo, hi):
+    return _u32((lo & 0xFFFF) | ((hi & 0xFFFF) << 16))
+
+
+def _add_s16x2(a, b):   # PTX add.s16x2: each half wraps
+    (al, ah), (bl, bh) = _halves(a), _halves(b)
+    return _join(al + bl, ah + bh)
+
+
+def _max_s16x2(a, b):
+    (al, ah), (bl, bh) = _halves(a), _halves(b)
+    return _join(np.maximum(al, bl), np.maximum(ah, bh))
+
+
+def _min_s16x2(a, b):
+    (al, ah), (bl, bh) = _halves(a), _halves(b)
+    return _join(np.minimum(al, bl), np.minimum(ah, bh))
+
+
+def _add32(*xs):   # 32-bit adds: the low lane's carry reaches the high lane
+    return _u32(sum(np.asarray(x, np.int64) for x in xs))
+
+
+def _neg(x):
+    return -np.asarray(x, np.int64)
+
+
+def _lane2(v, g):
+    return _u32(((int(v) & 0xFF) << 8 | g) * 0x10001)
+
+
+# by KSW_EZ_RIGHT: the candidates' tags (fill_consts), the aux byte of q
+# and q2 and the zero lane (CellTags)
+CELL_TAGS = {True: (dict(s=0, x=1, y=2, x2=3, y2=4), 0xC0, 0x00400040),
+             False: (dict(s=7, x=6, y=5, x2=4, y2=3), 0x40, 0x00C000C0)}
+
+
+def _cell2(s, x, v, x2, u, y, y2, k, right):
+    """cell2<RIGHT>: one register of two 16-bit lanes, each step as the
+    kernel takes it: (z before the min, u, v, x, y, x2, y2)."""
+    zero = CELL_TAGS[right][2]
+    z = _max_s16x2(_add_s16x2(x, v), s)   # __viaddmax_s16x2
+    z = _max_s16x2(_add_s16x2(y, u), z)
+    z = _max_s16x2(_add_s16x2(x2, v), z)
+    z = _max_s16x2(_add_s16x2(y2, u), z)
+    zm = _min_s16x2(z, k["m0"])
+    nq, nq2 = _add32(k["q"], _neg(zm)), _add32(k["q2"], _neg(zm))
+    qe, qe2 = _neg(k["qe"]), _neg(k["qe2"])
+    return (z, _add32(zm, _neg(v), 0x10000), _add32(zm, _neg(u), 0x10000),
+            _add32(_max_s16x2(_add32(x, v, nq), zero), qe),
+            _add32(_max_s16x2(_add32(y, u, nq), zero), qe),
+            _add32(_max_s16x2(_add32(x2, v, nq2), zero), qe2),
+            _add32(_max_s16x2(_add32(y2, u, nq2), zero), qe2))
+
+
+def _words(a, at):
+    """The 32-bit words of byte array a at byte offsets at (clipped)."""
+    at = np.clip(at, 0, a.shape[0] - 4)
+    b = np.asarray(a).view(np.uint8).astype(np.uint32)
+    return b[at] | b[at + 1] << 8 | b[at + 2] << 16 | b[at + 3] << 24
+
+
+def _put(a, at, w):
+    b = a.view(np.uint8)
+    for i in range(4):
+        b[at + i] = (w >> np.uint32(8 * i)) & np.uint32(255)
+
+
+def _bcast(v):
+    return np.uint32((int(v) & 0xFF) * 0x01010101)
+
+
+def _pick(m, a, b):
+    return (b & m) | (a & ~m)
+
+
+def _kernel_row(st8, tb, qr, r, qlen, win, last, bv, prm, right):
+    """extd2_one's row r (fill mode) over the words of [st, last]:
+    st8 holds the int8 arrays S, U, Y, Y2, and XP, VP, X2P (the previous
+    row's x, v, x2); the current row's x, v, x2 go to XC, VC, X2C.  tb:
+    the staged target, qr: the staged reversed query.  Returns the
+    direction bytes of [st, en]."""
+    st, en, st0, en0 = win
+    last_st, last_en = last
+    tag, q_aux, _zero = CELL_TAGS[right]
+    qq, ee, qq2, ee2 = prm.qq, prm.ee, prm.qq2, prm.ee2
+    k = dict(m0=_lane2(prm.mat0, 0), q=_lane2(qq, q_aux),
+             q2=_lane2(qq2, q_aux), qe=_lane2(qq + ee, 0),
+             qe2=_lane2(qq2 + ee2, 0))
+    nqe, nqe2 = (-qq - ee) & 0xFF, (-qq2 - ee2) & 0xFF
+    S, U, Y, Y2 = st8["S"], st8["U"], st8["Y"], st8["Y2"]
+    XP, VP, X2P = st8["XP"], st8["VP"], st8["X2P"]
+    x1, x21, v1 = nqe, nqe2, nqe
+    if st > 0:
+        if last_st <= st - 1 <= last_en:
+            x1, x21, v1 = (int(a[st - 1]) & 0xFF for a in (XP, X2P, VP))
+    else:
+        v1 = bv & 0xFF
+    nbytes = S.shape[0]
+    hi = min(st0 + 16 * ((en0 - st0) // 16 + 1), nbytes)
+    t0 = np.arange(st, max(en, hi - 1) + 1, 4)
+    # the score row: a prmt lookup of each lane's index
+    lo_f, hi_f = st0 - t0, hi - t0
+    fresh = sum(np.where((i >= lo_f) & (i < hi_f), 0xFF << (8 * i), 0)
+                for i in range(4)).astype(np.uint32)
+    z = _words(S, t0)
+    t_b = _words(tb, t0)
+    k0 = 16 + qlen - 1 - r + t0   # kQPad + qlen - 1 - r + t0
+    w0 = k0 & ~3
+    q64 = (_words(qr, w0).astype(np.uint64)
+           | _words(qr, w0 + 4).astype(np.uint64) << np.uint64(32))
+    q_b = (q64 >> (8 * (k0 - w0)).astype(np.uint64)).astype(np.uint32)
+    ix = (t_b ^ q_b) | ((t_b | q_b) & np.uint32(0x04040404))
+    sel = _prmt(ix + (ix >> np.uint32(4)), 0, 0x20)
+    sc_lo = np.uint32((prm.mat0 & 0xFF) | (int(_bcast(prm.mat1)) << 8
+                                           & 0xFFFFFFFF))
+    z = np.where(fresh != 0,
+                 _pick(fresh, z, _prmt(sc_lo, _bcast(prm.sc_n), sel)), z)
+    for at, w in zip(t0[fresh != 0], z[fresh != 0]):
+        _put(S, at, np.uint32(w))
+    # the window's words
+    keep = t0 <= en
+    t0, z = t0[keep], z[keep]
+    shifted = {}
+    for name, a, b1 in (("x", XP, x1), ("v", VP, v1), ("x2", X2P, x21)):
+        cur = _words(a, t0)
+        shifted[name] = np.where(
+            t0 == st, _u32((cur.astype(np.int64) << 8) | b1),
+            _prmt(_words(a, t0 - 4), cur, 0x6543))
+    ut, yt, y2t = _words(U, t0), _words(Y, t0), _words(Y2, t0)
+    if en >= r:   # lane r restarts
+        at = (r >= t0) & (r < t0 + 4)
+        m = np.where(at, _u32(0xFF << (8 * np.clip(r - t0, 0, 3))), 0
+                     ).astype(np.uint32)
+        ut = _pick(m, ut, _bcast(bv))
+        yt = _pick(m, yt, _bcast(nqe))
+        y2t = _pick(m, y2t, _bcast(nqe2))
+    halves = []
+    for sel in (0x2404, 0x3414):   # lanes_e, lanes_o
+        ln = (lambda w, g: _prmt(w, g, sel))
+        halves.append(_cell2(ln(z, tag["s"]), ln(shifted["x"], tag["x"]),
+                             ln(shifted["v"], 0), ln(shifted["x2"], tag["x2"]),
+                             ln(ut, 0), ln(yt, tag["y"]), ln(y2t, tag["y2"]),
+                             k, right))
+    e, o = halves
+    for i, a in enumerate(("U", "VC", "XC", "Y", "X2C", "Y2"), start=1):
+        j = (1, 2, 3, 4, 5, 6)[i - 1]
+        w = _prmt(e[j], o[j], 0x7351)
+        for at, wv in zip(t0, w):
+            _put(st8[a], at, wv)
+    tg = _prmt(e[0], o[0], 0x6240)
+    sg = [_prmt(e[j], o[j], 0xEAC8, sign=True) for j in (3, 4, 5, 6)]
+    bits = [0x08080808, 0x10101010, 0x20202020, 0x40404040]
+    if right:
+        d = tg
+        for s_, b in zip(sg, bits):
+            d = d | (s_ & np.uint32(b))
+    else:
+        d = ~tg & np.uint32(0x07070707)
+        for s_, b in zip(sg, bits):
+            d = d | (~s_ & np.uint32(b))
+    return np.ascontiguousarray(d.astype(np.uint32)).view(np.uint8)
+
+
+def _oracle_row_block():
+    """The row of ops/ksw2.py's extd2, from the boundary values to the
+    direction bytes, as source to run on a given state."""
+    import inspect
+    import textwrap
+
+    from mm2_gb_tpu_torch.ops import ksw2 as pk2
+    lines = inspect.getsource(pk2.extd2).splitlines()
+    a = next(i for i, ln in enumerate(lines) if ln.strip() == "if st > 0:")
+    b = next(i for i, ln in enumerate(lines)
+             if ln.strip() == "off[r], off_end[r] = st, en")
+    return compile(textwrap.dedent("\n".join(lines[a:b + 1])),
+                   "ksw2.extd2 row", "exec"), pk2
+
+
+def _cell_presets():
+    """Every preset of utils/opts (aliases once) whose scoring the card
+    takes (mat_gate False)."""
+    names = [None, "ava-ont", "map-pb", "ava-pb", "map-hifi", "asm5", "asm10",
+             "asm20", "sr", "splice", "splice:hq"]
+    return [p for p in names
+            if not K.fill_params(O.set_preset(p)[1]).mat_gate]
+
+
+@pytest.mark.parametrize("preset", _cell_presets(),
+                         ids=lambda p: p or "map-ont")
+def test_cell_update_in_16bit_lanes_matches_oracle_row(preset):
+    """The kernel's word loop on random rows: the scenario draws a fill
+    shape, a band and a row r (so the 16-aligned window, the score store
+    span past en0, the boundary lane st - 1 read from the previous row
+    or not, the reset lane r and bound_v's four cases), bases with N, and
+    the state: half the rows draw every int8 value (every value any
+    state word can reach, and the ones past that, where the casts wrap),
+    half the values of a real fill (u, v in [-qe, m0 + qe], x, y in [-qe,
+    -e], x2, y2 in [-qe2, -e2], scores 0 and the matrix's), where ties
+    between the candidates are frequent.  The rows' u, y, y2, score row,
+    x, v, x2 and direction bytes equal the oracle's, under KSW_EZ_RIGHT
+    and without."""
+    code, pk2 = _oracle_row_block()
+    prm = K.fill_params(O.set_preset(preset)[1])
+    qq, ee, qq2, ee2 = prm.qq, prm.ee, prm.qq2, prm.ee2
+    lt, ld = prm.long_thres, prm.long_diff
+    bound_v = (lambda r: -qq - ee if r == 0 else -ee if r < lt
+               else ld if r == lt else -ee2)
+    seen = {n: np.zeros(256, bool) for n in ("s", "x", "v", "x2", "u", "y",
+                                             "y2")}
+    for right in (False, True):
+        rng = np.random.default_rng(9_000 + 2 * _cell_presets().index(preset)
+                                    + right)
+        cases = bound_cases = 0
+        while cases < 80:
+            tlen, qlen = (int(x) for x in rng.integers(1, 700, 2))
+            w = int(rng.choice([-1, -1, 16, 51, 200]))
+            w = max(qlen, tlen) if w < 0 else w
+            r = int(rng.choice([0, 1, lt, lt + 1,
+                                int(rng.integers(0, qlen + tlen - 1))]))
+            if r > qlen + tlen - 2:
+                continue
+            win = pk2._row_window(r, qlen, tlen, w, w)
+            if win is None:
+                continue
+            st, en, st0, en0 = win
+            nbytes = (tlen + 15) // 16 * 16 + 16   # the store span fits
+            full = cases % 2 == 0
+            if full:
+                draw = {n: rng.integers(-128, 128, nbytes) for n in
+                        ("S", "U", "Y", "Y2", "XP", "VP", "X2P")}
+            else:
+                box = lambda lo, hi: rng.integers(lo, hi + 1, nbytes)
+                draw = dict(U=box(-qq - ee, prm.mat0 + qq + ee),
+                            VP=box(-qq - ee, prm.mat0 + qq + ee),
+                            Y=box(-qq - ee, -ee), XP=box(-qq - ee, -ee),
+                            Y2=box(-qq2 - ee2, -ee2), X2P=box(-qq2 - ee2, -ee2),
+                            S=rng.choice([0, prm.mat0, prm.mat1, prm.sc_n],
+                                         nbytes))
+            st8 = {n: np.asarray(a, np.int64).astype(np.int8)
+                   for n, a in draw.items()}
+            for n in ("XC", "VC", "X2C"):
+                st8[n] = rng.integers(-128, 128, nbytes).astype(np.int8)
+            tseq = rng.integers(0, 4, tlen).astype(np.uint8)
+            qseq = rng.integers(0, 4, qlen).astype(np.uint8)
+            tseq[rng.random(tlen) < 0.08] = 4
+            qseq[rng.random(qlen) < 0.08] = 4
+            last = (st - 16 * int(rng.integers(0, 2)),
+                    en - 16 * int(rng.integers(0, 3)))
+            bound_cases += st > 0 and last[0] <= st - 1 <= last[1]
+            # the oracle's row on copies of the state
+            smem = np.zeros(nbytes * 2 + (qlen + 15) // 16 * 16 + 16, np.int8)
+            smem[:nbytes] = st8["S"]
+            smem[nbytes:nbytes + tlen] = tseq.view(np.int8)
+            smem[2 * nbytes:2 * nbytes + qlen] = qseq[::-1].view(np.int8)
+            ns = dict(np=np, _shift1=pk2._shift1, _row_scores=pk2._row_scores,
+                      KSW_EZ_RIGHT=pk2.KSW_EZ_RIGHT, smem=smem, s=smem[:nbytes],
+                      sf_off=nbytes, qr_off=2 * nbytes, r=r, qlen=qlen,
+                      st=st, en=en, st0=st0, en0=en0, last_st=last[0],
+                      last_en=last[1], bound_v=bound_v, q=qq, e=ee, q2=qq2,
+                      e2=ee2, qe=qq + ee, mat0=prm.mat0, mat1=prm.mat1,
+                      sc_N=prm.sc_n, with_cigar=True,
+                      flag=pk2.KSW_EZ_RIGHT if right else 0,
+                      u=st8["U"].copy(), y=st8["Y"].copy(),
+                      y2=st8["Y2"].copy(), x=st8["XP"].copy(),
+                      v=st8["VP"].copy(), x2=st8["X2P"].copy(),
+                      n_col=en - st + 1, p_rows={},
+                      off=np.zeros(r + 1, np.int64),
+                      off_end=np.zeros(r + 1, np.int64))
+            exec(code, ns)
+            # the kernel's row, on its staged target and reversed query
+            tb = np.zeros(nbytes, np.uint8)
+            tb[:tlen] = tseq
+            qr = np.zeros((qlen + 16 + 32 + 15) & ~15, np.uint8)
+            qr[16:16 + qlen] = qseq[::-1]
+            kin = {n: a.copy() for n, a in st8.items()}
+            d = _kernel_row(kin, tb, qr, r, qlen, win, last, bound_v(r), prm,
+                            right)
+            sl = slice(st, en + 1)
+            assert np.array_equal(kin["S"], ns["s"])
+            for kn, on in (("U", "u"), ("Y", "y"), ("Y2", "y2")):
+                assert np.array_equal(kin[kn], ns[on]), kn
+            for kn, on in (("XC", "x"), ("VC", "v"), ("X2C", "x2")):
+                assert np.array_equal(kin[kn][sl], ns[on][sl]), kn
+            assert np.array_equal(d, ns["p_rows"][r]), (preset, right, r)
+            for n, a in (("s", ns["s"]), ("x", st8["XP"]), ("v", st8["VP"]),
+                         ("x2", st8["X2P"]), ("u", st8["U"]), ("y", st8["Y"]),
+                         ("y2", st8["Y2"])):   # the values the window reads
+                seen[n][a[max(st - 1, 0):en + 1].view(np.uint8)] = True
+            cases += 1
+        assert bound_cases > 0
+    # every int8 value of the six state words; the score row's values
+    # are the matrix's (and 0 before a row stores) besides the stale
+    # lanes [st, st0), which read the drawn ones
+    assert all(seen[n].all() for n in ("x", "v", "x2", "u", "y", "y2"))
+    assert seen["s"][np.array([0, prm.mat0, prm.mat1, prm.sc_n]) & 0xFF].all()
