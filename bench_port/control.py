@@ -6,10 +6,10 @@ guarantee must come out as not correct.
 For each seed it makes the cell's genome and read pool, draws the reads
 a run's check samples where the window finishes the whole pool, and puts in the program's place the plain
 reference computed in the precision below the one minimap2 and the
-port compute in (reference/check.use_control): the chain scores in
-int16 instead of int32, the chain gap cost and the divergence estimates
-in bfloat16 instead of float32; the check's own comparison holds it to
-the reference as computed.  It
+port compute in (reference/check.use_control): the chain scores, the
+DP's or RMQ's, in int16 instead of int32, the chain gap cost and the
+divergence estimates in bfloat16 instead of float32; the check's own
+comparison holds it to the reference as computed.  It
 prints one JSON line a seed with each number.  It needs no card: the
 benchmark's runs do not run it.
 """

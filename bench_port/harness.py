@@ -20,10 +20,12 @@ A run has three parts.
   sample of the finished reads again and solves the sampled gap fills;
   every number compared is printed beside its limit.
 
-Wrappers put around four of the program's functions record what the
+Wrappers put around five of the program's functions record what the
 check and the traced metrics read, and time nothing:
 pipeline.finish_read (the chain scores and predecessors of the
-sample's candidates),
+sample's candidates), chain_rmq.chain_rmq (under MM_F_RMQ the host
+chains each read in its finish_read, the chain kernel runs for none:
+the chains of the first call inside a candidate's finish_read),
 pipeline._finish_batch (which reads the batch being emitted holds),
 ksw2_gpu.extd2_fill_batch (sampled gap fills; in a traced run every
 batch's fill shapes) and, in a traced run, chain_gpu.dispatch_scores
@@ -41,6 +43,7 @@ import resource
 import shutil
 import sys
 import tempfile
+import threading
 import time
 from types import SimpleNamespace
 
@@ -184,9 +187,6 @@ def setup(cell, seed: int, device: str, workdir: str) -> SimpleNamespace:
     O.check_opt(io_, mo)
     st.mo, st.threads, st.is_sam = mo, args.threads, bool(
         mo.flag & O.MM_F_OUT_SAM)
-    if not st.is_sam:
-        raise ValueError("the output check's truth_off reads SAM; "
-                         f"{cell.config_name} writes PAF")
 
     t = time.perf_counter()
     st.index = MinimizerIndex.build(
@@ -260,18 +260,31 @@ class Patches:
 
 def _install(st, cap, trace: bool, patches: Patches) -> None:
     from mm2_gb_tpu_torch.models import pipeline
-    from mm2_gb_tpu_torch.ops import chain_gpu, ksw2_gpu
+    from mm2_gb_tpu_torch.ops import chain_gpu, chain_rmq, ksw2_gpu
     finish_read = pipeline.finish_read
+    rmq = chain_rmq.chain_rmq
     finish_batch = pipeline._finish_batch
     fill_batch = ksw2_gpu.extd2_fill_batch
     dispatch = chain_gpu.dispatch_scores
     rng = np.random.default_rng(np.random.SeedSequence([st.seed % 2**64,
                                                         0xF111]))
 
+    # the candidate whose finish_read runs on this thread, or None
+    # (finish_slices runs them on the pool)
+    mine = threading.local()
+
     def finish_read_w(index, opt, sr, f, p, dump=True):
-        if cap.pos[sr.rec.name] in cap.keep:
-            cap.fp.setdefault(sr.rec.name, (f, p))
+        name = sr.rec.name
+        mine.name = name if cap.pos[name] in cap.keep else None
+        if mine.name:
+            cap.fp.setdefault(name, (f, p))
         return finish_read(index, opt, sr, f, p, dump)
+
+    def rmq_w(*a, **kw):
+        out = rmq(*a, **kw)
+        if getattr(mine, "name", None):
+            cap.rmq.setdefault(mine.name, out)
+        return out
 
     def finish_batch_w(index, opt, batch, *a, **kw):
         cap.batch_max = max([-1] + [cap.pos[sr.rec.name]
@@ -310,6 +323,7 @@ def _install(st, cap, trace: bool, patches: Patches) -> None:
         return pend
 
     patches.put(pipeline, "finish_read", finish_read_w)
+    patches.put(chain_rmq, "chain_rmq", rmq_w)
     patches.put(pipeline, "_finish_batch", finish_batch_w)
     patches.put(ksw2_gpu, "extd2_fill_batch", fill_batch_w)
     if trace:
@@ -351,7 +365,7 @@ def window(st, seconds: float, trace: bool) -> SimpleNamespace:
     from mm2_gb_tpu_torch.models import pipeline
     from bench_port.reference import truth
     mo, index = st.mo, st.index
-    cap = SimpleNamespace(fp={}, keep=set(st.longest + st.drawn),
+    cap = SimpleNamespace(fp={}, rmq={}, keep=set(st.longest + st.drawn),
                           fills=[], fill_metas=[], chain_calls=[],
                           batch_left=0, batch_max=-1,
                           pos={n: i for i, (n, _) in enumerate(st.pool)})
@@ -396,7 +410,7 @@ def window(st, seconds: float, trace: bool) -> SimpleNamespace:
                     p = cap.pos[name]
                     if out.hashes[p] is None:
                         out.hashes[p] = hash(text)
-                        out.truth_off += truth.off(name, text)
+                        out.truth_off += truth.off(name, text, st.is_sam)
                         if p in cap.keep:
                             out.kept[p] = (text, sr.ax, sr.ay)
                     elif out.hashes[p] != hash(text):
@@ -496,19 +510,27 @@ def read_trace(prof, device, window_s: float, workdir: str):
 
 # ---------------------------------------------------------------- check
 
+def chains_equal(p: dict, r: dict) -> bool:
+    """Whether the program's chaining of a read (`p`) is the reference's
+    (`r`): the RMQ chains (u, cx, cy) where the reference chained by RMQ,
+    else the DP's scores and predecessors (f, p); a key the program never
+    gave differs."""
+    keys = ("u", "cx", "cy") if "u" in r else ("f", "p")
+    return all(np.array_equal(p.get(k), r[k]) for k in keys)
+
+
 def compare(reads: list[str], prog: dict, ref: dict) -> dict:
-    """The counts of reads whose anchors, chain scores and predecessors,
-    or records differ between the program (`prog`: name -> {"ax", "ay",
-    "f", "p", "lines"}, a key missing where the program never gave it)
-    and the reference."""
+    """The counts of reads whose anchors, chains (chains_equal) or
+    records differ between the program (`prog`: name -> {"ax", "ay",
+    "lines"} and "f", "p" or "u", "cx", "cy", a key missing where the
+    program never gave it) and the reference."""
     n = dict(anchors_differ=0, chain_differ=0, records_differ=0)
     for name in reads:
         p, r = prog[name], ref[name]
         if not (np.array_equal(p.get("ax"), r["ax"])
                 and np.array_equal(p.get("ay"), r["ay"])):
             n["anchors_differ"] += 1
-        if not (np.array_equal(p.get("f"), r["f"])
-                and np.array_equal(p.get("p"), r["p"])):
+        if not chains_equal(p, r):
             n["chain_differ"] += 1
         if p.get("lines") != r["lines"]:
             n["records_differ"] += 1
@@ -530,6 +552,7 @@ def check(st, w) -> SimpleNamespace:
     t = time.perf_counter()
     argv = list(st.cell.config["argv"])
     rindex, rmo = ref.index_and_options(st.chroms, argv)
+    t_index = time.perf_counter() - t
     got = ref.map_reads(rindex, argv, [(n, seqs[n]) for n in due])
     prog = {}
     for n in due:
@@ -537,25 +560,34 @@ def check(st, w) -> SimpleNamespace:
         d = dict(ax=ax, ay=ay, lines=text)
         if n in w.cap.fp:
             d.update(f=w.cap.fp[n][0], p=w.cap.fp[n][1])
+        if n in w.cap.rmq:
+            d.update(zip(("u", "cx", "cy"), w.cap.rmq[n]))
         prog[n] = d
     nums = dict(reads_missing=w.skipped)
     nums.update(compare(due, prog, got))
     nums["repeats_differ"] = w.repeats_differ
     fills_differ = 0
+    t_fills = time.perf_counter()
     for fl in w.cap.fills:
         sc, cig = ref.fill(rmo, fl["q"], fl["t"], fl["w"], fl["zdrop"],
                            fl["flag"])
         if sc != fl["score"] or not np.array_equal(cig, fl["cigar"]):
             fills_differ += 1
     nums["fills_differ"] = fills_differ
+    t_fills = time.perf_counter() - t_fills
     nums["truth_off"] = w.truth_off
     wrong = {n for n in due if prog[n].get("lines") != got[n]["lines"]
-             or not np.array_equal(prog[n].get("f"), got[n]["f"])}
+             or not chains_equal(prog[n], got[n])}
     return SimpleNamespace(
         numbers=nums, reads=len(due), fills=len(w.cap.fills),
         failed=len(wrong) + fills_differ + w.truth_off,
         correct=bool(due) and all(nums[k] <= LIMITS[k] for k in LIMITS),
-        seconds=time.perf_counter() - t)
+        seconds=time.perf_counter() - t, index_s=t_index,
+        bases=sum(len(seqs[n]) for n in due),
+        chain_s=sum(got[n]["seconds"]["chain"] for n in due),
+        map_s=sum(got[n]["seconds"]["all"] for n in due), fills_s=t_fills,
+        fill_max=max([(0, 0)] + [(fl["t"].size, fl["q"].size)
+                                 for fl in w.cap.fills]))
 
 
 # ----------------------------------------------------------------- a run
@@ -609,8 +641,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         if st.device.type == "cuda":
             torch.cuda.empty_cache()
         ck = check(st, w)
-        log(f"check: {ck.reads} reads and {ck.fills} gap fills against "
-            f"the reference in {ck.seconds:.3f} s; the primary records of "
+        log(f"check: {ck.reads} reads ({ck.bases} bases) and {ck.fills} "
+            f"gap fills against the reference in {ck.seconds:.3f} s (its "
+            f"index {ck.index_s:.3f} s; summed over its workers, chaining "
+            f"{ck.chain_s:.3f} s of mapping {ck.map_s:.3f} s; the fills "
+            f"{ck.fills_s:.3f} s, the largest {ck.fill_max[0]} target by "
+            f"{ck.fill_max[1]} query bases); the primary records of "
             f"{sum(h is not None for h in w.hashes)} reads against their "
             "origins")
         ctx = SimpleNamespace(cell=cell, clock=st.clock, window=w,

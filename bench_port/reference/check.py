@@ -7,10 +7,15 @@ configuration gives) and its own index (refindex.py), and returns for
 each read:
 
 - the anchors seeding makes (mm_collect_matches and the anchor sort);
-- the chain DP's scores and predecessors over them at the
-  configuration's max_chain_skip (lchain.c:169-207, as the card's chain
-  kernel computes them at max_skip = infinity);
-- the records minimap2 writes for it (PAF or SAM lines).
+- its chains over them: where the configuration chains by the DP, the
+  DP's scores and predecessors at its max_chain_skip (lchain.c:169-207,
+  as the card's chain kernel computes them at max_skip = infinity);
+  where it chains by RMQ (MM_F_RMQ, the asm presets: the host chains
+  them, no kernel runs), the chains (u, cx, cy) of the first RMQ
+  chaining over the read's anchors, before the long-join rescue
+  (mg_lchain_rmq, lchain.c:250-369), taken from the mapping below;
+- the records minimap2 writes for it (PAF or SAM lines, as the
+  configuration's flags say).
 
 `fill` solves one recorded gap fill with the frozen ksw2.extd2.
 
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import io as _io
 import os
+import time
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
 
@@ -30,6 +36,7 @@ import numpy as np
 
 from bench_port.reference import refindex
 from bench_port.reference.mm import chain as chain_mod
+from bench_port.reference.mm import chain_rmq as rmq_mod
 from bench_port.reference.mm import hit as hit_mod
 from bench_port.reference.mm import ksw2
 from bench_port.reference.mm import paf as paf_mod
@@ -117,7 +124,9 @@ def records(index, mo, rec: SeqRecord, regs, rep_len: int) -> str:
 
 def map_read(index: MinimizerIndex, mo: O.MapOptions, name: str, seq: str
              ) -> dict:
-    """{"ax", "ay", "f", "p", "lines"} of one read."""
+    """{"ax", "ay", "lines"} of one read, with "f", "p" (the DP's) or,
+    under MM_F_RMQ, "u", "cx", "cy" (the RMQ chains'), and "seconds":
+    the time of the chaining and of the whole mapping."""
     mm = sketch(seq, index.w, index.k, 0, bool(index.flag & O.MM_I_HPC))
     if mo.sdust_thres > 0:
         mm = dust_minier(mm, seq, mo.sdust_thres)
@@ -126,17 +135,53 @@ def map_read(index: MinimizerIndex, mo: O.MapOptions, name: str, seq: str
     collect = (seed_ops.collect_seed_hits_heap
                if mo.flag & O.MM_F_HEAP_SORT else seed_ops.collect_seed_hits)
     ax, ay, _rep, _pos = collect(index, mo, mo.mid_occ, mm, len(seq), name)
-    gap_q, gap_r = mapper._chain_gaps(mo, 0)
-    cg, cs = chain_penalties(index, mo)
-    f, p = chain_mod._chain_dp_scores(
-        ax, ay, max(gap_r, mo.bw), max(gap_q, mo.bw), mo.bw,
-        mo.max_chain_skip, mo.max_chain_iter, cg, cs,
-        bool(mo.flag & O.MM_F_SPLICE), 1)
-    res = mapper.map_frag(index, mo, [seq], name)
-    rec = SeqRecord(0, name, seq)
-    return dict(ax=ax, ay=ay, f=np.asarray(f, np.int32),
-                p=np.asarray(p, np.int64),
-                lines=records(index, mo, rec, res.regs, res.rep_len))
+    out = dict(ax=ax, ay=ay)
+    t0 = time.perf_counter()
+    if mo.flag & O.MM_F_RMQ:
+        res, t_chain = _map_recording_rmq(index, mo, seq, name, out)
+    else:
+        gap_q, gap_r = mapper._chain_gaps(mo, 0)
+        cg, cs = chain_penalties(index, mo)
+        f, p = chain_mod._chain_dp_scores(
+            ax, ay, max(gap_r, mo.bw), max(gap_q, mo.bw), mo.bw,
+            mo.max_chain_skip, mo.max_chain_iter, cg, cs,
+            bool(mo.flag & O.MM_F_SPLICE), 1)
+        out.update(f=np.asarray(f, np.int32), p=np.asarray(p, np.int64))
+        t_chain = time.perf_counter() - t0
+        res = mapper.map_frag(index, mo, [seq], name)
+    out["seconds"] = dict(chain=t_chain, all=time.perf_counter() - t0)
+    out["lines"] = records(index, mo, SeqRecord(0, name, seq), res.regs,
+                           res.rep_len)
+    return out
+
+
+def _map_recording_rmq(index, mo, seq: str, name: str, out: dict):
+    """map_frag of one read, with out's "u", "cx", "cy" set from its
+    first chain_rmq call: mapper.chain_anchors' chaining of the read's
+    own anchors with mapper.py:101-105's arguments, before the long-join
+    rescue calls it again.  Returns (map_frag's result, the seconds of
+    its chain_rmq calls)."""
+    chain = rmq_mod.chain_rmq
+    took = []
+
+    def first(*a):
+        t = time.perf_counter()
+        got = chain(*a)
+        if not took:
+            out.update(u=got[0], cx=got[1], cy=got[2])
+        took.append(time.perf_counter() - t)
+        return got
+    rmq_mod.chain_rmq = first
+    try:
+        res = mapper.map_frag(index, mo, [seq], name)
+    finally:
+        rmq_mod.chain_rmq = chain
+    if not took:   # map_frag returned before chaining (an empty read)
+        out.update(u=_EMPTY, cx=_EMPTY, cy=_EMPTY)
+    return res, sum(took)
+
+
+_EMPTY = np.empty(0, np.uint64)
 
 
 def fill(mo: O.MapOptions, q: np.ndarray, t: np.ndarray, w: int, zdrop: int,
@@ -202,6 +247,39 @@ def comput_sc_bf16(axi, ayi, axj, ayj, max_dist_x, max_dist_y, bw, cg, cs,
     with np.errstate(over="ignore", invalid="ignore"):
         adj = _gap_cost32(dd, dg, cg, cs) - _gap_cost_bf16(dd, dg, cg, cs)
     return np.where(need, sc + adj, sc).astype(np.int32)
+
+
+_SC_RMQ32 = rmq_mod._sc_simple
+
+
+def sc_simple_bf16(axi: int, ayi: int, axj: int, ayj: int, cg, cs):
+    """The control's RMQ chain score: the frozen _sc_simple
+    (comput_sc_simple, lchain.c:230-248) with its gap cost, cg * dd +
+    cs * dg + mg_log2(dd + 1) / 2, computed as _gap_cost_bf16 computes
+    the DP's, in bfloat16 instead of float32."""
+    sc, exact, dd = _SC_RMQ32(axi, ayi, axj, ayj, cg, cs)
+    dq = ((ayi & 0xFFFFFFFF) - (ayj & 0xFFFFFFFF) + 2**31) % 2**32 - 2**31
+    dr = ((axi - axj) + 2**31) % 2**32 - 2**31
+    q_span = (ayj >> 32) & 0xFF
+    dg = min(dr, dq)
+    if dd or dq > q_span:
+        # the frozen cost is what it took off the gap-free score
+        cost = min(q_span, dg) - sc
+        with np.errstate(over="ignore", invalid="ignore"):
+            low = _gap_cost_bf16(np.array([dd]), np.array([dg]), cg, cs)
+        sc += cost - int(low[0])
+    return sc, exact, dd
+
+
+_BT_RMQ32 = rmq_mod.chain_backtrack
+
+
+def chain_backtrack_i16(f, p, min_cnt, min_sc, max_drop):
+    """The frozen chain_backtrack as the RMQ chaining calls it, over the
+    chain scores held in int16 (wrapping as a cast to int16 does) where
+    minimap2 holds them in int32."""
+    return _BT_RMQ32(f.astype(np.int16).astype(np.int32), p, min_cnt,
+                     min_sc, max_drop)
 
 
 _DP32 = chain_mod._chain_dp_scores
@@ -286,13 +364,16 @@ def event_identity_bf16(r):
 def use_control(kind: str | None) -> None:
     """Put the reference in the control's place, or back (None).  The
     control "lower" computes in the precision below the one minimap2 and
-    the port compute in: the chain scores in int16 where they are int32,
-    and the chain gap cost and the divergence estimates dv and de in
-    bfloat16 where they are float32."""
+    the port compute in: the chain scores in int16 where they are int32
+    (the DP's through its recursion, RMQ's as its backtrack reads them),
+    and the chain gap cost (the DP's and RMQ's) and the divergence
+    estimates dv and de in bfloat16 where they are float32."""
     on = kind == "lower"
     if kind not in (None, "lower"):
         raise ValueError(f"no control {kind!r}")
     chain_mod.comput_sc_vec = comput_sc_bf16 if on else _SC32
+    rmq_mod._sc_simple = sc_simple_bf16 if on else _SC_RMQ32
+    rmq_mod.chain_backtrack = chain_backtrack_i16 if on else _BT_RMQ32
     chain_mod._chain_dp_scores = chain_dp_scores_i16 if on else _DP32
     hit_mod.est_err = est_err_bf16 if on else _EST_ERR
     paf_mod._event_identity = event_identity_bf16 if on else _IDENTITY

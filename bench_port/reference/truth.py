@@ -29,10 +29,12 @@ def origin(name: str) -> tuple[str, int, int, bool]:
     return chrom, int(start), int(start) + int(rest[:-1]), rest[-1] == "-"
 
 
-def primary(text: str):
+def primary(text: str, sam: bool = True):
     """(chromosome, start, end, reverse, mapq) of the read's primary
-    record in `text` (its SAM lines), or None where it has none or it is
-    unmapped."""
+    record in `text` (its SAM lines, or its PAF lines where `sam` is
+    false), or None where it has none or it is unmapped."""
+    if not sam:
+        return _paf_primary(text)
     for line in text.splitlines():
         if line.startswith("@"):
             continue
@@ -49,10 +51,23 @@ def primary(text: str):
     return None
 
 
-def off(name: str, text: str) -> int:
-    """1 where the read's primary record is missing, unmapped, or placed
-    at MAPQ 1 or more off the read's origin; else 0."""
-    rec = primary(text)
+def _paf_primary(text: str):
+    """primary() of PAF lines: target name (column 6), strand (5), start
+    and end (8-9, already 0-based and end-exclusive) and MAPQ (12) of the
+    first line tagged tp:A:P.  An unmapped read's line (--paf-no-hit)
+    carries no tp tag."""
+    for line in text.splitlines():
+        f = line.split("\t")
+        if "tp:A:P" in f[12:]:
+            return f[5], int(f[7]), int(f[8]), f[4] == "-", int(f[11])
+    return None
+
+
+def off(name: str, text: str, sam: bool = True) -> int:
+    """1 where the read's primary record (SAM, or PAF where `sam` is
+    false) is missing, unmapped, or placed at MAPQ 1 or more off the
+    read's origin; else 0."""
+    rec = primary(text, sam)
     if rec is None:
         return 1
     chrom, start, end, rev, mapq = rec

@@ -1,12 +1,15 @@
 """Tiny copies of the benchmark's cells, for the CPU tests: the same
 configuration and traffic files, with a 1 Mbp genome of two chromosomes,
-a few short reads and two host threads."""
+a few short reads and two host threads; and tiny cells of configurations
+that BENCHMARK.json does not hold (fixtures/<name>.json)."""
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 import sys
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -32,3 +35,17 @@ def cell(name: str):
     c.traffic["length"].update(t.pop("length"))
     c.traffic.update(t)
     return c
+
+
+def fixture(name: str):
+    """The cell of fixtures/<name>.json ("config" and "traffic", at the
+    size they give), reporting every metric of BENCHMARK.json."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "fixtures", name + ".json")) as f:
+        d = json.load(f)
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    return SimpleNamespace(
+        name=name, chips=1, config_name=name, config=d["config"],
+        traffic_name=name, traffic=d["traffic"],
+        end_to_end=bench["end_to_end"], per_layer=bench["per_layer"])

@@ -38,3 +38,32 @@ def test_confident_wrong_answers_are_off(text):
 
 def test_mapq_zero_claims_no_position():
     assert truth.off(NAME, _sam(0x10, chrom="chr1", mapq=0)) == 0
+
+
+def _paf(strand="-", chrom="chr2", start=1000, end=1500, mapq=60, tp="P"):
+    return "\t".join(["r", "510", "0", "510", strand, chrom, "500000",
+                      str(start), str(end), "490", "510", str(mapq),
+                      "NM:i:20", f"tp:A:{tp}", "cm:i:40"])
+
+
+def test_paf_primary_is_the_first_line_tagged_p():
+    text = "\n".join([_paf(chrom="chr1", tp="S"), _paf(start=1100),
+                      _paf(chrom="chr3")]) + "\n"
+    assert truth.primary(text, sam=False) == ("chr2", 1100, 1500, True, 60)
+    assert truth.off(NAME, text, sam=False) == 0
+
+
+@pytest.mark.parametrize("text", [
+    _paf(chrom="chr1"),                           # another chromosome
+    _paf(strand="+"),                             # the other strand
+    _paf(start=1500, end=1900),                   # no overlap
+    _paf(chrom="chr1", tp="S"),                   # no primary line
+    "r\t510\t0\t0\t*\t*\t0\t0\t0\t0\t0\t0\trl:i:0",   # unmapped
+    "",                                           # no line at all
+])
+def test_paf_confident_wrong_answers_are_off(text):
+    assert truth.off(NAME, text, sam=False) == 1
+
+
+def test_paf_mapq_zero_claims_no_position():
+    assert truth.off(NAME, _paf(chrom="chr1", mapq=0), sam=False) == 0
